@@ -1,0 +1,37 @@
+"""gdpathtracing_torch — the PyTorch / CUDA port of gdpathtracing_tpu.
+
+Same module layout and names as the JAX package, so each counterpart sits at
+the same path. This package imports torch and never JAX. Ported so far: the
+standard per-bounce loop of a primal ``Traversal.PALLAS`` render
+(``RenderConfig(traversal=Traversal.PALLAS, regen=False)``) over scenes of
+at most 16 triangle chunks, with the closest-hit rows kernel in CUDA
+(``ops/intersect.py``, ``csrc/closest_hit_rows.cu``). Everything else raises
+NotImplementedError naming its ROADMAP item.
+
+Entry points: ``render.renderer.render_radiance`` and ``render.renderer.render``
+(the latter is not re-exported here, where its name would shadow the
+``render`` subpackage).
+"""
+
+import torch
+
+# The reference computes in full float32; no TF32 anywhere (the port itself
+# uses no matmul or convolution, this keeps callers' own products honest).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from gdpathtracing_torch.config import (DenoisingMode, Jitter, RenderConfig,
+                                        Traversal)
+from gdpathtracing_torch.render.camera import Camera
+from gdpathtracing_torch.render.renderer import FrameAOVs, render_radiance
+from gdpathtracing_torch.scene.materials import Material
+from gdpathtracing_torch.scene.scene import (Scene, SceneBuilder,
+                                             scene_from_arrays)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderConfig", "DenoisingMode", "Jitter", "Traversal", "Scene",
+    "SceneBuilder", "scene_from_arrays", "Material", "Camera", "FrameAOVs",
+    "render_radiance",
+]

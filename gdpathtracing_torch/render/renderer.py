@@ -1,0 +1,95 @@
+"""Top-level render functions — port of the standard-loop part of
+gdpathtracing_tpu/render/renderer.py.
+
+``render_radiance`` traces one frame in tiles of ``config.tile_rays`` rays
+(``lax.map`` over tiles becomes a Python loop) and returns the same AOVs as
+the JAX version; ``render`` adds the ACES tonemap. The frame runs on the
+scene's device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gdpathtracing_torch.config import RenderConfig
+from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.post.tonemap import aces_film
+from gdpathtracing_torch.render.camera import Camera
+from gdpathtracing_torch.render.integrator import (check_supported,
+                                                   get_trace_fn, path_trace)
+from gdpathtracing_torch.scene.scene import Scene
+
+
+class FrameAOVs(NamedTuple):
+    radiance: torch.Tensor  # (H, W, 3) f32 linear
+    depth: torch.Tensor     # (H, W) f32 first-hit distance
+    steps: torch.Tensor     # (H, W) i32 triangle tests
+    segments: torch.Tensor  # (H, W) i32 traced ray segments
+    normal: torch.Tensor    # (H, W, 3) f32 first-hit normal (0 on a miss)
+
+
+def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
+                    frame_index: int = 0) -> FrameAOVs:
+    """Trace the full frame on ``scene.device``. Only the ported slice
+    renders (``Traversal.PALLAS``, ``regen=False``, no NEE); any other
+    config raises NotImplementedError."""
+    check_supported(scene, config)
+    dev = scene.device
+    camera = camera.to(dev)
+    w, h = camera.width, camera.height
+    n_pix = w * h
+    tile = min(config.tile_rays, n_pix)
+    n_tiles = -(-n_pix // tile)
+    padded = n_tiles * tile
+
+    pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
+    trace_fn = get_trace_fn(config, scene)
+    frame_index = int(frame_index)
+
+    outs = []
+    for k in range(n_tiles):
+        pids = pixel_ids[k * tile:(k + 1) * tile]
+        px = pids % w
+        py = torch.div(pids, w, rounding_mode="floor")
+        acc_r = acc_g = acc_b = torch.zeros(tile, dtype=torch.float32,
+                                            device=dev)
+        depth = normal = None
+        steps = torch.zeros(tile, dtype=torch.int32, device=dev)
+        segments = torch.zeros(tile, dtype=torch.int32, device=dev)
+        for s in range(config.spp):
+            seed = rng.prng_seed(px, py, frame_index * config.spp + s)
+            ray, seed = camera.generate_rays(pids, seed, config)
+            res = path_trace(scene, ray, seed, config, trace_fn,
+                             far=camera.far)
+            acc_r = acc_r + res.radiance.x
+            acc_g = acc_g + res.radiance.y
+            acc_b = acc_b + res.radiance.z
+            depth = res.depth if depth is None else torch.minimum(depth,
+                                                                  res.depth)
+            steps = steps + res.steps
+            segments = segments + res.segments
+            if normal is None:
+                normal = res.normal.to_array()
+        inv = 1.0 / config.spp
+        outs.append((torch.stack([acc_r * inv, acc_g * inv, acc_b * inv],
+                                 dim=-1), depth, steps, segments, normal))
+
+    rgb, depth, steps, segments, normal = (torch.cat(x)[:n_pix]
+                                           for x in zip(*outs))
+    return FrameAOVs(radiance=rgb.reshape(h, w, 3),
+                     depth=depth.reshape(h, w),
+                     steps=steps.reshape(h, w),
+                     segments=segments.reshape(h, w),
+                     normal=normal.reshape(h, w, 3))
+
+
+def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,
+           frame_index: int = 0) -> torch.Tensor:
+    """One-shot convenience: trace + ACES tonemap → (H, W, 3) in [0, 1].
+    The default config is the JAX default (BVH), which raises here: pass
+    ``RenderConfig(traversal=Traversal.PALLAS, regen=False)``."""
+    config = config or RenderConfig()
+    aovs = render_radiance(scene, camera, config, frame_index)
+    return aces_film(aovs.radiance)

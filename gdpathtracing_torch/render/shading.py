@@ -1,0 +1,92 @@
+"""Hit → shading data from the closest-hit kernel's packed winner rows.
+
+Port of ``shading_from_rows`` and ``sample_texture_array`` of
+gdpathtracing_tpu/render/shading.py. Everything a hit needs (normals, uvs,
+material values) arrives pre-selected in ``hit.rows`` (ops/intersect.py
+``build_trace_table`` layout); only textured scenes gather.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gdpathtracing_torch.core.vec import Vec3, where as vwhere
+from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
+from gdpathtracing_torch.scene.scene import Scene
+
+MIN_ROUGHNESS = 0.006
+
+
+def sample_texture_array(textures: torch.Tensor, tex_idx: torch.Tensor,
+                         u: torch.Tensor, v: torch.Tensor) -> Vec3:
+    """Bilinear sample of (X, R, R, 3) with repeat wrapping; tex_idx < 0
+    returns white."""
+    res = textures.shape[1]
+    fu = torch.remainder(u, 1.0) * res - 0.5
+    fv = torch.remainder(v, 1.0) * res - 0.5
+    x0 = torch.floor(fu).to(torch.int64)
+    y0 = torch.floor(fv).to(torch.int64)
+    fx = fu - x0
+    fy = fv - y0
+    x0w = x0 % res
+    y0w = y0 % res
+    x1w = (x0 + 1) % res
+    y1w = (y0 + 1) % res
+    t = torch.clamp(tex_idx, min=0).to(torch.int64)
+
+    def fetch(yy, xx):
+        c = textures[t, yy, xx]  # (N, 3)
+        return Vec3(c[..., 0], c[..., 1], c[..., 2])
+
+    c00 = fetch(y0w, x0w)
+    c01 = fetch(y0w, x1w)
+    c10 = fetch(y1w, x0w)
+    c11 = fetch(y1w, x1w)
+    top = c00 + (c01 - c00) * fx
+    bot = c10 + (c11 - c10) * fx
+    color = top + (bot - top) * fy
+    untextured = tex_idx < 0
+    one = Vec3.full(1.0, like=color)
+    return vwhere(untextured, one, color)
+
+
+def shading_from_rows(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:
+    """Gather-free shading fetch from the (48, N) winner rows."""
+    r = hit.rows
+    u, v = hit.u, hit.v
+    w = 1.0 - u - v
+    normal = Vec3(
+        r[0] * w + r[3] * u + r[6] * v,
+        r[1] * w + r[4] * u + r[7] * v,
+        r[2] * w + r[5] * u + r[8] * v,
+    ).normalize(eps=1e-20)
+    normal = vwhere(hit.front, normal, -normal)
+    uv_u = r[9] * w + r[11] * u + r[13] * v
+    uv_v = r[10] * w + r[12] * u + r[14] * v
+
+    albedo = Vec3(r[17], r[18], r[19])
+    if scene.has_textures:
+        tex_idx = r[26].to(torch.int32)
+        albedo = albedo * sample_texture_array(scene.textures, tex_idx,
+                                               uv_u, uv_v)
+    energy = torch.clamp(r[23], min=0.0)
+    emission = Vec3(r[20] * energy, r[21] * energy, r[22] * energy)
+    metallic = r[24]
+    roughness = r[25]
+    if scene.has_mr_textures:
+        mr_idx = r[29].to(torch.int32)
+        mr = sample_texture_array(scene.textures, mr_idx, uv_u, uv_v)
+        roughness = torch.where(mr_idx >= 0, roughness * mr.y, roughness)
+        metallic = torch.where(mr_idx >= 0, metallic * mr.z, metallic)
+    position = ray.at(hit.t)
+    out_dir = -ray.d
+    fresnel_0 = Vec3.full(0.02, like=albedo) + \
+        (albedo - Vec3.full(0.02, like=albedo)) * metallic
+    diffuse_albedo = albedo - albedo * metallic
+    roughness = torch.clamp(roughness, min=MIN_ROUGHNESS)
+    return ShadingInfo(
+        position=position, normal=normal, out_dir=out_dir,
+        lambert_out=normal.dot(out_dir), emission=emission,
+        diffuse_albedo=diffuse_albedo, fresnel_0=fresnel_0,
+        roughness=roughness,
+        transmission=r[27], ior=r[28], albedo=albedo)

@@ -1,0 +1,84 @@
+"""Tests of the port that need an NVIDIA GPU (marked ``cuda``; they skip
+where ``torch.cuda.is_available()`` is false). This file imports no JAX, so
+it runs on a machine that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.ops import intersect as ti
+from gdpathtracing_torch.render.renderer import render_radiance
+from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return build_demo_scene(texture_resolution=8, sphere_detail=6)
+
+
+def _args(scene, n, device):
+    g = np.random.default_rng(0)
+    o = g.uniform(-2.5, 2.5, (3, n)).astype(np.float32)
+    d = g.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    prep = ti.prepare_trace_inputs(scene.to(device))
+    o4 = torch.from_numpy(np.concatenate([o, np.ones((1, n), np.float32)]))
+    d4 = torch.from_numpy(np.concatenate([d, np.zeros((1, n), np.float32)]))
+    return (o4.to(device), d4.to(device), prep.bounds, prep.mu, prep.mv,
+            prep.mw, prep.tab)
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_kernel_matches_plain(scene, n):
+    args = _args(scene, n, "cuda")
+    before = ti.closest_hit_rows.launches
+    got = ti.closest_hit_rows(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_rows.launches == before + 1
+    want = ti.closest_hit_rows_plain(*args)
+    # Built with -fmad=false: every row equal, t bit for bit.
+    assert torch.equal(got, want)
+    assert torch.equal(got[40].view(torch.int32), want[40].view(torch.int32))
+    assert (got[40] < ti._MISS).any()
+
+
+def test_kernel_matches_cpu_plain(scene):
+    """Same inputs (built on the CPU, copied to the card): the kernel's
+    rows equal the CPU plain version's."""
+    args = _args(scene, 512, "cpu")
+    got = ti.closest_hit_rows(*(a.cuda() for a in args)).cpu()
+    assert torch.equal(got, ti.closest_hit_rows(*args))
+
+
+def test_render_cuda_matches_cpu(scene):
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen=False, bounces=4)
+    cam = demo_camera(40, 24)
+    a = render_radiance(scene.to("cuda"), cam, cfg, 3)
+    b = render_radiance(scene, cam, cfg, 3)
+    ok = (torch.abs(a.radiance.cpu() - b.radiance) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= 0.99
+    assert torch.equal(a.segments.cpu()[ok], b.segments[ok])
+
+
+def test_pcg2d_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = np.random.default_rng(0)
+    s = [torch.from_numpy(g.integers(0, 2 ** 32, 4096, dtype=np.int64))
+         for _ in range(2)]
+    (u, v), (sx, sy) = rng.pcg2d((s[0].cuda(), s[1].cuda()))
+    (u0, v0), (sx0, sy0) = rng.pcg2d((s[0], s[1]))
+    assert torch.equal(sx.cpu(), sx0) and torch.equal(sy.cpu(), sy0)
+    assert torch.equal(u.cpu(), u0) and torch.equal(v.cpu(), v0)

@@ -1,0 +1,46 @@
+"""The port never imports JAX: a fresh interpreter in which ``import jax``
+(and the JAX package) cannot succeed imports every module of
+gdpathtracing_torch and renders a 16x16 frame."""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None                 # any `import jax...` now raises
+sys.modules["gdpathtracing_tpu"] = None
+import torch
+torch.set_num_threads(1)
+import gdpathtracing_torch
+names = [m.name for m in pkgutil.walk_packages(gdpathtracing_torch.__path__,
+                                               "gdpathtracing_torch.")]
+for name in names:
+    importlib.import_module(name)
+from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.render.renderer import render_radiance
+from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+aovs = render_radiance(scene, demo_camera(16, 16),
+                       RenderConfig(traversal=Traversal.PALLAS, regen=False,
+                                    bounces=2))
+assert aovs.radiance.shape == (16, 16, 3)
+assert bool(torch.isfinite(aovs.radiance).all())
+assert int(aovs.segments.sum()) >= 16 * 16
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
+          or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
+assert not leaked, leaked
+print("MODULES", len(names))
+"""
+
+
+def test_port_imports_and_renders_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    n = int(proc.stdout.split("MODULES")[1])
+    assert n >= 18  # every module of the slice, csrc/ aside

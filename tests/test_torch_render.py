@@ -1,0 +1,140 @@
+"""The ported slice end to end: render_radiance with Traversal.PALLAS and
+regen=False against the PALLAS golden and against the JAX package, plus the
+configs it refuses."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import gdpathtracing_tpu.ops.intersect_pallas as jip
+from gdpathtracing_tpu.config import (Jitter as JJitter,
+                                      RenderConfig as JRenderConfig,
+                                      Traversal as JTraversal)
+from gdpathtracing_tpu.render.renderer import (
+    render_radiance as jax_render_radiance)
+from gdpathtracing_tpu.scene.demo import (build_demo_scene as jax_demo_scene,
+                                          demo_camera as jax_demo_camera)
+
+from gdpathtracing_torch.config import Jitter, RenderConfig, Traversal
+from gdpathtracing_torch.post.tonemap import aces_film
+from gdpathtracing_torch.render.renderer import render, render_radiance
+from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                            build_sphere_grid, demo_camera)
+
+torch.set_num_threads(1)
+DATA = Path(__file__).parent / "data"
+SLICE = RenderConfig(traversal=Traversal.PALLAS, regen=False)
+# Paths are chaotic: a 1-ulp difference between XLA's and torch's tan, sin
+# and cos (the primary-ray FOV, the BRDF sample) can flip which triangle of
+# a shared edge a ray hits, or a grazing hit into a miss, and that path then
+# diverges. Such pixels are few: each comparison allows 1% of them.
+MIN_PIXELS_OK = 0.99
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return build_demo_scene(texture_resolution=8, sphere_detail=6)
+
+
+def test_golden_pallas_16(scene):
+    """tests/data/golden_pallas_16.npz (JAX PALLAS, interpret mode) at
+    test_golden.py's tolerance, rtol = atol = 2e-3, on >= 99% of pixels
+    (measured: 254 of 256; the other two diverge after a 1-ulp camera-ray
+    difference picks the other triangle of a shared edge)."""
+    cfg = SLICE.replace(bounces=3, spp=2, jitter=Jitter.NONE)
+    img = render_radiance(scene, demo_camera(16, 16), cfg, 0).radiance
+    ref = np.load(DATA / "golden_pallas_16.npz")["image"]
+    assert img.shape == ref.shape == (16, 16, 3)
+    ok = np.isclose(img.numpy(), ref, rtol=2e-3, atol=2e-3).all(axis=-1)
+    assert ok.mean() >= MIN_PIXELS_OK, (~ok).sum()
+
+
+def test_matches_jax_40x24(scene):
+    """The port against JAX render_radiance (regen=False, the PALLAS kernel
+    in interpret mode) at 40x24, 4 bounces, frame 3: radiance within 1e-4
+    on >= 99% of pixels, segments equal on those pixels, depth within
+    rtol 1e-5 there."""
+    cam_j = jax_demo_camera(40, 24)
+    cfg_j = JRenderConfig(bounces=4, traversal=JTraversal.PALLAS,
+                          jitter=JJitter.UNIFORM, regen=False)
+    old = jip._FORCE_INTERPRET
+    jip._FORCE_INTERPRET = True
+    try:
+        ref = jax_render_radiance(
+            jax_demo_scene(texture_resolution=8, sphere_detail=6), cam_j,
+            cfg_j, 3)
+    finally:
+        jip._FORCE_INTERPRET = old
+    got = render_radiance(scene, demo_camera(40, 24), SLICE.replace(
+        bounces=4), 3)
+    ok = (np.abs(got.radiance.numpy() - np.asarray(ref.radiance))
+          <= 1e-4).all(axis=-1)
+    assert ok.mean() >= MIN_PIXELS_OK, (~ok).sum()
+    np.testing.assert_array_equal(got.segments.numpy()[ok],
+                                  np.asarray(ref.segments)[ok])
+    np.testing.assert_allclose(got.depth.numpy()[ok],
+                               np.asarray(ref.depth)[ok], rtol=1e-5)
+    np.testing.assert_allclose(got.normal.numpy()[ok],
+                               np.asarray(ref.normal)[ok], atol=1e-5)
+    assert got.segments.numpy().sum() >= 40 * 24
+
+
+def test_compaction_is_result_transparent(scene):
+    """Survivor compaction forced on and off gives the same frame, bit for
+    bit: the winner, and every per-ray value, is independent of which rays
+    share a block."""
+    cam = demo_camera(40, 24)
+    on = render_radiance(scene, cam, SLICE.replace(bounces=4,
+                                                   compact_rays=True), 3)
+    off = render_radiance(scene, cam, SLICE.replace(bounces=4,
+                                                    compact_rays=False), 3)
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_tiles_and_spp(scene):
+    """Several tiles (tile_rays < pixels, last tile wrapping) and spp 2 give
+    the one-tile frame."""
+    cam = demo_camera(24, 16)
+    cfg = SLICE.replace(bounces=2, spp=2)
+    one = render_radiance(scene, cam, cfg, 1)
+    tiled = render_radiance(scene, cam, cfg.replace(tile_rays=160), 1)
+    for a, b in zip(one, tiled):
+        assert torch.equal(a, b)
+    assert one.radiance.dtype == torch.float32
+    assert one.segments.dtype == one.steps.dtype == torch.int32
+
+
+def test_render_tonemaps(scene):
+    cam = demo_camera(16, 16)
+    img = render(scene, cam, SLICE.replace(bounces=2), 0)
+    lin = render_radiance(scene, cam, SLICE.replace(bounces=2), 0).radiance
+    assert torch.equal(img, aces_film(lin))
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+
+@pytest.mark.parametrize("change", [
+    dict(traversal=Traversal.BVH, regen=False), dict(regen=None),
+    dict(regen=True), dict(nee=True), dict(differentiable=True),
+    dict(soft_shadows=0.01), dict(soft_primary=0.01), dict(sort_rays=True),
+    dict(rr_start=2), dict(traversal=Traversal.MEGA)])
+def test_outside_the_slice_raises(scene, change):
+    cfg = SLICE.replace(**change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_radiance(scene, demo_camera(8, 8), cfg)
+
+
+def test_default_config_raises(scene):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render(scene, demo_camera(8, 8))
+
+
+def test_superchunk_scene_raises():
+    grid = build_sphere_grid(n=5, sphere_detail=8)  # 22 chunks
+    assert grid.isect_mu.shape[1] // 256 > 16
+    with pytest.raises(NotImplementedError, match="item 8"):
+        render_radiance(grid, demo_camera(8, 8), SLICE)

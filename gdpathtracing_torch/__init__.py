@@ -1,12 +1,15 @@
 """gdpathtracing_torch — the PyTorch / CUDA port of gdpathtracing_tpu.
 
 Same module layout and names as the JAX package, so each counterpart sits at
-the same path. This package imports torch and never JAX. Ported so far: the
-standard per-bounce loop of a primal ``Traversal.PALLAS`` render
-(``RenderConfig(traversal=Traversal.PALLAS, regen=False)``) over scenes of
-at most 16 triangle chunks, with the closest-hit rows kernel in CUDA
-(``ops/intersect.py``, ``csrc/closest_hit_rows.cu``). Everything else raises
-NotImplementedError naming its ROADMAP item.
+the same path. This package imports torch and never JAX. Ported so far: a
+primal ``Traversal.PALLAS`` render (``RenderConfig(traversal=
+Traversal.PALLAS)``) over scenes of at most 16 triangle chunks, through the
+path-regeneration loop (the default) or the standard per-bounce loop
+(``regen=False``), with or without next-event estimation (``nee=True``);
+its three kernels (closest hit, occlusion, and the two fused) are in CUDA
+(``ops/intersect.py``, ``csrc/``). Scenes are built on the GPU unless the
+caller asks for another device. Everything else raises NotImplementedError
+naming its ROADMAP item.
 
 Entry points: ``render.renderer.render_radiance`` and ``render.renderer.render``
 (the latter is not re-exported here, where its name would shadow the

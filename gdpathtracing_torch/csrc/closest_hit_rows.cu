@@ -29,32 +29,13 @@
 // f32 = 12 KB) in shared memory, where every thread reads the same
 // triangle at once (a broadcast, no bank conflicts). The best hit stays in
 // registers; the 40-row table gather happens once per ray at the end.
-//
-// Numerics: build with -fmad=false and without --use_fast_math. Every
-// product and sum is then rounded on its own, in the same order as the
-// plain PyTorch version (intersect.py closest_hit_rows_plain), and the
-// division is IEEE, so the two agree bit for bit on t and eidx.
+// The device code lives in trace_common.cuh, shared with kernels 2 and 4.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "trace_common.cuh"
 
 namespace {
 
-constexpr int kBN = 256;     // rays per block (one thread per ray)
-constexpr int kBT = 256;     // triangles per chunk
-constexpr int kTabR = 40;    // table rows
-constexpr float kMiss = 1e9f;
-constexpr float kWdEps = 1e-12f;
-
-__device__ __forceinline__ float rcp_guarded(float d) {
-  return 1.0f / (fabsf(d) < 1e-30f ? 1e-30f : d);
-}
-
-__device__ __forceinline__ float dot4(float a0, float a1, float a2, float a3,
-                                      float b0, float b1, float b2,
-                                      float b3) {
-  return a0 * b0 + a1 * b1 + a2 * b2 + a3 * b3;
-}
+using namespace gdpt;
 
 __global__ void __launch_bounds__(kBN)
 closest_hit_rows_kernel(const float* __restrict__ o4,
@@ -65,98 +46,31 @@ closest_hit_rows_kernel(const float* __restrict__ o4,
                         const float* __restrict__ mw,
                         const float* __restrict__ tab,
                         float* __restrict__ out, int n, int e) {
-  // Rows 0-3 mu, 4-7 mv, 8-11 mw of the chunk being swept.
-  __shared__ float s_m[12][kBT];
+  __shared__ ChunkRows s_m;
 
   const int nc = e / kBT;
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
-  const size_t sn = (size_t)n;
+  const Ray r = load_ray(o4, d4, (size_t)n, ray);
 
-  const float ox = o4[ray], oy = o4[sn + ray], oz = o4[2 * sn + ray],
-              ow = o4[3 * sn + ray];
-  const float dx = d4[ray], dy = d4[sn + ray], dz = d4[2 * sn + ray],
-              dw = d4[3 * sn + ray];
-  const float rdx = rcp_guarded(dx), rdy = rcp_guarded(dy),
-              rdz = rcp_guarded(dz);
-
-  float best_t = kMiss, best_u = 0.f, best_v = 0.f, best_wd = 0.f;
-  int best_e = 0;
+  Best best = no_hit();
   float steps = 0.f, sweeps = 0.f;
 
   for (int c = 0; c < nc; ++c) {
-    const float tx1 = (bounds[c] - ox) * rdx;
-    const float tx2 = (bounds[3 * nc + c] - ox) * rdx;
-    const float ty1 = (bounds[nc + c] - oy) * rdy;
-    const float ty2 = (bounds[4 * nc + c] - oy) * rdy;
-    const float tz1 = (bounds[2 * nc + c] - oz) * rdz;
-    const float tz2 = (bounds[5 * nc + c] - oz) * rdz;
-    const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                             fminf(tz1, tz2));
-    const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                             fmaxf(tz1, tz2));
-    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best_t);
+    float tmin, tmax;
+    slab(r, bounds, nc, c, tmin, tmax);
+    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
 
     // Also the barrier that ends every read of the previous chunk's rows.
     if (!__syncthreads_or(may)) continue;
-
-    const size_t col = (size_t)c * kBT + tid;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s_m[k][tid] = mu[k * (size_t)e + col];
-      s_m[4 + k][tid] = mv[k * (size_t)e + col];
-      s_m[8 + k][tid] = mw[k * (size_t)e + col];
-    }
+    stage_chunk(s_m, mu, mv, mw, (size_t)e, c, tid);
     __syncthreads();
     sweeps += 1.f;
     if (!may) continue;
     steps += (float)kBT;
-
-    const int base = c * kBT;
-#pragma unroll 4
-    for (int j = 0; j < kBT; ++j) {
-      const float wd = dot4(dx, dy, dz, dw, s_m[8][j], s_m[9][j], s_m[10][j],
-                            s_m[11][j]);
-      const float wo = dot4(ox, oy, oz, ow, s_m[8][j], s_m[9][j], s_m[10][j],
-                            s_m[11][j]);
-      const bool wd_ok = fabsf(wd) > kWdEps;
-      const float t = -wo / (wd_ok ? wd : 1.0f);
-      const float uo = dot4(ox, oy, oz, ow, s_m[0][j], s_m[1][j], s_m[2][j],
-                            s_m[3][j]);
-      const float ud = dot4(dx, dy, dz, dw, s_m[0][j], s_m[1][j], s_m[2][j],
-                            s_m[3][j]);
-      const float vo = dot4(ox, oy, oz, ow, s_m[4][j], s_m[5][j], s_m[6][j],
-                            s_m[7][j]);
-      const float vd = dot4(dx, dy, dz, dw, s_m[4][j], s_m[5][j], s_m[6][j],
-                            s_m[7][j]);
-      const float u = uo + t * ud;
-      const float v = vo + t * vd;
-      const bool valid = wd_ok && (t > 0.f) && (u >= 0.f) && (v >= 0.f) &&
-                         (u + v <= 1.f);
-      const int eidx = base + j;
-      if (valid && (t < best_t ||
-                    (t == best_t && t < kMiss && eidx < best_e))) {
-        best_t = t;
-        best_e = eidx;
-        best_u = u;
-        best_v = v;
-        best_wd = wd;
-      }
-    }
+    sweep_closest(s_m, r, c * kBT, best);
   }
-
-  const bool hit = best_t < kMiss;
-  for (int r = 0; r < kTabR; ++r) {
-    out[r * sn + ray] = hit ? tab[r * (size_t)e + best_e] : 0.f;
-  }
-  out[40 * sn + ray] = best_t;
-  out[41 * sn + ray] = best_u;
-  out[42 * sn + ray] = best_v;
-  out[43 * sn + ray] = best_wd;
-  out[44 * sn + ray] = (float)best_e;
-  out[45 * sn + ray] = steps;
-  out[46 * sn + ray] = sweeps;
-  out[47 * sn + ray] = 0.f;
+  write_rows(out, tab, (size_t)n, (size_t)e, ray, best, steps, sweeps, 0.f);
 }
 
 }  // namespace

@@ -3,15 +3,16 @@
 Each kernel source ``csrc/<name>.cu`` exports a plain C function, so it
 compiles in seconds without PyTorch's headers. The shared library lands in
 ``build/gdpathtracing_torch/`` at the repository root (listed in
-.gitignore), named by a hash of the source and the flags: a changed source
-is rebuilt, an unchanged one is loaded as it is. Nothing is built at import
-time; the first CUDA launch of a kernel builds it.
+.gitignore), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags: a changed source is rebuilt, an unchanged
+one is loaded as it is. Nothing is built at import time; the first CUDA
+launch of a kernel builds it, and :func:`load_libraries` builds several at
+once, one nvcc process per source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class Library(NamedTuple):
     lib: ctypes.CDLL
     path: Path
-    build_seconds: float  # 0.0 when an up-to-date build was loaded
+    build_seconds: float  # wall time of its nvcc (0.0 when an up-to-date
+    #                       build was loaded; builds run in parallel)
     log: str              # nvcc/ptxas output of the build ("" when loaded)
 
 
@@ -49,24 +51,54 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> Library:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{key}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
+KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee")
+
+_loaded: dict[str, Library] = {}
+
+
+def _library_path(name: str) -> Path:
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
+
+
+def load_libraries(names=KERNELS) -> list[Library]:
+    """Build (where needed, in parallel) and load ``csrc/<name>.cu`` for
+    each name. Raises with nvcc's output if a build fails, after every
+    started nvcc has ended."""
+    todo = [n for n in dict.fromkeys(names) if n not in _loaded]
+    builds = {}
+    for name in todo:
+        so = _library_path(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds[name] = (proc, tmp, so, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, so, t0) in builds.items():
+        log, _ = proc.communicate()
+        done[name] = (time.perf_counter() - t0, log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
-        os.replace(tmp, so)
-    return Library(ctypes.CDLL(str(so)), so, seconds, log)
+            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in todo:
+        so = _library_path(name)
+        seconds, log = done.get(name, (0.0, ""))
+        _loaded[name] = Library(ctypes.CDLL(str(so)), so, seconds, log)
+    return [_loaded[n] for n in names]
+
+
+def load_library(name: str) -> Library:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return load_libraries((name,))[0]

@@ -1,28 +1,40 @@
-"""Closest-hit traversal over the chunked expanded-triangle list.
+"""Ray traversal over the chunked expanded-triangle list.
 
 Port of the flat (≤ 16 chunks) part of gdpathtracing_tpu/ops/intersect_pallas.py:
-``build_trace_table``, ``_inflate_bounds``, ``prepare_trace_inputs`` and
-``trace_pallas``, over kernel 1 of the TPU package (``_kernel_rows`` +
-``_sweep_update``), here :func:`closest_hit_rows`:
+``build_trace_table``, ``_inflate_bounds``, ``_sub_bounds``,
+``prepare_trace_inputs``, ``trace_pallas``, ``occluded_pallas`` and
+``trace_occlude_pallas``, over three kernels of the TPU package, each here a
+wrapper that
 
-- on a CUDA tensor it launches the hand-written kernel
-  ``csrc/closest_hit_rows.cu`` (built by nvcc at first use, ops/build.py);
-- on a CPU tensor it runs :func:`closest_hit_rows_plain`, the plain PyTorch
-  version of the same contract, which the CPU tests hold against JAX and
-  ``chip_smoke.py`` holds against the kernel on the card.
+- on a CUDA tensor launches a hand-written kernel from ``csrc/`` (built by
+  nvcc at first use, ops/build.py) and counts the launch in ``.launches``;
+- on a CPU tensor runs the kernel's plain PyTorch version, which the CPU
+  tests hold against JAX and ``chip_smoke.py`` holds against the kernel on
+  the card.
 
-The TPU kernel visits chunks near-to-far from a per-block queue; the winner
-does not depend on visit order, so both versions here walk the chunks in
-index order (only the ``steps`` row sees the difference).
+=====================  ======================================  ==================
+wrapper                 TPU kernel (intersect_pallas.py)        CUDA source
+=====================  ======================================  ==================
+closest_hit_rows        ``_kernel_rows`` + ``_sweep_update``     closest_hit_rows.cu
+occluded                ``_occlusion_kernel``                    occlusion.cu
+closest_hit_rows_nee    ``_kernel_rows_nee`` (the two fused)     closest_hit_rows_nee.cu
+=====================  ======================================  ==================
+
+The TPU kernels visit chunks near-to-far from a per-block queue; neither the
+closest-hit winner nor the any-hit answer depends on visit order, so every
+version here walks the chunks in index order (only the ``steps`` row and the
+sweep telemetry see the difference).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from gdpathtracing_torch.render.lights import LightTable, build_light_table
 from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
 
@@ -31,13 +43,17 @@ BT = 256     # triangles per chunk
 TAB_R = 40   # winner-table rows
 OUT_R = 48   # output rows: 0:40 table | 40 t | 41 u | 42 v | 43 w_d |
 #              44 eidx | 45 triangles swept by the ray | 46 chunks swept
-#              by its 256-ray block | 47 zero
+#              by its 256-ray block | 47 chunks the block swept for
+#              shadow rays (closest_hit_rows_nee; zero otherwise)
+SUB = 2      # sub-chunks per chunk: a shadow ray tests each 128-triangle
+SW = BT // SUB  # half's own box before sweeping it
 MAX_FLAT_CHUNKS = 16  # larger scenes take the superchunk kernel (not ported)
 _WD_EPS = 1e-12
 _MISS = 1e9
 
 
-def build_trace_table(scene: Scene) -> torch.Tensor:
+def build_trace_table(scene: Scene, lights: LightTable | None = None
+                      ) -> torch.Tensor:
     """(40, E) f32 per-expanded-triangle table:
 
       0:9   world shading normals n0, n1, n2
@@ -49,9 +65,9 @@ def build_trace_table(scene: Scene) -> torch.Tensor:
       30    NEE pdf term pick_prob/area (0 = not an emitter)
       31:34 emitter geometric normal
       34:40 zero padding
-    """
-    from gdpathtracing_torch.render.lights import build_light_table
 
+    ``lights`` is the scene's light table (built here when not given).
+    """
     shade = scene.isect_shade  # (E, 16)
     e = shade.shape[0]
     mat_id = shade[:, 15].to(torch.int64)
@@ -65,7 +81,7 @@ def build_trace_table(scene: Scene) -> torch.Tensor:
     mats = mat_tbl[mat_id]
 
     if scene.n_lights > 0:
-        lt = build_light_table(scene)
+        lt = lights if lights is not None else build_light_table(scene)
         li = torch.clamp(scene.isect_light, 0, lt.area.shape[0] - 1).long()
         is_l = (scene.isect_light >= 0).to(torch.float32)
         inv_term = (lt.pick_prob[li] / torch.clamp(lt.area[li], min=1e-8)) \
@@ -99,6 +115,29 @@ def _inflate_bounds(cb: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo - eps, hi + eps, pad], dim=0)
 
 
+def _sub_bounds(scene: Scene) -> torch.Tensor:
+    """(8, SUB·nc) inflated AABBs of the 128-triangle halves of every chunk
+    (half s of chunk c is column c·SUB + s), from world-space vertices.
+    Pad and degenerate triangles (zero unit-space columns) do not widen a
+    box; an all-pad half gets a point box far away that no slab passes."""
+    tf = scene.inst_transform[scene.isect_inst.long()]    # (E, 3, 4)
+    tp = scene.tri_pos[scene.isect_tri.long()]            # (E, 3, 3) object
+    world = (tf[:, None, :, 0] * tp[:, :, 0:1] + tf[:, None, :, 1]
+             * tp[:, :, 1:2] + tf[:, None, :, 2] * tp[:, :, 2:3]
+             + tf[:, None, :, 3])                         # (E, 3, 3) world
+    real = (torch.abs(scene.isect_mu).sum(dim=0) > 0.0)[:, None]
+    vlo = torch.where(real, world.amin(dim=1), torch.inf)  # (E, 3)
+    vhi = torch.where(real, world.amax(dim=1), -torch.inf)
+    ns = vlo.shape[0] // SW
+    lo = vlo.view(ns, SW, 3).amin(dim=1)
+    hi = vhi.view(ns, SW, 3).amax(dim=1)
+    empty = ~torch.isfinite(lo[:, :1])
+    lo = torch.where(empty, 1e30, lo)
+    hi = torch.where(empty, 1e30, hi)
+    return _inflate_bounds(torch.cat([lo, hi, lo.new_zeros((ns, 2))],
+                                     dim=1).T)
+
+
 class TracePrep(NamedTuple):
     """Kernel-ready trace inputs, built once per scene."""
     mu: torch.Tensor      # (4, E)
@@ -106,6 +145,8 @@ class TracePrep(NamedTuple):
     mw: torch.Tensor
     tab: torch.Tensor     # (40, E)
     bounds: torch.Tensor  # (8, nc) inflated chunk AABBs
+    sub_bounds: torch.Tensor  # (8, SUB·nc) inflated sub-chunk AABBs
+    lights: LightTable | None  # NEE light table (None without emitters)
 
 
 def prepare_trace_inputs(scene: Scene) -> TracePrep:
@@ -119,18 +160,23 @@ def prepare_trace_inputs(scene: Scene) -> TracePrep:
             f"scene has {nc} chunks; scenes with more than "
             f"{MAX_FLAT_CHUNKS} need the superchunk kernels "
             f"(ROADMAP queue 1, item 8)")
+    lights = build_light_table(scene)
     return TracePrep(scene.isect_mu.contiguous(), scene.isect_mv.contiguous(),
-                     scene.isect_mw.contiguous(), build_trace_table(scene),
-                     _inflate_bounds(scene.isect_chunk_bounds).contiguous())
+                     scene.isect_mw.contiguous(),
+                     build_trace_table(scene, lights),
+                     _inflate_bounds(scene.isect_chunk_bounds).contiguous(),
+                     _sub_bounds(scene).contiguous(), lights)
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: closest hit + winner rows
+# Shared by the kernels: input checks, launch, the slab test
 # ---------------------------------------------------------------------------
 
-def _check_inputs(o4t, d4t, bounds, mu, mv, mw, tab) -> tuple[int, int]:
-    args = dict(o4t=o4t, d4t=d4t, bounds=bounds, mu=mu, mv=mv, mw=mw,
-                tab=tab)
+def _check_inputs(**args) -> tuple[int, int]:
+    """Check the kernel operands named in ``args`` (dtype, device, layout,
+    shape) and return (N, E). N rays come from ``o4t``, E triangles from
+    ``mu``."""
+    o4t, mu = args["o4t"], args["mu"]
     dev = o4t.device
     for name, x in args.items():
         if not isinstance(x, torch.Tensor):
@@ -144,17 +190,87 @@ def _check_inputs(o4t, d4t, bounds, mu, mv, mw, tab) -> tuple[int, int]:
     n = o4t.shape[1] if o4t.dim() == 2 else -1
     e = mu.shape[1] if mu.dim() == 2 else -1
     nc = e // BT
-    want = dict(o4t=(4, n), d4t=(4, n), bounds=(8, nc), mu=(4, e),
-                mv=(4, e), mw=(4, e), tab=(TAB_R, e))
-    for name, shape in want.items():
-        if tuple(args[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(args[name].shape)}, "
-                             f"expected {shape}")
+    want = dict(o4t=(4, n), d4t=(4, n), so4t=(4, n), sd4t=(4, n),
+                tlim=(n,), stmax=(n,), bounds=(8, nc),
+                sub_bounds=(8, SUB * nc), mu=(4, e), mv=(4, e), mw=(4, e),
+                tab=(TAB_R, e))
+    for name, x in args.items():
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {want[name]}")
     if n <= 0 or n % BN or e <= 0 or e % BT:
         raise ValueError(f"need N % {BN} == 0 and E % {BT} == 0 "
                          f"(N={n}, E={e})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
     return n, e
 
+
+@functools.lru_cache(maxsize=None)
+def _c_function(name: str, n_ptrs: int):
+    """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` device
+    pointers, then N, E and the stream; returns a cudaError_t."""
+    from gdpathtracing_torch.ops.build import load_library
+
+    fn = getattr(load_library(name).lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, tensors: tuple, n: int, e: int) -> None:
+    """Launch kernel ``name`` on the current stream (no synchronisation);
+    raise if the launch was refused."""
+    dev = tensors[0].device
+    fn = _c_function(name, len(tensors))
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in tensors), n, e,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _slab(b, ox, oy, oz, rdx, rdy, rdz):
+    """(tmin, tmax) of every ray against the box ``b`` = (8,) [min3 | max3
+    | pad2]; the term order of csrc/trace_common.cuh ``slab``."""
+    tx1 = (b[0] - ox) * rdx
+    tx2 = (b[3] - ox) * rdx
+    ty1 = (b[1] - oy) * rdy
+    ty2 = (b[4] - oy) * rdy
+    tz1 = (b[2] - oz) * rdz
+    tz2 = (b[5] - oz) * rdz
+    tmin = torch.maximum(torch.maximum(torch.minimum(tx1, tx2),
+                                       torch.minimum(ty1, ty2)),
+                         torch.minimum(tz1, tz2))
+    tmax = torch.minimum(torch.minimum(torch.maximum(tx1, tx2),
+                                       torch.maximum(ty1, ty2)),
+                         torch.maximum(tz1, tz2))
+    return tmin, tmax
+
+
+def _dot4(m, x0, x1, x2, x3):
+    """(4, k) triangle rows x (r,) rays -> (r, k), summed left to right."""
+    return x0[:, None] * m[0] + x1[:, None] * m[1] + \
+        x2[:, None] * m[2] + x3[:, None] * m[3]
+
+
+def _uvt(cols, mu, mv, mw, o, d):
+    """u, v, t and w_d of rays ``o``/``d`` (4-tuples of (r,)) against the
+    triangles ``cols`` -> each (r, len(cols)); t is taken with w_d = 1
+    where |w_d| <= 1e-12 (never a hit)."""
+    w_d = _dot4(mw[:, cols], *d)
+    w_o = _dot4(mw[:, cols], *o)
+    wd_ok = torch.abs(w_d) > _WD_EPS
+    t = -w_o / torch.where(wd_ok, w_d, 1.0)
+    u = _dot4(mu[:, cols], *o) + t * _dot4(mu[:, cols], *d)
+    v = _dot4(mv[:, cols], *o) + t * _dot4(mv[:, cols], *d)
+    return u, v, t, w_d, wd_ok
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: closest hit + winner rows
+# ---------------------------------------------------------------------------
 
 def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     """Plain PyTorch version of the kernel's contract (see
@@ -177,24 +293,8 @@ def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
 
     lane = torch.arange(BT, device=o4t.device)
 
-    def dot4(m, x0, x1, x2, x3):  # (4, BT) rows x (k,) rays → (k, BT)
-        return x0[:, None] * m[0] + x1[:, None] * m[1] + \
-            x2[:, None] * m[2] + x3[:, None] * m[3]
-
     for c in range(nc):
-        b = bounds[:, c]
-        tx1 = (b[0] - ox) * rdx
-        tx2 = (b[3] - ox) * rdx
-        ty1 = (b[1] - oy) * rdy
-        ty2 = (b[4] - oy) * rdy
-        tz1 = (b[2] - oz) * rdz
-        tz2 = (b[5] - oz) * rdz
-        tmin = torch.maximum(torch.maximum(torch.minimum(tx1, tx2),
-                                           torch.minimum(ty1, ty2)),
-                             torch.minimum(tz1, tz2))
-        tmax = torch.minimum(torch.minimum(torch.maximum(tx1, tx2),
-                                           torch.maximum(ty1, ty2)),
-                             torch.maximum(tz1, tz2))
+        tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
         may = (tmax >= tmin) & (tmax > 0.0) & (tmin <= best_t)
         sweeps += may.view(-1, BN).any(dim=1).repeat_interleave(BN).to(
             torch.float32)
@@ -202,15 +302,10 @@ def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
         if idx.numel() == 0:
             continue
         steps[idx] += float(BT)
-        cols = slice(c * BT, (c + 1) * BT)
-        o = (ox[idx], oy[idx], oz[idx], ow[idx])
-        d = (dx[idx], dy[idx], dz[idx], dw[idx])
-        w_d = dot4(mw[:, cols], *d)
-        w_o = dot4(mw[:, cols], *o)
-        wd_ok = torch.abs(w_d) > _WD_EPS
-        t = -w_o / torch.where(wd_ok, w_d, 1.0)
-        u = dot4(mu[:, cols], *o) + t * dot4(mu[:, cols], *d)
-        v = dot4(mv[:, cols], *o) + t * dot4(mv[:, cols], *d)
+        u, v, t, w_d, wd_ok = _uvt(
+            slice(c * BT, (c + 1) * BT), mu, mv, mw,
+            (ox[idx], oy[idx], oz[idx], ow[idx]),
+            (dx[idx], dy[idx], dz[idx], dw[idx]))
         valid = wd_ok & (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
         t = torch.where(valid, t, _MISS)
         tk = torch.amin(t, dim=1)
@@ -237,16 +332,6 @@ def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     return out
 
 
-def _cuda_closest_hit_rows():
-    from gdpathtracing_torch.ops.build import load_library
-
-    fn = load_library("closest_hit_rows").lib.closest_hit_rows
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def closest_hit_rows(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     """(48, N) closest-hit rows for rays ``o4t``/``d4t`` (4, N) over the
     chunked triangles ``mu``/``mv``/``mw`` (4, E) with inflated chunk
@@ -255,21 +340,13 @@ def closest_hit_rows(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     CUDA tensors launch the kernel (and count the launch in
     ``closest_hit_rows.launches``); CPU tensors run the plain version.
     Anything else raises."""
-    n, e = _check_inputs(o4t, d4t, bounds, mu, mv, mw, tab)
+    n, e = _check_inputs(o4t=o4t, d4t=d4t, bounds=bounds, mu=mu, mv=mv,
+                         mw=mw, tab=tab)
     if o4t.device.type == "cpu":
         return closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab)
-    if o4t.device.type != "cuda":
-        raise ValueError(f"no closest_hit_rows for device {o4t.device}")
-    fn = _cuda_closest_hit_rows()
     out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
-    stream = torch.cuda.current_stream(o4t.device).cuda_stream
-    with torch.cuda.device(o4t.device):
-        err = fn(o4t.data_ptr(), d4t.data_ptr(), bounds.data_ptr(),
-                 mu.data_ptr(), mv.data_ptr(), mw.data_ptr(), tab.data_ptr(),
-                 out.data_ptr(), n, e, stream)
-    if err != 0:
-        raise RuntimeError(f"closest_hit_rows kernel launch failed: "
-                           f"cudaError {err}")
+    _launch("closest_hit_rows", (o4t, d4t, bounds, mu, mv, mw, tab, out),
+            n, e)
     closest_hit_rows.launches += 1
     return out
 
@@ -278,8 +355,134 @@ closest_hit_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# HitInfo wrapper
+# Kernel 2: any-hit occlusion of shadow rays
 # ---------------------------------------------------------------------------
+
+class Occlusion(NamedTuple):
+    """What :func:`occluded_plain` finds for each of N shadow rays."""
+    occ: torch.Tensor     # (N,) int32: 1 when something blocks (0, tlim)
+    tests: torch.Tensor   # (N,) f32 ray-triangle tests the ray needed
+    sweeps: torch.Tensor  # (N,) f32 chunks its 256-ray block swept
+
+
+def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
+                   ) -> Occlusion:
+    """Plain PyTorch version of csrc/occlusion.cu: chunks in index order;
+    a ray sweeps a chunk's 128-triangle half when its own slab tests
+    against the inflated chunk box and the half's box pass with
+    tmin < tlim, and stops at the first half that blocks it. A triangle
+    blocks when |w_d| > 1e-12, 0 < t < tlim, u, v >= 0 and u + v <= 1.
+
+    Also counts, per ray, the triangle tests these inputs need in that
+    order (128 per half swept) and, per 256-ray block, the chunks that
+    some ray of the block needed (the fused kernel's row 47)."""
+    n, e = o4t.shape[1], mu.shape[1]
+    nc = e // BT
+    ox, oy, oz, ow = o4t.unbind(0)
+    dx, dy, dz, dw = d4t.unbind(0)
+    rdx, rdy, rdz = _rcp(dx), _rcp(dy), _rcp(dz)
+    occ = torch.zeros(n, dtype=torch.bool, device=o4t.device)
+    tests = torch.zeros(n, dtype=torch.float32, device=o4t.device)
+    sweeps = torch.zeros_like(tests)
+
+    for c in range(nc):
+        tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
+        may = (tmax >= tmin) & (tmax > 0.0) & (tmin < tlim) & ~occ
+        sweeps += may.view(-1, BN).any(dim=1).repeat_interleave(BN).to(
+            torch.float32)
+        for s in range(SUB):
+            smin, smax = _slab(sub_bounds[:, c * SUB + s], ox, oy, oz,
+                               rdx, rdy, rdz)
+            idx = torch.nonzero(may & (smax >= smin) & (smax > 0.0)
+                                & (smin < tlim) & ~occ).squeeze(1)
+            if idx.numel() == 0:
+                continue
+            tests[idx] += float(SW)
+            lo = c * BT + s * SW
+            u, v, t, _, wd_ok = _uvt(
+                slice(lo, lo + SW), mu, mv, mw,
+                (ox[idx], oy[idx], oz[idx], ow[idx]),
+                (dx[idx], dy[idx], dz[idx], dw[idx]))
+            blocked = wd_ok & (t > 0.0) & (t < tlim[idx, None]) & \
+                (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            occ[idx] = blocked.any(dim=1)
+    return Occlusion(occ.to(torch.int32), tests, sweeps)
+
+
+def occluded(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw) -> torch.Tensor:
+    """(N,) int32, 1 where something blocks shadow ray ``o4t``/``d4t``
+    (4, N) in (0, ``tlim``), over the chunked triangles with inflated chunk
+    ``bounds`` (8, nc) and sub-chunk ``sub_bounds`` (8, SUB·nc).
+
+    CUDA tensors launch the kernel (counted in ``occluded.launches``); CPU
+    tensors run the plain version. Anything else raises."""
+    n, e = _check_inputs(o4t=o4t, d4t=d4t, tlim=tlim, bounds=bounds,
+                         sub_bounds=sub_bounds, mu=mu, mv=mv, mw=mw)
+    if o4t.device.type == "cpu":
+        return occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv,
+                              mw).occ
+    occ = torch.empty(n, dtype=torch.int32, device=o4t.device)
+    _launch("occlusion", (o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
+                          occ), n, e)
+    occluded.launches += 1
+    return occ
+
+
+occluded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: kernels 1 and 2 in one pass
+# ---------------------------------------------------------------------------
+
+def closest_hit_rows_nee_plain(o4t, d4t, so4t, sd4t, stmax, bounds,
+                               sub_bounds, mu, mv, mw, tab):
+    """Plain version of csrc/closest_hit_rows_nee.cu: the closest-hit rows
+    of the bounce rays (rows 0-46 as :func:`closest_hit_rows_plain`) with
+    row 47 the chunks each block swept for its shadow rays, and the
+    occlusion of the shadow rays (as :func:`occluded_plain`)."""
+    rows = closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab)
+    shadow = occluded_plain(so4t, sd4t, stmax, bounds, sub_bounds, mu, mv,
+                            mw)
+    rows[47] = shadow.sweeps
+    return rows, shadow.occ
+
+
+def closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax, bounds, sub_bounds,
+                         mu, mv, mw, tab):
+    """((48, N) rows, (N,) int32 occlusion) in one pass: the closest hit
+    of rays ``o4t``/``d4t`` and the any-hit of shadow rays ``so4t``/
+    ``sd4t`` in (0, ``stmax``). Row 46 counts each block's chunk sweeps
+    for the first set, row 47 for the second.
+
+    CUDA tensors launch the kernel (counted in
+    ``closest_hit_rows_nee.launches``); CPU tensors run the plain version.
+    Anything else raises."""
+    n, e = _check_inputs(o4t=o4t, d4t=d4t, so4t=so4t, sd4t=sd4t,
+                         stmax=stmax, bounds=bounds, sub_bounds=sub_bounds,
+                         mu=mu, mv=mv, mw=mw, tab=tab)
+    if o4t.device.type == "cpu":
+        return closest_hit_rows_nee_plain(o4t, d4t, so4t, sd4t, stmax,
+                                          bounds, sub_bounds, mu, mv, mw,
+                                          tab)
+    out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
+    occ = torch.empty(n, dtype=torch.int32, device=o4t.device)
+    _launch("closest_hit_rows_nee", (o4t, d4t, so4t, sd4t, stmax, bounds,
+                                     sub_bounds, mu, mv, mw, tab, out, occ),
+            n, e)
+    closest_hit_rows_nee.launches += 1
+    return out, occ
+
+
+closest_hit_rows_nee.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Wavefront wrappers
+# ---------------------------------------------------------------------------
+
+_FAR, _S3 = 1e9, 0.5773503  # parking spot and direction of a dead ray
+
 
 def pack_rays(ray: Ray, active=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(o4t, d4t), each (4, N padded to a multiple of 256): rays as (o, 1)
@@ -291,22 +494,46 @@ def pack_rays(ray: Ray, active=None) -> tuple[torch.Tensor, torch.Tensor]:
     ox, oy, oz = ray.o.x, ray.o.y, ray.o.z
     dx, dy, dz = ray.d.x, ray.d.y, ray.d.z
     if active is not None:
-        far, s3 = 1e9, 0.5773503
-        ox = torch.where(active, ox, far)
-        oy = torch.where(active, oy, far)
-        oz = torch.where(active, oz, far)
-        dx = torch.where(active, dx, s3)
-        dy = torch.where(active, dy, s3)
-        dz = torch.where(active, dz, s3)
+        ox = torch.where(active, ox, _FAR)
+        oy = torch.where(active, oy, _FAR)
+        oz = torch.where(active, oz, _FAR)
+        dx = torch.where(active, dx, _S3)
+        dy = torch.where(active, dy, _S3)
+        dz = torch.where(active, dz, _S3)
 
     def pad(x, value=0.0):
         return torch.nn.functional.pad(x, (0, n_pad - n), value=value)
 
-    o4t = torch.stack([pad(ox, 1e9), pad(oy, 1e9), pad(oz, 1e9),
+    o4t = torch.stack([pad(ox, _FAR), pad(oy, _FAR), pad(oz, _FAR),
                        pad(torch.ones_like(ox))])
     d4t = torch.stack([pad(dx, 1.0), pad(dy, 1.0), pad(dz, 1.0),
                        pad(torch.zeros_like(dx))])
     return o4t, d4t
+
+
+def pack_shadow_rays(ray: Ray, active, tlim):
+    """(o4t, d4t, tlim) of shadow rays: :func:`pack_rays` plus the (N
+    padded,) query limits, 0 for dead rays and the padding."""
+    o4t, d4t = pack_rays(ray, active)
+    if active is not None:
+        tlim = torch.where(active, tlim, 0.0)
+    return o4t, d4t, torch.nn.functional.pad(
+        tlim, (0, o4t.shape[1] - tlim.shape[0])).contiguous()
+
+
+def _hit_from_rows(rows: torch.Tensor, active) -> HitInfo:
+    t = rows[40]
+    if active is not None:
+        t = torch.where(active, t, MISS_T)
+    return HitInfo(t=t,
+                   tri=rows[15].to(torch.int32),
+                   inst=rows[16].to(torch.int32),
+                   u=torch.clamp(rows[41], 0.0, 1.0),
+                   v=torch.clamp(rows[42], 0.0, 1.0),
+                   front=rows[43] < 0.0,
+                   steps=rows[45].to(torch.int32),
+                   eidx=rows[44].to(torch.int32),
+                   rows=rows)
 
 
 def trace_pallas(scene: Scene, ray: Ray, active=None,
@@ -321,17 +548,33 @@ def trace_pallas(scene: Scene, ray: Ray, active=None,
         prep = prepare_trace_inputs(scene)
     rows = closest_hit_rows(o4t, d4t, prep.bounds, prep.mu, prep.mv,
                             prep.mw, prep.tab)[:, :n]
+    return _hit_from_rows(rows, active)
 
-    t = rows[40]
-    if active is not None:
-        t = torch.where(active, t, MISS_T)
-    return HitInfo(t=t,
-                   tri=rows[15].to(torch.int32),
-                   inst=rows[16].to(torch.int32),
-                   u=torch.clamp(rows[41], 0.0, 1.0),
-                   v=torch.clamp(rows[42], 0.0, 1.0),
-                   front=rows[43] < 0.0,
-                   steps=rows[45].to(torch.int32),
-                   eidx=rows[44].to(torch.int32),
-                   rows=rows)
 
+def occluded_pallas(scene: Scene, ray: Ray, t_max, active=None,
+                    prep: TracePrep | None = None) -> torch.Tensor:
+    """Any-hit query (port of ``occluded_pallas``): (N,) bool, True where
+    something blocks ``ray`` in (0, ``t_max``); False for inactive rays."""
+    n = ray.o.x.shape[0]
+    o4t, d4t, tlim = pack_shadow_rays(ray, active, t_max)
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
+    occ = occluded(o4t, d4t, tlim, prep.bounds, prep.sub_bounds, prep.mu,
+                   prep.mv, prep.mw)[:n] != 0
+    return occ if active is None else occ & active
+
+
+def trace_occlude_pallas(scene: Scene, ray: Ray, active, sh_ray: Ray,
+                         sh_tmax, sh_active, prep: TracePrep | None = None):
+    """Closest hit for ``ray`` and any-hit occlusion for ``sh_ray`` in one
+    :func:`closest_hit_rows_nee` launch (port of ``trace_occlude_pallas``).
+    Returns (HitInfo with rows, (N,) bool occluded & ``sh_active``)."""
+    n = ray.o.x.shape[0]
+    o4t, d4t = pack_rays(ray, active)
+    so4t, sd4t, stmax = pack_shadow_rays(sh_ray, sh_active, sh_tmax)
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
+    rows, occ = closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax,
+                                     prep.bounds, prep.sub_bounds, prep.mu,
+                                     prep.mv, prep.mw, prep.tab)
+    return _hit_from_rows(rows[:, :n], active), (occ[:n] != 0) & sh_active

@@ -1,81 +1,82 @@
 """The path-tracing integrator: bounce loop over a ray wavefront.
 
 Port of the standard loop of gdpathtracing_tpu/render/integrator.py for
-``Traversal.PALLAS`` without NEE: ``lax.fori_loop`` becomes a Python loop
-over bounces, and the group-granular survivor compaction (with the final
-unsort) is kept. Light transport is the reference's: BRDF importance
-sampling, ``radiance += throughput * emission`` per segment, sky on a miss,
-a hard bounce cap and a ray-origin offset along the shading normal.
+``Traversal.PALLAS``: ``lax.fori_loop`` becomes a Python loop over bounces,
+and the group-granular survivor compaction (with the final unsort) is kept.
+Light transport is the reference's: BRDF importance sampling,
+``radiance += throughput * emission`` per segment, sky on a miss, a hard
+bounce cap and a ray-origin offset along the shading normal. With
+``config.nee`` each hit also samples an emitter (next-event estimation) and
+the two strategies are weighted by the power heuristic (MIS).
+
+NEE runs the reference's fused form: bounce i's shadow query only gates an
+additive radiance term, so it is resolved by bounce i+1's closest-hit
+launch (ops/intersect.py ``trace_occlude_pallas``, kernel 4), and one
+trailing any-hit launch (``occluded_pallas``, kernel 2) resolves the last
+bounce's. The radiance accumulates in the same order as resolving each
+query at once would (emission_i, direct_i, emission_i+1, ...).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
-from gdpathtracing_torch.ops.intersect import (prepare_trace_inputs,
+from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
+                                               prepare_trace_inputs,
+                                               trace_occlude_pallas,
                                                trace_pallas)
-from gdpathtracing_torch.render import brdf
+from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.shading import shading_from_rows
 from gdpathtracing_torch.render.sky import sample_sky
-from gdpathtracing_torch.render.types import HitInfo, Ray
+from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
 
-TraceFn = Callable[[Scene, Ray, torch.Tensor], HitInfo]
+
+def not_ported(what: str, item: int):
+    """Raise NotImplementedError for ``what``, naming the ROADMAP item
+    (queue 1) that ports it."""
+    raise NotImplementedError(
+        f"{what} is not ported to gdpathtracing_torch yet "
+        f"(ROADMAP queue 1, item {item})")
+
+
+def check_transport_supported(scene: Scene, config: RenderConfig) -> None:
+    """The transport both frame loops share: ``Traversal.PALLAS``, primal,
+    no Russian roulette, no transmission. Scenes of more than 16 chunks
+    raise in ops/intersect.py prepare_trace_inputs."""
+    if config.traversal != Traversal.PALLAS:
+        oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
+        not_ported(f"Traversal.{config.traversal.name}",
+                   3 if oracle else 13)
+    if config.differentiable or config.soft_primary > 0.0:
+        not_ported("the differentiable path", 9)
+    if config.soft_shadows > 0.0:
+        not_ported("soft shadows", 9)
+    if config.rr_start > 0:
+        not_ported("Russian roulette (rr_start > 0)", 3)
+    if scene.has_transmission:
+        not_ported("dielectric transmission", 3)
 
 
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item (queue 1) that
-    ports it, for anything outside the ported slice: the standard loop
-    (``regen=False``) over ``Traversal.PALLAS``, primal, no NEE. Scenes of
-    more than 16 chunks raise in ops/intersect.py prepare_trace_inputs."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to gdpathtracing_torch yet "
-            f"(ROADMAP queue 1, item {item})")
-
-    if config.traversal != Traversal.PALLAS:
-        oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
-        no(f"Traversal.{config.traversal.name}", 3 if oracle else 13)
-    if config.regen is not False:
-        no("the path-regeneration loop (regen=None or True; pass "
-           "regen=False)", 6)
-    if config.nee:
-        no("next-event estimation (nee=True)", 7)
-    if config.differentiable or config.soft_primary > 0.0:
-        no("the differentiable path", 9)
-    if config.soft_shadows > 0.0:
-        no("soft shadows", 9)
+    """Gate of the standard loop: the shared transport, and no per-bounce
+    ray sorting."""
+    check_transport_supported(scene, config)
     if config.sort_rays:
-        no("per-bounce ray sorting (sort_rays=True)", 8)
-    if config.rr_start > 0:
-        no("Russian roulette (rr_start > 0)", 3)
-    if scene.has_transmission:
-        no("dielectric transmission", 3)
-
-
-def get_trace_fn(config: RenderConfig, scene: Scene) -> TraceFn:
-    """Traversal closure with the per-scene trace table built once."""
-    check_supported(scene, config)
-    prep = prepare_trace_inputs(scene)
-
-    def pallas_fn(scene_, ray, active):
-        # A different scene object gets its own (fresh) table.
-        return trace_pallas(scene_, ray, active,
-                            prep=prep if scene_ is scene else None)
-
-    return pallas_fn
+        not_ported("per-bounce ray sorting (sort_rays=True)", 8)
 
 
 class PathTraceResult(NamedTuple):
     radiance: Vec3           # (N,) per ray
     depth: torch.Tensor      # (N,) first-hit distance (far on a miss)
     steps: torch.Tensor      # (N,) triangle tests
-    segments: torch.Tensor   # (N,) ray segments traced (≤ bounces)
+    segments: torch.Tensor   # (N,) ray segments traced (≤ bounces), shadow
+    #                          rays included
     normal: Vec3             # (N,) first-hit shading normal (0 on a miss)
 
 
@@ -83,16 +84,64 @@ def _compaction_group(n: int) -> int | None:
     return next((g for g in (128, 32, 8) if n % g == 0), None)
 
 
+def mis_emission(hit: HitInfo, ray_d: Vec3, emission: Vec3, is_hit,
+                 prev_pdf) -> Vec3:
+    """Emission picked up by a BRDF-sampled ray, weighted against NEE by
+    the power heuristic. Camera rays and the sky keep weight 1
+    (``prev_pdf`` < 0 marks a segment that was not a BRDF sample)."""
+    pl = lights.light_pdf_from_rows(hit.rows, ray_d, hit.t)
+    pb = torch.clamp(prev_pdf, min=0.0)
+    w_mis = torch.where(
+        (prev_pdf > 0.0) & is_hit & (pl > 0.0),
+        (pb * pb) / torch.clamp(pb * pb + pl * pl, min=1e-20), 1.0)
+    return emission * w_mis
+
+
+class DirectLight(NamedTuple):
+    """One NEE sample: the shadow query and the contribution it gates."""
+    shadow: Ray
+    tmax: torch.Tensor    # the query is (0, tmax)
+    active: torch.Tensor  # lanes that posted a query
+    direct: Vec3          # the contribution if the light is visible
+
+
+def sample_direct(s: ShadingInfo, throughput: Vec3, is_hit, seed,
+                  table: lights.LightTable, config: RenderConfig):
+    """Sample an emitter from each hit (two PCG2D draws) and return
+    (DirectLight, new seed): the shadow ray and the MIS-weighted direct
+    contribution, which counts only where the shadow ray is unoccluded."""
+    (lr1, lr2), seed = rng.pcg2d(seed)
+    (lr3, _), seed = rng.pcg2d(seed)
+    ls = lights.sample_light(table, s.position, lr3, lr1, lr2)
+    cos_i = s.normal.dot(ls.wi)
+    shadow_o = s.position + s.normal * config.ray_eps
+    shadow_active = is_hit & (cos_i > 0.0) & torch.isfinite(ls.pdf_solid)
+    f_l = brdf.eval_brdf(s, ls.wi)
+    pb_l = brdf.brdf_pdf(s, ls.wi)
+    pl_l = ls.pdf_solid
+    # Sanitise the inf of a grazing light sample before any arithmetic.
+    pl_ok = torch.isfinite(pl_l) & (pl_l > 1e-12)
+    pl_safe = torch.where(pl_ok, pl_l, 1.0)
+    w_l = (pl_safe * pl_safe) / torch.clamp(pl_safe * pl_safe + pb_l * pb_l,
+                                            min=1e-20)
+    scale_l = torch.where(shadow_active & pl_ok, cos_i * w_l / pl_safe, 0.0)
+    direct = throughput * f_l * ls.emission * scale_l
+    return DirectLight(Ray(shadow_o, ls.wi), ls.dist * (1.0 - 1e-3),
+                       shadow_active, direct), seed
+
+
 def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
-               trace_fn: TraceFn | None = None,
+               prep: TracePrep | None = None,
                far: float = 1000.0) -> PathTraceResult:
     """Trace one path per ray; all rays advance in lockstep through the
-    bounce loop under an `active` mask."""
+    bounce loop under an `active` mask. ``prep`` is the scene's
+    :func:`prepare_trace_inputs` (built here when not given)."""
     check_supported(scene, config)
-    if trace_fn is None:
-        trace_fn = get_trace_fn(config, scene)
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
+    use_nee = config.nee and scene.n_lights > 0
 
     # Group-granular survivor compaction: stable partition of 128-ray
     # groups by any-live, so dead groups pack into tail blocks whose slab
@@ -104,19 +153,26 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     compact = bool(compact) and cg is not None
 
     zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
+    zero3 = Vec3(zero_n, zero_n, zero_n)
     ray_o, ray_d = ray.o, ray.d
     throughput = Vec3(zero_n + 1.0, zero_n + 1.0, zero_n + 1.0)
-    radiance = Vec3(zero_n, zero_n, zero_n)
-    normal = Vec3(zero_n, zero_n, zero_n)
+    radiance = normal = zero3
     active = torch.ones(n, dtype=torch.bool, device=dev)
     depth = zero_n + far
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
     segments = torch.zeros(n, dtype=torch.int32, device=dev)
+    prev_pdf = zero_n - 1.0
     src = torch.arange(n, device=dev) if compact else None
+    # The pending shadow query of the previous bounce (none at bounce 0).
+    pend = DirectLight(Ray(zero3, zero3), zero_n,
+                       torch.zeros(n, dtype=torch.bool, device=dev), zero3)
 
     for i in range(config.bounces):
         if compact:
-            glive = active.view(-1, cg).any(dim=1)
+            # A ray whose shadow query is still pending keeps its group
+            # live: the fused launch resolves it this bounce.
+            live = active | pend.active if use_nee else active
+            glive = live.view(-1, cg).any(dim=1)
             ng = glive.shape[0]
             r_live = torch.cumsum(glive.to(torch.int64), 0)
             r_dead = torch.cumsum((~glive).to(torch.int64), 0)
@@ -134,11 +190,22 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
             throughput, radiance, normal = (gv(throughput), gv(radiance),
                                             gv(normal))
             active, depth, steps = g(active), g(depth), g(steps)
-            segments, src = g(segments), g(src)
+            segments, prev_pdf, src = g(segments), g(prev_pdf), g(src)
             seed = (g(seed[0]), g(seed[1]))
+            if use_nee:
+                pend = DirectLight(Ray(gv(pend.shadow.o), gv(pend.shadow.d)),
+                                   g(pend.tmax), g(pend.active),
+                                   gv(pend.direct))
 
         r = Ray(ray_o, ray_d)
-        hit = trace_fn(scene, r, active)
+        if use_nee:
+            hit, occ = trace_occlude_pallas(scene, r, active, pend.shadow,
+                                            pend.tmax, pend.active, prep)
+            # direct_i lands here, between emission_i and emission_i+1.
+            radiance = vwhere(pend.active, radiance + pend.direct
+                              * (~occ).to(torch.float32), radiance)
+        else:
+            hit = trace_pallas(scene, r, active, prep)
         is_hit = hit.hit & active
         steps = steps + torch.where(active, hit.steps, 0)
         segments = segments + active.to(torch.int32)
@@ -146,7 +213,14 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         s = shading_from_rows(scene, hit, r)
         sky = sample_sky(ray_d, config, scene)
         emission = vwhere(is_hit, s.emission, sky)
+        if use_nee:
+            emission = mis_emission(hit, r.d, emission, is_hit, prev_pdf)
         radiance = vwhere(active, radiance + throughput * emission, radiance)
+
+        if use_nee:
+            pend, seed = sample_direct(s, throughput, is_hit, seed,
+                                       prep.lights, config)
+            segments = segments + pend.active.to(torch.int32)
 
         if i == 0:  # first-hit AOVs
             dist = (s.position - ray_o).length()
@@ -167,6 +241,14 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         ray_d = vwhere(survive, new_dir, ray_d)
         throughput = vwhere(survive, throughput * (f * scale), throughput)
         active = survive
+        prev_pdf = torch.where(survive, pdf, -1.0)
+
+    if use_nee:
+        # The last bounce's shadow queries: one trailing any-hit launch.
+        occ = occluded_pallas(scene, pend.shadow, pend.tmax, pend.active,
+                              prep)
+        radiance = vwhere(pend.active, radiance + pend.direct
+                          * (~occ).to(torch.float32), radiance)
 
     if compact:
         def unsort(x):

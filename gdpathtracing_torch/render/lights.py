@@ -1,11 +1,13 @@
-"""Emissive-triangle light table — port of ``build_light_table`` of
+"""Emissive-triangle light sampling for next-event estimation (NEE) — port
+of ``build_light_table``, ``sample_light`` and ``light_pdf_from_rows`` of
 gdpathtracing_tpu/render/lights.py.
 
-The closest-hit kernel's winner table carries each emitter's pick-pdf term
-and geometric normal (ops/intersect.py ``build_trace_table`` rows 30-33), so
-the table is built even on the ported slice, which has no NEE yet. Light
-sampling itself (``sample_light``, MIS pickup) comes with NEE (ROADMAP
-queue 1, item 7).
+The table is built once per scene (ops/intersect.py ``prepare_trace_inputs``
+keeps it); the closest-hit kernel's winner table carries each emitter's
+pick-pdf term and geometric normal (``build_trace_table`` rows 30-33), which
+``light_pdf_from_rows`` reads for the MIS weight of a BRDF-sampled emitter
+hit. Emitters are double-sided. ``light_pdf_of_hit`` (the oracle traversals'
+form) is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class LightTable(NamedTuple):
     emission: Vec3    # (L,) radiance (rgb * energy)
     pick_prob: torch.Tensor  # (L,)
     cdf: torch.Tensor        # (L,)
+    # (L, 17) rows [v0(3), e1(3), e2(3), n(3), emission(3), area,
+    # pick_prob]: sample_light fetches the picked emitter with one gather.
+    rows: torch.Tensor
 
 
 def build_light_table(scene: Scene) -> "LightTable | None":
@@ -63,4 +68,67 @@ def build_light_table(scene: Scene) -> "LightTable | None":
     total = torch.clamp(torch.sum(power), min=_EPS)
     pick = power / total
     cdf = torch.cumsum(pick, dim=0)
-    return LightTable(v0, v1, v2, normal, area, emission, pick, cdf)
+    e1, e2 = v1 - v0, v2 - v0
+    rows = torch.stack([
+        v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z,
+        normal.x, normal.y, normal.z,
+        emission.x, emission.y, emission.z, area, pick], dim=1)
+    return LightTable(v0, v1, v2, normal, area, emission, pick, cdf, rows)
+
+
+class LightSample(NamedTuple):
+    point: Vec3
+    normal: Vec3
+    emission: Vec3
+    pdf_solid: torch.Tensor  # solid-angle pdf of the sampled direction
+    wi: Vec3                 # unit direction shading point -> light
+    dist: torch.Tensor
+
+
+def sample_light(table: LightTable, position: Vec3, r_pick, r1, r2
+                 ) -> LightSample:
+    """Pick an emitter in proportion to its power, sample a uniform point
+    on it and convert the area pdf to solid angle at ``position``.
+
+    The pick is ``clamp(searchsorted(cdf, r, right=False), 0, L-1)``: the
+    number of cdf entries below ``r``, so a tie ``cdf[j] == r`` picks ``j``
+    and a round-off ``cdf[-1] < r`` picks the last emitter. JAX's one-hot
+    product for few emitters selects the same row."""
+    n_lights = table.cdf.shape[0]
+    pick = torch.clamp(torch.searchsorted(table.cdf, r_pick.contiguous(),
+                                          right=False), 0, n_lights - 1)
+    r = table.rows[pick]  # (N, 17)
+    v0 = Vec3(r[:, 0], r[:, 1], r[:, 2])
+    e1 = Vec3(r[:, 3], r[:, 4], r[:, 5])
+    e2 = Vec3(r[:, 6], r[:, 7], r[:, 8])
+    normal = Vec3(r[:, 9], r[:, 10], r[:, 11])
+    emission = Vec3(r[:, 12], r[:, 13], r[:, 14])
+    area = r[:, 15]
+    pick_prob = r[:, 16]
+
+    su = torch.sqrt(r1)
+    b1 = r2 * su                 # v1 weight; v2 gets su(1-r2), v0 1-su
+    b2 = su * (1.0 - r2)
+    point = v0 + e1 * b1 + e2 * b2
+
+    delta = point - position
+    dist2 = torch.clamp(delta.length_sq(), min=_EPS)
+    dist = torch.sqrt(dist2)
+    wi = delta * (1.0 / dist)
+    cos_l = torch.abs(normal.dot(-wi))  # double-sided emitter
+    pdf_solid = dist2 / torch.clamp(cos_l * area, min=_EPS) * pick_prob
+    pdf_solid = torch.where(cos_l > 1e-6, pdf_solid, torch.inf)  # grazing
+    return LightSample(point, normal, emission, pdf_solid, wi, dist)
+
+
+def light_pdf_from_rows(hit_rows: torch.Tensor, ray_dir: Vec3, t
+                        ) -> torch.Tensor:
+    """Solid-angle pdf that NEE would have given the direction that just
+    hit, from the winner's emitter term (pick_prob/area, 0 when not a
+    light) and geometric normal in rows 30-33 of the closest-hit rows."""
+    inv_term = hit_rows[30]
+    cos_l = torch.abs(hit_rows[31] * ray_dir.x + hit_rows[32] * ray_dir.y
+                      + hit_rows[33] * ray_dir.z)
+    dist2 = torch.clamp(t * t, min=_EPS)
+    pdf = dist2 * inv_term / torch.clamp(cos_l, min=1e-6)
+    return torch.where((inv_term > 0.0) & (cos_l > 1e-6), pdf, 0.0)

@@ -1,10 +1,12 @@
-"""Top-level render functions — port of the standard-loop part of
-gdpathtracing_tpu/render/renderer.py.
+"""Top-level render functions — port of ``render_radiance`` and ``render``
+of gdpathtracing_tpu/render/renderer.py.
 
-``render_radiance`` traces one frame in tiles of ``config.tile_rays`` rays
-(``lax.map`` over tiles becomes a Python loop) and returns the same AOVs as
-the JAX version; ``render`` adds the ACES tonemap. The frame runs on the
-scene's device.
+``render_radiance`` traces one frame on the scene's device and returns the
+same AOVs as the JAX version: through the path-regeneration loop
+(render/regen.py) when ``config.regen`` asks for it or, as ``None``, by the
+reference's auto policy (every primal PALLAS render); otherwise through the
+standard loop in tiles of ``config.tile_rays`` rays (``lax.map`` over tiles
+becomes a Python loop). ``render`` adds the ACES tonemap.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.post.tonemap import aces_film
 from gdpathtracing_torch.render.camera import Camera
-from gdpathtracing_torch.render.integrator import (check_supported,
-                                                   get_trace_fn, path_trace)
+from gdpathtracing_torch.ops.intersect import prepare_trace_inputs
+from gdpathtracing_torch.render.integrator import check_supported, path_trace
+from gdpathtracing_torch.render.regen import (regen_auto, regen_supported,
+                                              render_radiance_regen)
 from gdpathtracing_torch.scene.scene import Scene
 
 
@@ -33,8 +37,15 @@ class FrameAOVs(NamedTuple):
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
     """Trace the full frame on ``scene.device``. Only the ported slice
-    renders (``Traversal.PALLAS``, ``regen=False``, no NEE); any other
-    config raises NotImplementedError."""
+    renders (``Traversal.PALLAS``, primal, see ROADMAP); any other config
+    raises NotImplementedError naming its ROADMAP item."""
+    if config.regen is not False:
+        if config.regen and not regen_supported(scene, config):
+            raise ValueError("config.regen requires a primal "
+                             "BRUTE/UNIT/PALLAS render (no soft "
+                             "shadows/soft primary)")
+        if config.regen or regen_auto(scene, config):
+            return render_radiance_regen(scene, camera, config, frame_index)
     check_supported(scene, config)
     dev = scene.device
     camera = camera.to(dev)
@@ -45,7 +56,7 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
     padded = n_tiles * tile
 
     pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
-    trace_fn = get_trace_fn(config, scene)
+    prep = prepare_trace_inputs(scene)
     frame_index = int(frame_index)
 
     outs = []
@@ -61,7 +72,7 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
         for s in range(config.spp):
             seed = rng.prng_seed(px, py, frame_index * config.spp + s)
             ray, seed = camera.generate_rays(pids, seed, config)
-            res = path_trace(scene, ray, seed, config, trace_fn,
+            res = path_trace(scene, ray, seed, config, prep,
                              far=camera.far)
             acc_r = acc_r + res.radiance.x
             acc_g = acc_g + res.radiance.y
@@ -89,7 +100,7 @@ def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,
            frame_index: int = 0) -> torch.Tensor:
     """One-shot convenience: trace + ACES tonemap → (H, W, 3) in [0, 1].
     The default config is the JAX default (BVH), which raises here: pass
-    ``RenderConfig(traversal=Traversal.PALLAS, regen=False)``."""
+    ``RenderConfig(traversal=Traversal.PALLAS)``."""
     config = config or RenderConfig()
     aovs = render_radiance(scene, camera, config, frame_index)
     return aces_film(aovs.radiance)

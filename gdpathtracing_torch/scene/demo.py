@@ -72,11 +72,11 @@ MIRROR_MAT = Material(albedo=(1, 1, 1), metallic=1.0,
 
 def build_demo_scene(texture_resolution: int = 1024,
                      sphere_detail: int = 16,
-                     geometry: str = "reference") -> Scene:
+                     geometry: str = "reference", device="cuda") -> Scene:
     """``geometry="reference"`` (default): the real cornell.obj /
     suzanne.obj demo geometry (demo.tscn:69-93). ``"sphere"``: cheap
     procedural stand-ins (UV sphere of `sphere_detail`, procedural box) —
-    for tests that want a small triangle count."""
+    for tests that want a small triangle count. Built on ``device``."""
     b = SceneBuilder(texture_resolution=texture_resolution)
 
     light_mesh = b.add_mesh(plane_mesh(size=2.0))
@@ -119,7 +119,7 @@ def build_demo_scene(texture_resolution: int = 1024,
                 (1.27032, -0.951083, -0.923088)),
         materials=[MIRROR_MAT])
 
-    return b.build()
+    return b.build(device)
 
 
 def demo_camera(width: int, height: int, fov_deg: float = 79.5) -> Camera:
@@ -133,7 +133,7 @@ def demo_camera(width: int, height: int, fov_deg: float = 79.5) -> Camera:
 
 
 def build_sphere_grid(n: int = 10, sphere_detail: int = 16,
-                      spacing: float = 2.5) -> Scene:
+                      spacing: float = 2.5, device="cuda") -> Scene:
     """Stress scene: an n×n grid of instanced spheres (one shared mesh →
     n² BLAS instances, n²·tris expanded triangles) over a floor, an
     emissive ceiling light, alternating diffuse/metal materials. Used by
@@ -166,7 +166,7 @@ def build_sphere_grid(n: int = 10, sphere_detail: int = 16,
                 _affine([1, 0, 0, 0, 1, 0, 0, 0, 1],
                         (i * spacing - half, 0.0, j * spacing - half)),
                 materials=[mats[(i + j) % len(mats)]])
-    return b.build()
+    return b.build(device)
 
 
 def grid_camera(width: int, height: int, n: int = 10,
@@ -177,7 +177,8 @@ def grid_camera(width: int, height: int, n: int = 10,
                              width=width, height=height)
 
 
-def build_cornell_simple(light_energy: float = 10.0) -> Scene:
+def build_cornell_simple(light_energy: float = 10.0,
+                         device="cuda") -> Scene:
     """Minimal diffuse Cornell scene for tests (BASELINE config 1): the box
     plus the plane light, no spheres."""
     b = SceneBuilder()
@@ -194,4 +195,4 @@ def build_cornell_simple(light_energy: float = 10.0) -> Scene:
         _affine([-2.62268e-08, 0, -0.6, 0, 0.6, 0, 0.6, 0, -2.62268e-08],
                 (0, 0, 0)),
         materials=[BOX_GREY, BOX_RED, BOX_GREEN])
-    return b.build()
+    return b.build(device)

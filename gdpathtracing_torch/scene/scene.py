@@ -4,8 +4,10 @@ Port of gdpathtracing_tpu/scene/scene.py. The compilation (mesh dedupe,
 material resolution, texture array, per-mesh BLAS, TLAS, instance-expanded
 unit-triangle-space intersection arrays) is the JAX package's host-side
 NumPy code, unchanged, so every array is bit-equal to the JAX ``Scene``.
-The result holds torch tensors; :meth:`Scene.to` moves it to a device and
-:func:`scene_from_arrays` builds one from NumPy arrays (e.g. a JAX scene's).
+The result holds torch tensors on the card unless the caller asks for
+another device (``device="cpu"``, as the tests do); :meth:`Scene.to` moves it
+and :func:`scene_from_arrays` builds one from NumPy arrays (e.g. a JAX
+scene's).
 """
 
 from __future__ import annotations
@@ -102,24 +104,37 @@ class Scene:
             name: getattr(self, name).to(device) for name in _TENSOR_FIELDS})
 
 
+def resolve_device(device) -> torch.device:
+    """The device a scene is built on. The default is the card; asking for
+    it where there is none raises instead of carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: scenes are built on the GPU by default; pass "
+            "device='cpu' to build one on the CPU")
+    return device
+
+
 _TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
                        if f.type == "torch.Tensor")
 _STATIC_TYPES = {f.name: f.type for f in dataclasses.fields(Scene)
                  if f.type != "torch.Tensor"}
 
 
-def scene_from_arrays(arrays: dict) -> Scene:
-    """Build a :class:`Scene` from NumPy arrays keyed by field name.
+def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
+    """Build a :class:`Scene` on ``device`` from NumPy arrays keyed by field
+    name.
 
     Tensor fields are copied as they are (dtype kept). Static fields may be
     given as Python values or as NumPy arrays (tuples as 1-D arrays, counts
     and flags as 0-d arrays), so ``{name: np.asarray(value)}`` taken from a
     JAX ``Scene`` converts directly."""
+    device = resolve_device(device)
     missing = [n for n in _TENSOR_FIELDS + tuple(_STATIC_TYPES)
                if n not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack fields {missing}")
-    kw = {n: torch.from_numpy(np.array(arrays[n], copy=True))
+    kw = {n: torch.from_numpy(np.array(arrays[n], copy=True)).to(device)
           for n in _TENSOR_FIELDS}
     for n, typ in _STATIC_TYPES.items():
         v = arrays[n]
@@ -382,7 +397,10 @@ class SceneBuilder:
         return len(self._instances) - 1
 
     # ---- build ----
-    def build(self) -> Scene:
+    def build(self, device="cuda") -> Scene:
+        """Compile the scene on the host and put it on ``device`` (the card
+        by default; raises where there is none)."""
+        device = resolve_device(device)
         if not self._instances:
             raise ValueError("scene has no instances")
 
@@ -551,7 +569,7 @@ class SceneBuilder:
             has_textures=bool((mat_tex >= 0).any()),
             has_mr_textures=bool((mat_mr_tex >= 0).any()),
         )
-        return scene_from_arrays(arrays)
+        return scene_from_arrays(arrays, device)
 
 
 def _tlas_postorder(tlas) -> tuple:

@@ -25,19 +25,37 @@ pytestmark = pytest.mark.cuda
 def scene():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return build_demo_scene(texture_resolution=8, sphere_detail=6)
+    return build_demo_scene(texture_resolution=8, sphere_detail=6,
+                            device="cpu")
 
 
-def _args(scene, n, device):
-    g = np.random.default_rng(0)
+def _rays(n, seed):
+    g = np.random.default_rng(seed)
     o = g.uniform(-2.5, 2.5, (3, n)).astype(np.float32)
     d = g.normal(size=(3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    prep = ti.prepare_trace_inputs(scene.to(device))
     o4 = torch.from_numpy(np.concatenate([o, np.ones((1, n), np.float32)]))
     d4 = torch.from_numpy(np.concatenate([d, np.zeros((1, n), np.float32)]))
+    return o4, d4
+
+
+def _args(scene, n, device):
+    prep = ti.prepare_trace_inputs(scene.to(device))
+    o4, d4 = _rays(n, 0)
     return (o4.to(device), d4.to(device), prep.bounds, prep.mu, prep.mv,
             prep.mw, prep.tab)
+
+
+def _shadow_args(scene, n, device):
+    """Kernel 2's operands: random shadow rays with limits in (0, 4), a
+    quarter of them parked (limit 0)."""
+    prep = ti.prepare_trace_inputs(scene.to(device))
+    o4, d4 = _rays(n, 1)
+    g = np.random.default_rng(2)
+    tlim = g.uniform(0.0, 4.0, n).astype(np.float32)
+    tlim[g.uniform(size=n) < 0.25] = 0.0
+    return tuple(x.to(device) for x in (o4, d4, torch.from_numpy(tlim))) \
+        + (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw)
 
 
 @pytest.mark.parametrize("n", [256, 4096])
@@ -62,9 +80,55 @@ def test_kernel_matches_cpu_plain(scene):
     assert torch.equal(got, ti.closest_hit_rows(*args))
 
 
-def test_render_cuda_matches_cpu(scene):
-    cfg = RenderConfig(traversal=Traversal.PALLAS, regen=False, bounces=4)
+@pytest.mark.parametrize("n", [256, 4096])
+def test_occlusion_kernel_matches_plain(scene, n):
+    args = _shadow_args(scene, n, "cuda")
+    before = ti.occluded.launches
+    got = ti.occluded(*args)
+    torch.cuda.synchronize()
+    assert ti.occluded.launches == before + 1
+    want = ti.occluded_plain(*args).occ
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < n  # both answers occur
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_fused_kernel_matches_plain(scene, n):
+    a = _args(scene, n, "cuda")
+    s = _shadow_args(scene, n, "cuda")
+    args = a[:2] + s[:3] + s[3:5] + a[3:6] + a[6:]
+    before = ti.closest_hit_rows_nee.launches
+    rows, occ = ti.closest_hit_rows_nee(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_rows_nee.launches == before + 1
+    rows_p, occ_p = ti.closest_hit_rows_nee_plain(*args)
+    assert torch.equal(rows, rows_p) and torch.equal(occ, occ_p)
+    # ... which are kernels 1 and 2 run apart.
+    assert torch.equal(rows[:47], ti.closest_hit_rows(*a)[:47])
+    assert torch.equal(occ, ti.occluded(*s))
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
+def test_render_cuda_matches_cpu(scene, nee):
+    """The standard loop on the card against the CPU; with NEE the shadow
+    queries ride kernel 4 and the trailing kernel-2 flush."""
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen=False, bounces=4,
+                       nee=nee)
     cam = demo_camera(40, 24)
+    a = render_radiance(scene.to("cuda"), cam, cfg, 3)
+    b = render_radiance(scene, cam, cfg, 3)
+    ok = (torch.abs(a.radiance.cpu() - b.radiance) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= 0.99
+    assert torch.equal(a.segments.cpu()[ok], b.segments[ok])
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
+def test_regen_cuda_matches_cpu(scene, nee):
+    """The default loop (regen) on the card against the CPU at 64x48: the
+    card's sqrt and division round differently, so within the image
+    tolerance, not bit for bit."""
+    cfg = RenderConfig(traversal=Traversal.PALLAS, nee=nee)
+    cam = demo_camera(64, 48)
     a = render_radiance(scene.to("cuda"), cam, cfg, 3)
     b = render_radiance(scene, cam, cfg, 3)
     ok = (torch.abs(a.radiance.cpu() - b.radiance) <= 1e-4).all(dim=-1)

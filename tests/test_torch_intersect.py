@@ -49,7 +49,8 @@ ROWS_RTOL, ROWS_ATOL = 1e-6, 2e-7
 @pytest.fixture(scope="module")
 def scenes():
     js = jax_demo_scene(texture_resolution=8, sphere_detail=6)
-    ts = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    ts = build_demo_scene(texture_resolution=8, sphere_detail=6,
+                          device="cpu")
     return js, ts
 
 

@@ -1,6 +1,7 @@
 """The port never imports JAX: a fresh interpreter in which ``import jax``
 (and the JAX package) cannot succeed imports every module of
-gdpathtracing_torch and renders a 16x16 frame."""
+gdpathtracing_torch and renders 16x16 frames: the standard loop, and the
+default regeneration loop with NEE."""
 
 from __future__ import annotations
 
@@ -24,13 +25,18 @@ for name in names:
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.render.renderer import render_radiance
 from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
-scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+scene = build_demo_scene(texture_resolution=8, sphere_detail=6, device="cpu")
 aovs = render_radiance(scene, demo_camera(16, 16),
                        RenderConfig(traversal=Traversal.PALLAS, regen=False,
                                     bounces=2))
 assert aovs.radiance.shape == (16, 16, 3)
 assert bool(torch.isfinite(aovs.radiance).all())
 assert int(aovs.segments.sum()) >= 16 * 16
+nee = render_radiance(scene, demo_camera(16, 16),
+                      RenderConfig(traversal=Traversal.PALLAS, nee=True,
+                                   bounces=2))
+assert bool(torch.isfinite(nee.radiance).all())
+assert int(nee.segments.sum()) > int(aovs.segments.sum())  # shadow rays
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
           or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
 assert not leaked, leaked

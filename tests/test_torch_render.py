@@ -1,6 +1,7 @@
-"""The ported slice end to end: render_radiance with Traversal.PALLAS and
-regen=False against the PALLAS golden and against the JAX package, plus the
-configs it refuses."""
+"""The ported slice end to end through the standard loop: render_radiance
+with Traversal.PALLAS and regen=False, primal and with NEE, against the
+PALLAS golden and against the JAX package, plus the configs it refuses.
+tests/test_torch_regen.py covers the regeneration loop."""
 
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ MIN_PIXELS_OK = 0.99
 
 @pytest.fixture(scope="module")
 def scene():
-    return build_demo_scene(texture_resolution=8, sphere_detail=6)
+    return build_demo_scene(texture_resolution=8, sphere_detail=6,
+                            device="cpu")
 
 
 def test_golden_pallas_16(scene):
@@ -83,17 +85,46 @@ def test_matches_jax_40x24(scene):
     assert got.segments.numpy().sum() >= 40 * 24
 
 
+def test_nee_matches_jax_40x24(scene):
+    """NEE in the standard loop (kernel 4 each bounce, kernel 2 for the last
+    shadow queries) against JAX's standard loop with NEE (its fused kernel,
+    interpret mode) at 40x24, 3 bounces, frame 5: the tolerance of
+    test_matches_jax_40x24."""
+    cfg_j = JRenderConfig(bounces=3, traversal=JTraversal.PALLAS, nee=True,
+                          jitter=JJitter.UNIFORM, regen=False)
+    old = jip._FORCE_INTERPRET
+    jip._FORCE_INTERPRET = True
+    try:
+        ref = jax_render_radiance(
+            jax_demo_scene(texture_resolution=8, sphere_detail=6),
+            jax_demo_camera(40, 24), cfg_j, 5)
+    finally:
+        jip._FORCE_INTERPRET = old
+    got = render_radiance(scene, demo_camera(40, 24),
+                          SLICE.replace(bounces=3, nee=True), 5)
+    ok = (np.abs(got.radiance.numpy() - np.asarray(ref.radiance))
+          <= 1e-4).all(axis=-1)
+    assert ok.mean() >= MIN_PIXELS_OK, (~ok).sum()
+    np.testing.assert_array_equal(got.segments.numpy()[ok],
+                                  np.asarray(ref.segments)[ok])
+    np.testing.assert_allclose(got.depth.numpy()[ok],
+                               np.asarray(ref.depth)[ok], rtol=1e-5)
+    # Shadow rays count as segments: more than one per pixel.
+    assert got.segments.numpy().sum() > 40 * 24 * 1.2
+
+
 def test_compaction_is_result_transparent(scene):
     """Survivor compaction forced on and off gives the same frame, bit for
-    bit: the winner, and every per-ray value, is independent of which rays
-    share a block."""
+    bit, with and without NEE: the winner, and every per-ray value, is
+    independent of which rays share a block, and the pending shadow
+    queries move with their rays."""
     cam = demo_camera(40, 24)
-    on = render_radiance(scene, cam, SLICE.replace(bounces=4,
-                                                   compact_rays=True), 3)
-    off = render_radiance(scene, cam, SLICE.replace(bounces=4,
-                                                    compact_rays=False), 3)
-    for a, b in zip(on, off):
-        assert torch.equal(a, b)
+    for nee in (False, True):
+        cfg = SLICE.replace(bounces=4, nee=nee)
+        on = render_radiance(scene, cam, cfg.replace(compact_rays=True), 3)
+        off = render_radiance(scene, cam, cfg.replace(compact_rays=False), 3)
+        for a, b in zip(on, off):
+            assert torch.equal(a, b)
 
 
 def test_tiles_and_spp(scene):
@@ -118,8 +149,10 @@ def test_render_tonemaps(scene):
 
 
 @pytest.mark.parametrize("change", [
-    dict(traversal=Traversal.BVH, regen=False), dict(regen=None),
-    dict(regen=True), dict(nee=True), dict(differentiable=True),
+    dict(traversal=Traversal.BVH, regen=False),
+    dict(regen=True, nee=True, regen_fuse_nee=True),
+    dict(regen=True, regen_march=True),
+    dict(regen=True, regen_sort_key="chunk"), dict(differentiable=True),
     dict(soft_shadows=0.01), dict(soft_primary=0.01), dict(sort_rays=True),
     dict(rr_start=2), dict(traversal=Traversal.MEGA)])
 def test_outside_the_slice_raises(scene, change):
@@ -134,7 +167,7 @@ def test_default_config_raises(scene):
 
 
 def test_superchunk_scene_raises():
-    grid = build_sphere_grid(n=5, sphere_detail=8)  # 22 chunks
+    grid = build_sphere_grid(n=5, sphere_detail=8, device="cpu")  # 22 chunks
     assert grid.isect_mu.shape[1] // 256 > 16
     with pytest.raises(NotImplementedError, match="item 8"):
         render_radiance(grid, demo_camera(8, 8), SLICE)

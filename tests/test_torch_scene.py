@@ -39,12 +39,13 @@ def test_demo_scene_bit_equal_to_jax(geometry):
     js = jax_demo_scene(texture_resolution=8, sphere_detail=6,
                         geometry=geometry)
     ts = build_demo_scene(texture_resolution=8, sphere_detail=6,
-                          geometry=geometry)
+                          geometry=geometry, device="cpu")
     _assert_bit_equal(scene_to_arrays(ts), _jax_arrays(js))
 
 
 def test_demo_scene_size():
-    s = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    s = build_demo_scene(texture_resolution=8, sphere_detail=6,
+                         device="cpu")
     assert s.n_tris == 980 and s.n_lights == 970
     assert s.isect_mu.shape == (4, 2048)  # 8 chunks of 256: flat kernel
     assert tuple(s.textures.shape) == (1, 1, 1, 3) and not s.has_textures
@@ -52,24 +53,39 @@ def test_demo_scene_size():
 
 def test_scene_from_arrays_round_trip():
     js = jax_demo_scene(texture_resolution=8, sphere_detail=6)
-    from_jax = scene_from_arrays(_jax_arrays(js))
+    from_jax = scene_from_arrays(_jax_arrays(js), device="cpu")
     assert isinstance(from_jax, Scene)
     _assert_bit_equal(scene_to_arrays(from_jax), _jax_arrays(js))
-    again = scene_from_arrays(scene_to_arrays(from_jax))
+    again = scene_from_arrays(scene_to_arrays(from_jax), device="cpu")
     _assert_bit_equal(scene_to_arrays(again), scene_to_arrays(from_jax))
     assert again.n_lights == js.n_lights
     assert again.inst_tri_first == js.inst_tri_first
     with pytest.raises(KeyError):
         scene_from_arrays({k: v for k, v in _jax_arrays(js).items()
-                           if k != "isect_mu"})
+                           if k != "isect_mu"}, device="cpu")
 
 
 def test_scene_to_device_keeps_values():
-    s = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    s = build_demo_scene(texture_resolution=8, sphere_detail=6,
+                         device="cpu")
     moved = s.to("cpu")
     assert moved.device == torch.device("cpu")
     assert torch.equal(moved.isect_mw, s.isect_mw)
     assert moved.n_lights == s.n_lights
+
+
+def test_scenes_default_to_the_card():
+    """With no device, scene construction targets cuda: where there is no
+    card it raises rather than carrying on on the CPU."""
+    js = jax_demo_scene(texture_resolution=8, sphere_detail=6)
+    build = [lambda: build_demo_scene(texture_resolution=8),
+             lambda: scene_from_arrays(_jax_arrays(js))]
+    for make in build:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
 
 
 def test_demo_camera_matches_jax():

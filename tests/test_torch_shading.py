@@ -139,7 +139,8 @@ def test_shading_from_rows_matches_jax():
     scene's table at random triangles)."""
     from gdpathtracing_tpu.ops.intersect_pallas import build_trace_table
     js = jax_scene(texture_resolution=8, sphere_detail=6)
-    ts = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    ts = build_demo_scene(texture_resolution=8, sphere_detail=6,
+                          device="cpu")
     g = np.random.default_rng(4)
     tab = np.asarray(build_trace_table(js))
     e = g.integers(0, 2040, N)

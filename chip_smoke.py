@@ -5,29 +5,38 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the three CUDA kernels from csrc/ with nvcc, in parallel, and
+1. builds the five CUDA kernels from csrc/ with nvcc, in parallel, and
    prints ptxas' registers, shared memory and spills;
-2. holds each kernel against its plain PyTorch version on the demo scene at
-   the main paths' shapes, bit for bit, and times both with CUDA events:
+2. holds each kernel against its plain PyTorch version at the main paths'
+   shapes, bit for bit, and times both with CUDA events:
    - kernel 1 (closest hit): primary rays of the 262144-ray tile through
-     the middle of a 1080p frame, then one bounce of BRDF-sampled rays
-     from their hits;
+     the middle of a 1080p demo frame, then one bounce of BRDF-sampled
+     rays from their hits;
    - kernel 2 (occlusion): 393216 shadow rays (the regen wavefront) from
-     the hits around the middle of the frame toward sampled light points;
+     the hits around the middle of the demo frame toward sampled light
+     points;
    - kernel 4 (both in one pass): the middle tile's bounce-1 rays with the
      shadow rays of its primary hits;
-3. renders 1920x1080 demo frames (1 spp, 5 bounces) through render_radiance
+   - kernel 3 (two-level closest hit, lite) on the sphere grid of the JAX
+     bench (n=10, 96256 triangles), and kernel 6 (two-level closest hit
+     with rows) on the n=14 grid (188416 triangles, over the reference's
+     8 MiB lite threshold): each on the middle 1080p tile's primary rays,
+     then one bounce from their hits; and on the grid tile, kernel 3 with
+     the lite epilogue against kernel 6 (``_SC_LITE`` off);
+3. renders 1920x1080 frames (1 spp, 5 bounces) through render_radiance
    for each main path, with every launch count and the regen iteration
-   count set to 0 just before and read just after: the standard loop
-   (regen=False), the default regen loop, regen with NEE and the standard
-   loop with NEE; checks the launches against the regen iterations and the
-   tiles, and prints ms/frame and Msegments/s. Then it traces one more
-   frame of the path with torch.profiler and prints the device kernels
-   launched, the device's busy time (the union of their intervals), the
-   share of it in each traversal kernel, the largest other kernels, and
-   the device's idle share of the median frame;
-4. renders 64x48 on the GPU and on the CPU for each of those paths, and
-   compares each pair.
+   count set to 0 just before and read just after: on the demo scene the
+   standard loop (regen=False), the default regen loop, regen with NEE
+   and the standard loop with NEE; on the grid regen, regen with NEE and
+   the standard loop (which sorts rays each bounce); regen on the mid grid
+   (n=4) and on the n=14 grid. Checks the launches against the regen
+   iterations and the tiles, and prints ms/frame and Msegments/s. Then it
+   traces one more frame of the path with torch.profiler and prints the
+   device kernels launched, the device's busy time (the union of their
+   intervals), the share of it in each traversal kernel, the largest other
+   kernels, and the device's idle share of the median frame;
+4. renders 64x48 on the GPU and on the CPU for each demo path and for grid
+   regen with and without NEE, and compares each pair.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -47,6 +56,9 @@ HERE = Path(__file__).resolve().parent
 W, H = 1920, 1080
 SMALL_W, SMALL_H, SMALL_FRAME = 64, 48, 3
 KERNEL_ITERS, PLAIN_ITERS = 20, 2
+# The two-level plain versions walk superchunks and chunks in Python:
+# seconds a call on the grids.
+GRID_PLAIN_ITERS = 1
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): float32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -108,18 +120,20 @@ def busy_ms(events) -> float:
     return busy / 1e3
 
 
-def compare_frames(a, b, what: str):
+def compare_frames(a, b, what: str, seg_share: float = 1.0):
     """The CPU parity tolerance of tests/test_torch_render.py: radiance
-    within 1e-4 on >= 99% of pixels, segments equal on those pixels, depth
-    within rtol 1e-5 there."""
+    within 1e-4 on >= 99% of pixels, segments equal on those pixels (on
+    ``seg_share`` of them), depth within rtol 1e-5 there."""
     import numpy as np
     ra, rb = a.radiance.cpu().numpy(), b.radiance.cpu().numpy()
     ok = (np.abs(ra - rb) <= 1e-4).all(axis=-1)
     frac = float(ok.mean())
-    log(f"{what}: radiance within 1e-4 on {frac:.4f} of pixels")
+    same = float((a.segments.cpu().numpy()[ok]
+                  == b.segments.cpu().numpy()[ok]).mean())
+    log(f"{what}: radiance within 1e-4 on {frac:.4f} of pixels, segments "
+        f"equal on {same:.4f} of those")
     check(frac >= 0.99, f"{what}: only {frac:.4f} of pixels agree")
-    check((a.segments.cpu().numpy()[ok] == b.segments.cpu().numpy()[ok])
-          .all(), f"{what}: segments differ on agreeing pixels")
+    check(same >= seg_share, f"{what}: segments differ on agreeing pixels")
     da, db = a.depth.cpu().numpy()[ok], b.depth.cpu().numpy()[ok]
     check(np.allclose(da, db, rtol=1e-5, atol=0), f"{what}: depth differs")
 
@@ -147,9 +161,11 @@ def main() -> None:
     from gdpathtracing_torch.render.integrator import sample_direct
     from gdpathtracing_torch.render.regen import render_radiance_regen
     from gdpathtracing_torch.render.renderer import render_radiance
-    from gdpathtracing_torch.render.shading import shading_from_rows
+    from gdpathtracing_torch.render.shading import get_shading_data
     from gdpathtracing_torch.render.types import Ray
-    from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+    from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                                build_sphere_grid,
+                                                demo_camera, grid_camera)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -184,7 +200,7 @@ def main() -> None:
     scene_bytes = (3 * 4 * e + 8 * nc + 8 * ti.SUB * nc) * 4
     tab_bytes = ti.TAB_R * e * 4
 
-    def middle_rays(n, first):
+    def middle_rays(n, first, scene=scene, cam=cam, prep=prep):
         """Primary rays of pixels [first, first + n) (the top rows see no
         geometry), their hits, shading and RNG streams."""
         pids = torch.arange(n, device=dev) + first
@@ -192,7 +208,14 @@ def main() -> None:
                              torch.div(pids, W, rounding_mode="floor"), 0)
         ray, seed = cam.to(dev).generate_rays(pids, seed, cfg)
         hit = ti.trace_pallas(scene, ray, None, prep)
-        return ray, hit, shading_from_rows(scene, hit, ray), seed
+        return ray, hit, get_shading_data(scene, hit, ray), seed
+
+    def bounce_rays(s, hit, seed):
+        """One BRDF-sampled bounce from the hits ``hit`` with shading
+        ``s``: (rays, active)."""
+        (r1, r2), _ = rng.pcg2d(seed)
+        return Ray(s.position + s.normal * cfg.ray_eps,
+                   brdf.sample_brdf(s, r1, r2)), hit.hit
 
     report = {}
 
@@ -209,10 +232,9 @@ def main() -> None:
     # Kernel 1 at the standard loop's tile through the middle of the frame:
     # primary and bounce-1 rays.
     tile = cfg.tile_rays
-    primary, hit, s, seed = middle_rays(tile, (W * H // 2) // tile * tile)
-    (r1, r2), seed1 = rng.pcg2d(seed)
-    bounce = Ray(s.position + s.normal * cfg.ray_eps,
-                 brdf.sample_brdf(s, r1, r2))
+    mid_tile = (W * H // 2) // tile * tile
+    primary, hit, s, seed = middle_rays(tile, mid_tile)
+    bounce, _ = bounce_rays(s, hit, seed)
     for name, (ray, active) in {"primary": (primary, None),
                                 "bounce 1": (bounce, hit.hit)}.items():
         o4t, d4t = ti.pack_rays(ray, active)
@@ -305,26 +327,137 @@ def main() -> None:
     record("occluded", float(flips), k, p, *bound(
         needed, n * nc, 10 * 4 * n + scene_bytes))
 
+    # Kernels 3 and 6 on the sphere grids of the JAX bench: the middle
+    # 1080p tile's primary rays, then one bounce from their hits.
+    grid = build_sphere_grid(n=10, sphere_detail=16)
+    grid_cam = grid_camera(W, H, n=10)
+    grid_prep = ti.prepare_trace_inputs(grid)
+    big = build_sphere_grid(n=14, sphere_detail=16)
+    big_cam = grid_camera(W, H, n=14)
+    big_prep = ti.prepare_trace_inputs(big)
+    check(grid_prep.superchunks and grid_prep.m3_bytes
+          <= ti._SC_RESIDENT_BYTES, "the grid does not take kernel 3")
+    check(big_prep.m3_bytes > ti._SC_RESIDENT_BYTES,
+          "the n=14 grid does not take kernel 6")
+
+    def two_level_bytes(p, n, out_rows, tab):
+        """Rays in and rows out once, the triangle rows, both box sets and
+        (kernel 6) the winner table once."""
+        e_pad = p.mu_pad.shape[1]
+        return ((8 + out_rows) * 4 * n + 3 * 4 * e_pad * 4
+                + 8 * (e_pad // ti.BT + p.sc_bounds.shape[1]) * 4
+                + (ti.TAB_R * e_pad * 4 if tab else 0))
+
+    for label, gscene, gcam, gprep in (("grid", grid, grid_cam, grid_prep),
+                                       ("n=14 grid", big, big_cam,
+                                        big_prep)):
+        lite = gprep is grid_prep
+        primary, ghit, gs, gseed = middle_rays(tile, mid_tile, gscene, gcam,
+                                               gprep)
+        bounce, bactive = bounce_rays(gs, ghit, gseed)
+        for name, (ray, active) in {"primary": (primary, None),
+                                    "bounce 1": (bounce, bactive)}.items():
+            o4t, d4t = ti.pack_rays(ray, active)
+            n = o4t.shape[1]
+            geo = (o4t, d4t, gprep.sc_bounds, gprep.chunk_bounds,
+                   gprep.mu_pad, gprep.mv_pad, gprep.mw_pad)
+            if lite:
+                kname, kfn, pfn = ("closest_hit_sc_lite",
+                                   ti.closest_hit_sc_lite,
+                                   ti.closest_hit_sc_lite_plain)
+                args = geo + (gprep.scc,)
+            else:
+                kname, kfn, pfn = ("closest_hit_rows_sc",
+                                   ti.closest_hit_rows_sc,
+                                   ti.closest_hit_rows_sc_plain)
+                args = geo + (gprep.tab, gprep.scc)
+            got = kfn(*args)
+            want = pfn(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            t_row = 0 if lite else 40
+            n_hit = int((want[t_row] < ti._MISS).sum())
+            check(n_hit > n // 10, f"{label} {name}: only {n_hit} rays hit")
+            log(f"{kname} vs plain, {label}, {name} rays ({n}, {n_hit} "
+                f"hit): max |diff| {err:g} over rows 0-{got.shape[0] - 1}")
+            check(torch.equal(got, want), f"{kname}, {label} {name}: rows "
+                  f"differ from the plain version")
+            check(torch.equal(got[t_row].view(torch.int32),
+                              want[t_row].view(torch.int32)),
+                  f"{kname}, {label} {name}: t is not bitwise equal")
+            work = ti.walk_two_level_plain(*geo, gprep.scc)
+            needed = float(work.walk.steps.sum())
+            slabs = float(work.slab_tests.sum())
+            spent = float(work.chunk_sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+            k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
+            p = cuda_ms(lambda: pfn(*args), GRID_PLAIN_ITERS, torch)
+            log(f"  {needed:.4g} ray-triangle tests and {slabs:.4g} slab "
+                f"tests needed, {spent:.4g} thread-slots swept "
+                f"({needed / max(spent, 1.0):.3f} useful)")
+            record(kname, err, k, p, *bound(
+                needed, slabs, two_level_bytes(gprep, n, 8 if lite else
+                                               ti.OUT_R, not lite)))
+            if lite:
+                # The lite epilogue against kernel 6's rows on this tile.
+                ti._SC_LITE = False
+                try:
+                    rows_hit = ti.trace_pallas(gscene, ray, active, gprep)
+                finally:
+                    ti._SC_LITE = True
+                lite_hit = ti.trace_pallas(gscene, ray, active, gprep)
+                check(rows_hit.rows is not None and lite_hit.rows is None,
+                      "the _SC_LITE switch did not change the kernel")
+                for f in ("t", "eidx", "tri", "inst"):
+                    check(torch.equal(getattr(lite_hit, f),
+                                      getattr(rows_hit, f)),
+                          f"grid {name}: the lite path's {f} differs from "
+                          f"kernel 6's")
+                on = lite_hit.hit
+                duv = max(float((lite_hit.u - rows_hit.u)[on].abs().max()),
+                          float((lite_hit.v - rows_hit.v)[on].abs().max()))
+                log(f"  lite epilogue vs kernel 6 rows, grid {name}: t, "
+                    f"eidx, tri, inst equal; max |u, v diff| {duv:g}")
+                check(duv <= 1e-4, f"grid {name}: u/v differ by {duv:g}")
+
     # -- 3. the main paths at 1080p -----------------------------------------
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
                "occluded": ti.occluded,
-               "closest_hit_rows_nee": ti.closest_hit_rows_nee}
+               "closest_hit_rows_nee": ti.closest_hit_rows_nee,
+               "closest_hit_sc_lite": ti.closest_hit_sc_lite,
+               "closest_hit_rows_sc": ti.closest_hit_rows_sc}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
-    paths = [  # (name, config, frames)
-        ("standard loop", cfg.replace(regen=False), 2),
-        ("regen", cfg, 3),
-        ("regen + NEE", cfg.replace(nee=True), 3),
-        ("standard loop + NEE", cfg.replace(nee=True, regen=False), 3)]
+    mid = build_sphere_grid(n=4, sphere_detail=12)
+    # (scene label, scene, camera, its closest-hit kernel, [(path name,
+    # config, timed frames)])
+    runs = [
+        ("demo", scene, cam, "closest_hit_rows", [
+            ("standard loop", cfg.replace(regen=False), 2),
+            ("regen", cfg, 3),
+            ("regen + NEE", cfg.replace(nee=True), 3),
+            ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2)]),
+        ("grid", grid, grid_cam, "closest_hit_sc_lite", [
+            ("regen", cfg, 3),
+            ("regen + NEE", cfg.replace(nee=True), 3),
+            ("standard loop (sorted)", cfg.replace(regen=False), 2)]),
+        ("mid grid", mid, grid_camera(W, H, n=4), "closest_hit_sc_lite", [
+            ("regen", cfg, 3)]),
+        ("n=14 grid", big, big_cam, "closest_hit_rows_sc", [
+            ("regen", cfg, 2)])]
     # Each wrapper's source (csrc/) and the line of the TPU kernel it
     # replaces in gdpathtracing_tpu/ops/intersect_pallas.py; the source
     # `x.cu` defines the kernel `x_kernel`.
     sources = {"closest_hit_rows": ("closest_hit_rows.cu", 520),
                "occluded": ("occlusion.cu", 1662),
-               "closest_hit_rows_nee": ("closest_hit_rows_nee.cu", 613)}
+               "closest_hit_rows_nee": ("closest_hit_rows_nee.cu", 613),
+               "closest_hit_sc_lite": ("closest_hit_sc_lite.cu", 973),
+               "closest_hit_rows_sc": ("closest_hit_rows_sc.cu", 864)}
     kernel_symbols = {k: Path(src).stem + "_kernel"
                       for k, (src, _) in sources.items()}
-    for name, pcfg, frames in paths:
+    paths = [(f"{label}, {name}", pscene, pcam, trace, pcfg, frames)
+             for label, pscene, pcam, trace, group in runs
+             for name, pcfg, frames in group]
+    for name, pscene, pcam, trace, pcfg, frames in paths:
         regen = pcfg.regen is not False
         for fn in kernels.values():
             fn.launches = 0
@@ -333,7 +466,7 @@ def main() -> None:
         frame_s, segs = [], []
         for f in range(frames):
             t0 = time.perf_counter()
-            aovs = render_radiance(scene, cam, pcfg, f)
+            aovs = render_radiance(pscene, pcam, pcfg, f)
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
             check(aovs.radiance.shape == (H, W, 3), f"{name}: shape")
@@ -347,16 +480,17 @@ def main() -> None:
         check(iters > 0 if regen else iters == 0,
               f"{name}: render_radiance ran {iters} regen iterations")
         nee = pcfg.nee
-        if regen:
-            want = {"closest_hit_rows": iters,
-                    "occluded": iters if nee else 0,
-                    "closest_hit_rows_nee": 0}
-        else:
-            want = {"closest_hit_rows": 0 if nee else
-                    frames * n_tiles * pcfg.bounces,
-                    "occluded": frames * n_tiles if nee else 0,
-                    "closest_hit_rows_nee": frames * n_tiles * pcfg.bounces
-                    if nee else 0}
+        want = dict.fromkeys(kernels, 0)
+        per_tile = frames * n_tiles
+        if regen:  # one closest hit and, with NEE, one shadow query each
+            want[trace] = iters
+            want["occluded"] = iters if nee else 0
+        elif nee and trace == "closest_hit_rows":  # fused NEE
+            want["closest_hit_rows_nee"] = per_tile * pcfg.bounces
+            want["occluded"] = per_tile
+        else:  # unfused NEE on a superchunk scene
+            want[trace] = per_tile * pcfg.bounces
+            want["occluded"] = per_tile * pcfg.bounces if nee else 0
         log(f"{name}: launches {got}" + (f", {iters} regen iterations"
                                          if regen else ""))
         check(got == want, f"{name}: launches {got}, expected {want}")
@@ -366,7 +500,7 @@ def main() -> None:
             log(f"  frame {f}: {t * 1e3:.1f} ms, {seg} segments, "
                 f"{seg / t / 1e6:.2f} Msegments/s")
         steady = statistics.median(frame_s[1:])
-        log(f"1080p demo, {name}, 1 spp, 5 bounces: median of frames 1-"
+        log(f"1080p {name}, 1 spp, 5 bounces: median of frames 1-"
             f"{frames - 1} {steady * 1e3:.1f} ms/frame, "
             f"{statistics.median(segs[1:]) / steady / 1e6:.2f} "
             f"Msegments/s; radiance mean {float(aovs.radiance.mean()):.5f};"
@@ -376,8 +510,10 @@ def main() -> None:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            render_radiance(scene, cam, pcfg, frames)
+            t0 = time.perf_counter()
+            render_radiance(pscene, pcam, pcfg, frames)
             torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
         on_card = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if not on_card:
@@ -385,11 +521,13 @@ def main() -> None:
                 f"idle share not measured")
             continue
         busy = busy_ms(on_card)
-        idle = 1.0 - busy / (steady * 1e3)
-        log(f"  profiled frame: {len(on_card)} device kernels, busy "
-            f"{busy:.2f} ms, idle share of the median frame {idle:.3f}")
-        check(idle >= 0.0, f"{name}: the device was busy {busy:.2f} ms in "
-              f"a {steady * 1e3:.1f} ms frame: the measurement is broken")
+        log(f"  profiled frame: {prof_ms:.1f} ms, {len(on_card)} device "
+            f"kernels, busy {busy:.2f} ms; idle share "
+            f"{1.0 - busy / prof_ms:.3f} of the profiled frame, "
+            f"{1.0 - busy / (steady * 1e3):.3f} of the median frame")
+        # Every kernel ran between the two clock reads around the frame.
+        check(busy <= prof_ms, f"{name}: the device was busy {busy:.2f} ms "
+              f"in a {prof_ms:.1f} ms frame: the measurement is broken")
         by_name = {}
         for e in on_card:
             by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -406,12 +544,21 @@ def main() -> None:
         check(n_launch > 0, f"{k} was not launched on the main paths")
 
     # -- 4. GPU against CPU at 64x48 ----------------------------------------
-    small = demo_camera(SMALL_W, SMALL_H)
-    on_cpu = scene.to("cpu")
-    for name, pcfg, _ in paths:
-        compare_frames(render_radiance(scene, small, pcfg, SMALL_FRAME),
-                       render_radiance(on_cpu, small, pcfg, SMALL_FRAME),
-                       f"{SMALL_W}x{SMALL_H} {name}, cuda vs cpu")
+    small = {"demo": demo_camera(SMALL_W, SMALL_H),
+             "grid": grid_camera(SMALL_W, SMALL_H, n=10)}
+    for name, pscene, _, _, pcfg, _ in paths:
+        label = name.split(",")[0]
+        if label not in small or (label == "grid" and pcfg.regen is False):
+            continue
+        compare_frames(
+            render_radiance(pscene, small[label], pcfg, SMALL_FRAME),
+            render_radiance(pscene.to("cpu"), small[label], pcfg,
+                            SMALL_FRAME),
+            f"{SMALL_W}x{SMALL_H} {name}, cuda vs cpu",
+            # NEE on the grid: a shadow query whose cos_i is within
+            # rounding of 0 is posted on one device only (tests/
+            # test_torch_cuda.py test_superchunk_render_cuda_matches_cpu).
+            seg_share=0.99 if label == "grid" and pcfg.nee else 1.0)
 
     check(not any(m == "gdpathtracing_tpu" or m.startswith(
         "gdpathtracing_tpu.") for m in sys.modules),

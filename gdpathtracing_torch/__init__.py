@@ -3,11 +3,13 @@
 Same module layout and names as the JAX package, so each counterpart sits at
 the same path. This package imports torch and never JAX. Ported so far: a
 primal ``Traversal.PALLAS`` render (``RenderConfig(traversal=
-Traversal.PALLAS)``) over scenes of at most 16 triangle chunks, through the
-path-regeneration loop (the default) or the standard per-bounce loop
-(``regen=False``), with or without next-event estimation (``nee=True``);
-its three kernels (closest hit, occlusion, and the two fused) are in CUDA
-(``ops/intersect.py``, ``csrc/``). Scenes are built on the GPU unless the
+Traversal.PALLAS)``) over scenes of any size (more than 16 triangle chunks
+take the two-level superchunk traversal), through the path-regeneration
+loop (the default) or the standard per-bounce loop (``regen=False``), with
+or without next-event estimation (``nee=True``); its five kernels (flat
+closest hit, occlusion, the two fused, and the two-level closest hit with
+and without winner rows) are in CUDA (``ops/intersect.py``, ``csrc/``).
+Scenes are built on the GPU unless the
 caller asks for another device. Everything else raises NotImplementedError
 naming its ROADMAP item.
 

@@ -1,11 +1,14 @@
 // Device code shared by the traversal kernels (closest_hit_rows.cu,
-// occlusion.cu, closest_hit_rows_nee.cu): one thread per ray, 256-ray
-// blocks, chunks of 256 triangles staged in shared memory.
+// occlusion.cu, closest_hit_rows_nee.cu, closest_hit_sc_lite.cu,
+// closest_hit_rows_sc.cu): one thread per ray, 256-ray blocks, chunks of
+// 256 triangles staged in shared memory.
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
 //   boxes    (8, nb)         [min3 | max3 | pad2], inflated by ~100 ulp
 //   mu/mv/mw (4, E)          unit-triangle-space rows, E = 256 * nc
+//   superchunks              nsc = nc / scc boxes, each around scc
+//                            consecutive chunks (the two-level kernels)
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // product and sum is rounded on its own, in the order written here, and
@@ -142,6 +145,49 @@ __device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
     if (valid && (h.t < best.t ||
                   (h.t == best.t && h.t < kMiss && eidx < best.e))) {
       best = Best{h.t, h.u, h.v, h.wd, eidx};
+    }
+  }
+}
+
+// What the two-level walk counts: triangles this ray swept, superchunks
+// its block entered, chunks its block swept.
+struct WalkCounts {
+  float steps, sc_entries, chunk_sweeps;
+};
+
+// Two-level closest-hit walk (closest_hit_sc_lite.cu, closest_hit_rows_sc.cu)
+// over nsc superchunks of `scc` consecutive chunks each, in index order.
+// A ray sweeps chunk c when its own slab tests against the inflated box
+// of c's superchunk and of c itself both pass (tmax >= tmin, tmax > 0,
+// tmin <= its best t so far). The block skips a superchunk none of its
+// rays enters, and a chunk none of them needs; otherwise it stages the
+// chunk and every ray that needs it sweeps it. The winner depends on
+// neither the visit order nor the block.
+__device__ __forceinline__ void walk_two_level(
+    ChunkRows& s_m, const Ray& r, const float* __restrict__ sc_bounds,
+    int nsc, const float* __restrict__ chunk_bounds, int scc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid, Best& best,
+    WalkCounts& cnt) {
+  const int nc = nsc * scc;
+  for (int s = 0; s < nsc; ++s) {
+    float tmin, tmax;
+    slab(r, sc_bounds, nsc, s, tmin, tmax);
+    const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
+    // Also the barrier that ends every read of the previous chunk's rows.
+    if (!__syncthreads_or(sc_may)) continue;
+    cnt.sc_entries += 1.f;
+    for (int c = s * scc; c < (s + 1) * scc; ++c) {
+      slab(r, chunk_bounds, nc, c, tmin, tmax);
+      const bool may = sc_may && (tmax >= tmin) && (tmax > 0.f) &&
+                       (tmin <= best.t);
+      if (!__syncthreads_or(may)) continue;
+      stage_chunk(s_m, mu, mv, mw, e, c, tid);
+      __syncthreads();
+      cnt.chunk_sweeps += 1.f;
+      if (!may) continue;
+      cnt.steps += (float)kBT;
+      sweep_closest(s_m, r, c * kBT, best);
     }
   }
 }

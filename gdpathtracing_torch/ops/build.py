@@ -51,7 +51,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee")
+KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
+           "closest_hit_sc_lite", "closest_hit_rows_sc")
 
 _loaded: dict[str, Library] = {}
 

@@ -1,10 +1,10 @@
 """Ray traversal over the chunked expanded-triangle list.
 
-Port of the flat (≤ 16 chunks) part of gdpathtracing_tpu/ops/intersect_pallas.py:
+Port of the PALLAS traversal of gdpathtracing_tpu/ops/intersect_pallas.py:
 ``build_trace_table``, ``_inflate_bounds``, ``_sub_bounds``,
-``prepare_trace_inputs``, ``trace_pallas``, ``occluded_pallas`` and
-``trace_occlude_pallas``, over three kernels of the TPU package, each here a
-wrapper that
+``prepare_trace_inputs`` (flat and superchunk), ``trace_pallas``,
+``lite_epilogue``, ``occluded_pallas`` and ``trace_occlude_pallas``, over
+five kernels of the TPU package, each here a wrapper that
 
 - on a CUDA tensor launches a hand-written kernel from ``csrc/`` (built by
   nvcc at first use, ops/build.py) and counts the launch in ``.launches``;
@@ -12,18 +12,25 @@ wrapper that
   tests hold against JAX and ``chip_smoke.py`` holds against the kernel on
   the card.
 
-=====================  ======================================  ==================
-wrapper                 TPU kernel (intersect_pallas.py)        CUDA source
-=====================  ======================================  ==================
-closest_hit_rows        ``_kernel_rows`` + ``_sweep_update``     closest_hit_rows.cu
-occluded                ``_occlusion_kernel``                    occlusion.cu
-closest_hit_rows_nee    ``_kernel_rows_nee`` (the two fused)     closest_hit_rows_nee.cu
-=====================  ======================================  ==================
+The wrappers, with the TPU kernel each replaces (intersect_pallas.py) and
+its CUDA source (csrc/):
 
-The TPU kernels visit chunks near-to-far from a per-block queue; neither the
-closest-hit winner nor the any-hit answer depends on visit order, so every
-version here walks the chunks in index order (only the ``steps`` row and the
-sweep telemetry see the difference).
+- ``closest_hit_rows``: ``_kernel_rows`` + ``_sweep_update``;
+  closest_hit_rows.cu
+- ``occluded``: ``_occlusion_kernel``; occlusion.cu
+- ``closest_hit_rows_nee``: ``_kernel_rows_nee`` (the two fused);
+  closest_hit_rows_nee.cu
+- ``closest_hit_sc_lite``: ``_kernel_sc_lite`` + ``_lite_sc_sweep``;
+  closest_hit_sc_lite.cu
+- ``closest_hit_rows_sc``: ``_kernel_rows_sc``; closest_hit_rows_sc.cu
+
+Scenes of at most 16 chunks take the flat kernels; larger ones the
+two-level (superchunk) kernels for the closest hit, and the flat occlusion
+kernel over the unpadded chunks for shadow rays, as the reference does.
+The TPU kernels visit chunks near-to-far from a per-block queue; neither
+the closest-hit winner nor the any-hit answer depends on visit order, so
+every version here walks the chunks in index order (only the ``steps`` row
+and the sweep telemetry see the difference).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from gdpathtracing_torch.render.lights import LightTable, build_light_table
+from gdpathtracing_torch.render.shading import material_table
 from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
 
@@ -44,10 +52,22 @@ TAB_R = 40   # winner-table rows
 OUT_R = 48   # output rows: 0:40 table | 40 t | 41 u | 42 v | 43 w_d |
 #              44 eidx | 45 triangles swept by the ray | 46 chunks swept
 #              by its 256-ray block | 47 chunks the block swept for
-#              shadow rays (closest_hit_rows_nee; zero otherwise)
+#              shadow rays (closest_hit_rows_nee; zero otherwise). The
+#              superchunk rows kernel counts superchunks its block entered
+#              in 46 and chunks its block swept in 47.
+LITE_R = 8   # superchunk lite rows: 0 t | 1 eidx (exact f32) | 2 triangles
+#              swept by the ray | 3 superchunks its block entered | 4-7 zero
 SUB = 2      # sub-chunks per chunk: a shadow ray tests each 128-triangle
 SW = BT // SUB  # half's own box before sweeping it
-MAX_FLAT_CHUNKS = 16  # larger scenes take the superchunk kernel (not ported)
+MAX_FLAT_CHUNKS = 16  # larger scenes take the superchunk kernels
+SCC = 8      # chunks per superchunk (raised to keep nsc <= ~100)
+# Dispatch of superchunk scenes, mirrored from the reference so that the
+# port takes the same kernel on every scene: the lite kernel (3) while the
+# (4, 3·E) triangle rows fit _SC_RESIDENT_BYTES, else the rows kernel (6).
+# These are the TPU's VMEM figures (a v5e core's 16 MB, halved); whether
+# the H100 wants another threshold is open (PERF.md §7).
+_SC_LITE = True
+_SC_RESIDENT_BYTES = 8 << 20
 _WD_EPS = 1e-12
 _MISS = 1e9
 
@@ -70,15 +90,7 @@ def build_trace_table(scene: Scene, lights: LightTable | None = None
     """
     shade = scene.isect_shade  # (E, 16)
     e = shade.shape[0]
-    mat_id = shade[:, 15].to(torch.int64)
-    mat_tbl = torch.cat([
-        scene.mat_albedo, scene.mat_emission,
-        scene.mat_emission_energy[:, None], scene.mat_metallic[:, None],
-        scene.mat_roughness[:, None],
-        scene.mat_tex.to(torch.float32)[:, None],
-        scene.mat_transmission[:, None], scene.mat_ior[:, None],
-        scene.mat_mr_tex.to(torch.float32)[:, None]], dim=1)  # (M, 13)
-    mats = mat_tbl[mat_id]
+    mats = material_table(scene)[shade[:, 15].to(torch.int64)]
 
     if scene.n_lights > 0:
         lt = lights if lights is not None else build_light_table(scene)
@@ -140,42 +152,93 @@ def _sub_bounds(scene: Scene) -> torch.Tensor:
 
 class TracePrep(NamedTuple):
     """Kernel-ready trace inputs, built once per scene."""
-    mu: torch.Tensor      # (4, E)
+    mu: torch.Tensor      # (4, E) unit-space rows (the flat kernels)
     mv: torch.Tensor
     mw: torch.Tensor
-    tab: torch.Tensor     # (40, E)
+    tab: torch.Tensor     # (40, E_pad) winner table
     bounds: torch.Tensor  # (8, nc) inflated chunk AABBs
     sub_bounds: torch.Tensor  # (8, SUB·nc) inflated sub-chunk AABBs
     lights: LightTable | None  # NEE light table (None without emitters)
+    superchunks: bool     # more than MAX_FLAT_CHUNKS chunks
+    # The superchunk kernels' operands (on a flat scene, the flat ones):
+    mu_pad: torch.Tensor  # (4, E_pad), E_pad = 256·nc_pad, zero columns
+    mv_pad: torch.Tensor  # for the pad chunks
+    mw_pad: torch.Tensor
+    chunk_bounds: torch.Tensor  # (8, nc_pad) inflated; pad chunks are
+    #                             point boxes at 1e30 that no slab passes
+    sc_bounds: torch.Tensor     # (8, nsc) inflated superchunk AABBs
+    #                             (8, 0) on a flat scene
+    scc: int                    # chunks per superchunk, nc_pad = nsc·scc
+    tri_inst: torch.Tensor      # (E, 2) i32 [tri | inst] of each triangle
+
+    @property
+    def m3_bytes(self) -> int:
+        """Bytes of the reference's interleaved (4, 3·E_pad) triangle
+        rows, which its superchunk dispatch compares with
+        ``_SC_RESIDENT_BYTES``."""
+        return 4 * 3 * self.mu_pad.shape[1] * 4
 
 
 def prepare_trace_inputs(scene: Scene) -> TracePrep:
+    """The kernels' inputs. A scene of more than 16 chunks is padded to
+    whole superchunks of ``scc`` chunks (``SCC``, raised to keep at most
+    ~100 superchunks, as the reference does for its queue): zero triangle
+    columns, a 1e30 point box for each pad chunk, and superchunk boxes
+    around the real chunks only."""
     e = scene.isect_mu.shape[1]
     if e >= 2 ** 24:
         raise ValueError(f"scene has {e} expanded triangles; ids ride the "
                          f"f32 rows and are exact only below 2^24")
     nc = e // BT
-    if nc > MAX_FLAT_CHUNKS:
-        raise NotImplementedError(
-            f"scene has {nc} chunks; scenes with more than "
-            f"{MAX_FLAT_CHUNKS} need the superchunk kernels "
-            f"(ROADMAP queue 1, item 8)")
+    scc = max(SCC, -(-nc // 100))
     lights = build_light_table(scene)
-    return TracePrep(scene.isect_mu.contiguous(), scene.isect_mv.contiguous(),
-                     scene.isect_mw.contiguous(),
-                     build_trace_table(scene, lights),
-                     _inflate_bounds(scene.isect_chunk_bounds).contiguous(),
-                     _sub_bounds(scene).contiguous(), lights)
+    tab = build_trace_table(scene, lights)
+    mu, mv, mw = (x.contiguous() for x in (scene.isect_mu, scene.isect_mv,
+                                             scene.isect_mw))
+    cb = scene.isect_chunk_bounds
+    bounds = _inflate_bounds(cb).contiguous()
+    tri_inst = torch.stack([scene.isect_tri, scene.isect_inst],
+                           dim=1).to(torch.int32)
+    flat = dict(mu=mu, mv=mv, mw=mw, bounds=bounds,
+                sub_bounds=_sub_bounds(scene).contiguous(), lights=lights,
+                tri_inst=tri_inst)
+    if nc <= MAX_FLAT_CHUNKS:
+        return TracePrep(tab=tab, superchunks=False, mu_pad=mu, mv_pad=mv,
+                         mw_pad=mw, chunk_bounds=bounds,
+                         sc_bounds=bounds.new_zeros((8, 0)), scc=scc,
+                         **flat)
+
+    nc_pad = -(-nc // scc) * scc
+    nsc = nc_pad // scc
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, (nc_pad - nc) * BT)
+                                       ).contiguous()
+
+    pad_box = cb.new_zeros((8, nc_pad - nc))
+    pad_box[0:6] = 1e30
+    cb_pad = torch.cat([cb, pad_box], dim=1)
+    real = (torch.arange(nc_pad, device=cb.device) < nc)[None, :]
+    mins = torch.where(real, cb_pad[0:3], torch.inf).view(3, nsc, scc)
+    maxs = torch.where(real, cb_pad[3:6], -torch.inf).view(3, nsc, scc)
+    sc = torch.cat([mins.amin(dim=2), maxs.amax(dim=2),
+                    cb.new_zeros((2, nsc))], dim=0)
+    return TracePrep(tab=pad(tab), superchunks=True, mu_pad=pad(mu),
+                     mv_pad=pad(mv), mw_pad=pad(mw),
+                     chunk_bounds=_inflate_bounds(cb_pad).contiguous(),
+                     sc_bounds=_inflate_bounds(sc).contiguous(), scc=scc,
+                     **flat)
 
 
 # ---------------------------------------------------------------------------
 # Shared by the kernels: input checks, launch, the slab test
 # ---------------------------------------------------------------------------
 
-def _check_inputs(**args) -> tuple[int, int]:
+def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
     """Check the kernel operands named in ``args`` (dtype, device, layout,
     shape) and return (N, E). N rays come from ``o4t``, E triangles from
-    ``mu``."""
+    ``mu``; the two-level kernels' ``sc_bounds`` hold one box per ``scc``
+    chunks."""
     o4t, mu = args["o4t"], args["mu"]
     dev = o4t.device
     for name, x in args.items():
@@ -190,10 +253,13 @@ def _check_inputs(**args) -> tuple[int, int]:
     n = o4t.shape[1] if o4t.dim() == 2 else -1
     e = mu.shape[1] if mu.dim() == 2 else -1
     nc = e // BT
+    if not isinstance(scc, int) or scc < 1 or nc % scc:
+        raise ValueError(f"scc={scc!r} must be a positive int dividing the "
+                         f"{nc} chunks")
     want = dict(o4t=(4, n), d4t=(4, n), so4t=(4, n), sd4t=(4, n),
                 tlim=(n,), stmax=(n,), bounds=(8, nc),
-                sub_bounds=(8, SUB * nc), mu=(4, e), mv=(4, e), mw=(4, e),
-                tab=(TAB_R, e))
+                sub_bounds=(8, SUB * nc), sc_bounds=(8, nc // scc),
+                mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e))
     for name, x in args.items():
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
@@ -207,25 +273,27 @@ def _check_inputs(**args) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _c_function(name: str, n_ptrs: int):
+def _c_function(name: str, n_ptrs: int, n_ints: int):
     """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` device
-    pointers, then N, E and the stream; returns a cudaError_t."""
+    pointers, ``n_ints`` ints (N, E and any more the kernel takes), then
+    the stream; returns a cudaError_t."""
     from gdpathtracing_torch.ops.build import load_library
 
     fn = getattr(load_library(name).lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, tensors: tuple, n: int, e: int) -> None:
-    """Launch kernel ``name`` on the current stream (no synchronisation);
-    raise if the launch was refused."""
+def _launch(name: str, tensors: tuple, *ints: int) -> None:
+    """Launch kernel ``name`` on the current stream (no synchronisation)
+    with the ``tensors``' pointers and the ``ints``; raise if the launch was
+    refused."""
     dev = tensors[0].device
-    fn = _c_function(name, len(tensors))
+    fn = _c_function(name, len(tensors), len(ints))
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in tensors), n, e,
+        err = fn(*(t.data_ptr() for t in tensors), *ints,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -272,64 +340,92 @@ def _uvt(cols, mu, mv, mw, o, d):
 # Kernel 1: closest hit + winner rows
 # ---------------------------------------------------------------------------
 
-def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's contract (see
-    csrc/closest_hit_rows.cu): same chunk order, same per-ray gate, same
-    term order in every dot product, elementwise products only (no matmul,
-    so no TF32). Runs chunk by chunk and only on the rays whose slab test
-    passed, so temporaries are (rays, 256), never (rays, E)."""
-    n, e = o4t.shape[1], mu.shape[1]
-    nc = e // BT
-    ox, oy, oz, ow = o4t.unbind(0)
-    dx, dy, dz, dw = d4t.unbind(0)
-    rdx, rdy, rdz = _rcp(dx), _rcp(dy), _rcp(dz)
-    best_t = torch.full((n,), _MISS, dtype=torch.float32, device=o4t.device)
-    best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device)
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_wd = torch.zeros_like(best_t)
-    steps = torch.zeros_like(best_t)
-    sweeps = torch.zeros_like(best_t)
+def _block_any(mask: torch.Tensor) -> torch.Tensor:
+    """(N,) f32: 1 on every ray of a 256-ray block where any ray of it has
+    ``mask`` set."""
+    return mask.view(-1, BN).any(dim=1).repeat_interleave(BN).to(
+        torch.float32)
 
-    lane = torch.arange(BT, device=o4t.device)
 
-    for c in range(nc):
-        tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
-        may = (tmax >= tmin) & (tmax > 0.0) & (tmin <= best_t)
-        sweeps += may.view(-1, BN).any(dim=1).repeat_interleave(BN).to(
-            torch.float32)
+class _ClosestWalk:
+    """State of the plain closest-hit walks: each ray's best (t, eidx) with
+    its u, v and w_d, and the triangles it swept. The chunk sweep repeats
+    csrc/trace_common.cuh ``sweep_closest``: the same per-ray gate, the
+    same term order in every dot product, elementwise products only (no
+    matmul, so no TF32), run only on the rays whose gate passed, so
+    temporaries are (rays, 256), never (rays, E)."""
+
+    def __init__(self, o4t, d4t):
+        n = o4t.shape[1]
+        self.o = o4t.unbind(0)
+        self.d = d4t.unbind(0)
+        self.rd = tuple(_rcp(x) for x in self.d[:3])
+        self.best_t = torch.full((n,), _MISS, dtype=torch.float32,
+                                 device=o4t.device)
+        self.best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device)
+        self.best_u = torch.zeros_like(self.best_t)
+        self.best_v = torch.zeros_like(self.best_t)
+        self.best_wd = torch.zeros_like(self.best_t)
+        self.steps = torch.zeros_like(self.best_t)
+        self.lane = torch.arange(BT, device=o4t.device)
+
+    def passes(self, box) -> torch.Tensor:
+        """(N,) bool: the ray's slab test against ``box`` (8,) passes
+        before its best t so far."""
+        tmin, tmax = _slab(box, *self.o[:3], *self.rd)
+        return (tmax >= tmin) & (tmax > 0.0) & (tmin <= self.best_t)
+
+    def sweep(self, c, may, mu, mv, mw) -> None:
+        """Sweep chunk ``c`` for the rays where ``may`` is set."""
         idx = torch.nonzero(may).squeeze(1)
         if idx.numel() == 0:
-            continue
-        steps[idx] += float(BT)
-        u, v, t, w_d, wd_ok = _uvt(
-            slice(c * BT, (c + 1) * BT), mu, mv, mw,
-            (ox[idx], oy[idx], oz[idx], ow[idx]),
-            (dx[idx], dy[idx], dz[idx], dw[idx]))
+            return
+        self.steps[idx] += float(BT)
+        u, v, t, w_d, wd_ok = _uvt(slice(c * BT, (c + 1) * BT), mu, mv, mw,
+                                   tuple(x[idx] for x in self.o),
+                                   tuple(x[idx] for x in self.d))
         valid = wd_ok & (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
         t = torch.where(valid, t, _MISS)
         tk = torch.amin(t, dim=1)
         # Lowest index among equal minima (torch.min's index is not
         # guaranteed to be the first on every device).
-        k = torch.where(t == tk[:, None], lane, BT).amin(dim=1)
+        k = torch.where(t == tk[:, None], self.lane, BT).amin(dim=1)
         ek = k + c * BT
-        cur_t, cur_e = best_t[idx], best_e[idx]
+        cur_t, cur_e = self.best_t[idx], self.best_e[idx]
         better = (tk < cur_t) | ((tk == cur_t) & (tk < _MISS) & (ek < cur_e))
         sel, kb = idx[better], k[better][:, None]
-        best_t[sel] = tk[better]
-        best_e[sel] = ek[better]
-        best_u[sel] = u[better].gather(1, kb)[:, 0]
-        best_v[sel] = v[better].gather(1, kb)[:, 0]
-        best_wd[sel] = w_d[better].gather(1, kb)[:, 0]
+        self.best_t[sel] = tk[better]
+        self.best_e[sel] = ek[better]
+        self.best_u[sel] = u[better].gather(1, kb)[:, 0]
+        self.best_v[sel] = v[better].gather(1, kb)[:, 0]
+        self.best_wd[sel] = w_d[better].gather(1, kb)[:, 0]
 
-    hit = best_t < _MISS
-    out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
-    out[:TAB_R] = torch.where(hit, tab[:, best_e], 0.0)
-    out[40], out[41], out[42], out[43] = best_t, best_u, best_v, best_wd
-    out[44] = best_e.to(torch.float32)
-    out[45], out[46] = steps, sweeps
-    out[47] = 0.0
-    return out
+    def rows(self, tab, row46, row47) -> torch.Tensor:
+        """The (48, N) output of the rows kernels (trace_common.cuh
+        ``write_rows``)."""
+        n = self.best_t.shape[0]
+        out = torch.empty((OUT_R, n), dtype=torch.float32,
+                          device=self.best_t.device)
+        out[:TAB_R] = torch.where(self.best_t < _MISS, tab[:, self.best_e],
+                                  0.0)
+        out[40], out[41], out[42] = self.best_t, self.best_u, self.best_v
+        out[43] = self.best_wd
+        out[44] = self.best_e.to(torch.float32)
+        out[45], out[46], out[47] = self.steps, row46, row47
+        return out
+
+
+def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract (see
+    csrc/closest_hit_rows.cu): chunks in index order, each ray gated by its
+    own slab test against the chunk's inflated box."""
+    walk = _ClosestWalk(o4t, d4t)
+    sweeps = torch.zeros_like(walk.best_t)
+    for c in range(mu.shape[1] // BT):
+        may = walk.passes(bounds[:, c])
+        sweeps += _block_any(may)
+        walk.sweep(c, may, mu, mv, mw)
+    return walk.rows(tab, sweeps, 0.0)
 
 
 def closest_hit_rows(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
@@ -388,8 +484,7 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
     for c in range(nc):
         tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
         may = (tmax >= tmin) & (tmax > 0.0) & (tmin < tlim) & ~occ
-        sweeps += may.view(-1, BN).any(dim=1).repeat_interleave(BN).to(
-            torch.float32)
+        sweeps += _block_any(may)
         for s in range(SUB):
             smin, smax = _slab(sub_bounds[:, c * SUB + s], ox, oy, oz,
                                rdx, rdy, rdz)
@@ -478,6 +573,115 @@ closest_hit_rows_nee.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernels 3 and 6: the two-level (superchunk) closest hit
+# ---------------------------------------------------------------------------
+
+class TwoLevelWalk(NamedTuple):
+    """What :func:`walk_two_level_plain` finds for N rays."""
+    walk: _ClosestWalk          # each ray's winner and triangles swept
+    sc_entries: torch.Tensor    # (N,) superchunks its block entered
+    chunk_sweeps: torch.Tensor  # (N,) chunks its block swept
+    slab_tests: torch.Tensor    # (N,) slab tests the ray itself needed:
+    #                             every superchunk's, and the chunks' of
+    #                             each superchunk its own test passed
+
+
+def walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
+                         ) -> TwoLevelWalk:
+    """Plain version of csrc/trace_common.cuh ``walk_two_level``:
+    superchunks in index order, then their chunks; a ray sweeps a chunk
+    when its own slab tests against the superchunk's and the chunk's
+    inflated boxes both pass before its best t."""
+    walk = _ClosestWalk(o4t, d4t)
+    sc_entries = torch.zeros_like(walk.best_t)
+    chunk_sweeps = torch.zeros_like(walk.best_t)
+    slab_tests = torch.full_like(walk.best_t, float(sc_bounds.shape[1]))
+    for s in range(sc_bounds.shape[1]):
+        sc_may = walk.passes(sc_bounds[:, s])
+        if not bool(sc_may.any()):
+            continue
+        sc_entries += _block_any(sc_may)
+        slab_tests += scc * sc_may.to(torch.float32)
+        for c in range(s * scc, (s + 1) * scc):
+            may = sc_may & walk.passes(bounds[:, c])
+            chunk_sweeps += _block_any(may)
+            walk.sweep(c, may, mu, mv, mw)
+    return TwoLevelWalk(walk, sc_entries, chunk_sweeps, slab_tests)
+
+
+def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
+                              scc) -> torch.Tensor:
+    """Plain version of csrc/closest_hit_sc_lite.cu: (8, N) rows t, eidx,
+    triangles swept by the ray, superchunks its block entered, 4 zeros."""
+    walk, sc_entries, _, _ = walk_two_level_plain(o4t, d4t, sc_bounds,
+                                                  bounds, mu, mv, mw, scc)
+    out = torch.zeros((LITE_R, o4t.shape[1]), dtype=torch.float32,
+                      device=o4t.device)
+    out[0], out[1] = walk.best_t, walk.best_e.to(torch.float32)
+    out[2], out[3] = walk.steps, sc_entries
+    return out
+
+
+def closest_hit_sc_lite(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
+                        ) -> torch.Tensor:
+    """(8, N) two-level closest hit of rays ``o4t``/``d4t`` (4, N): rows
+    0 t (1e9 on a miss), 1 eidx, 2 triangles swept, 3 superchunks the
+    ray's block entered. ``bounds`` (8, nc) are the inflated chunk boxes
+    of ``mu``/``mv``/``mw`` (4, 256·nc), ``sc_bounds`` (8, nc/scc) those
+    of each ``scc`` consecutive chunks.
+
+    CUDA tensors launch the kernel (counted in
+    ``closest_hit_sc_lite.launches``); CPU tensors run the plain version.
+    Anything else raises."""
+    n, e = _check_inputs(scc, o4t=o4t, d4t=d4t, sc_bounds=sc_bounds,
+                         bounds=bounds, mu=mu, mv=mv, mw=mw)
+    if o4t.device.type == "cpu":
+        return closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv,
+                                         mw, scc)
+    out = torch.empty((LITE_R, n), dtype=torch.float32, device=o4t.device)
+    _launch("closest_hit_sc_lite", (o4t, d4t, sc_bounds, bounds, mu, mv, mw,
+                                    out), n, e, scc)
+    closest_hit_sc_lite.launches += 1
+    return out
+
+
+closest_hit_sc_lite.launches = 0
+
+
+def closest_hit_rows_sc_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab,
+                              scc) -> torch.Tensor:
+    """Plain version of csrc/closest_hit_rows_sc.cu: kernel 1's rows for
+    the two-level walk, with row 46 the superchunks each block entered and
+    row 47 the chunks it swept."""
+    walk, sc_entries, chunk_sweeps, _ = walk_two_level_plain(
+        o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc)
+    return walk.rows(tab, sc_entries, chunk_sweeps)
+
+
+def closest_hit_rows_sc(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab, scc
+                        ) -> torch.Tensor:
+    """(48, N) closest-hit rows over the two-level walk of
+    :func:`closest_hit_sc_lite`, with the winner table ``tab`` (40, E).
+
+    CUDA tensors launch the kernel (counted in
+    ``closest_hit_rows_sc.launches``); CPU tensors run the plain version.
+    Anything else raises."""
+    n, e = _check_inputs(scc, o4t=o4t, d4t=d4t, sc_bounds=sc_bounds,
+                         bounds=bounds, mu=mu, mv=mv, mw=mw, tab=tab)
+    if o4t.device.type == "cpu":
+        return closest_hit_rows_sc_plain(o4t, d4t, sc_bounds, bounds, mu, mv,
+                                         mw, tab, scc)
+    out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
+    _launch("closest_hit_rows_sc", (o4t, d4t, sc_bounds, bounds, mu, mv, mw,
+                                    tab, out), n, e, scc)
+    closest_hit_rows_sc.launches += 1
+    return out
+
+
+closest_hit_rows_sc.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Wavefront wrappers
 # ---------------------------------------------------------------------------
 
@@ -536,25 +740,74 @@ def _hit_from_rows(rows: torch.Tensor, active) -> HitInfo:
                    rows=rows)
 
 
+def lite_epilogue(scene: Scene, prep: TracePrep, ray: Ray, active, t,
+                  eidx) -> HitInfo:
+    """HitInfo of the winners (t, eidx) of the lite kernel (port of
+    ``lite_epilogue``): u, v and w_d from one (N, 12) ``isect_cols`` row
+    per ray and 4-term dots, tri and inst from one (N, 2) ``tri_inst`` row.
+    ``rows`` is None, so shading gathers (render/shading.py
+    ``get_shading_data_fast``)."""
+    hit = t < MISS_T
+    eidx = torch.where(hit, eidx, 0)
+    rows12 = scene.isect_cols[eidx]
+
+    def dot4(c0, x, y, z, w):
+        return rows12[:, c0] * x + rows12[:, c0 + 1] * y + \
+            rows12[:, c0 + 2] * z + rows12[:, c0 + 3] * w
+
+    (ox, oy, oz), (dx, dy, dz) = ray.o, ray.d
+    one, zero = torch.ones_like(ox), torch.zeros_like(ox)
+    u = dot4(0, ox, oy, oz, one) + t * dot4(0, dx, dy, dz, zero)
+    v = dot4(4, ox, oy, oz, one) + t * dot4(4, dx, dy, dz, zero)
+    w_d = dot4(8, dx, dy, dz, zero)
+    ti = prep.tri_inst[eidx]
+    if active is not None:
+        t = torch.where(active, t, MISS_T)
+    return HitInfo(t=t, tri=torch.where(hit, ti[:, 0], 0),
+                   inst=torch.where(hit, ti[:, 1], 0),
+                   u=torch.clamp(u, 0.0, 1.0), v=torch.clamp(v, 0.0, 1.0),
+                   front=w_d < 0.0, steps=torch.zeros_like(eidx),
+                   eidx=eidx)
+
+
 def trace_pallas(scene: Scene, ray: Ray, active=None,
                  prep: TracePrep | None = None) -> HitInfo:
     """Closest hit for a wavefront (port of ``trace_pallas``): parks dead
-    rays, pads to a multiple of 256, runs :func:`closest_hit_rows` and
-    unpacks the rows. The returned HitInfo carries ``rows`` for
-    render/shading.py ``shading_from_rows``."""
+    rays, pads to a multiple of 256 and dispatches by the reference's rule:
+    a flat scene to :func:`closest_hit_rows`; a superchunk scene to
+    :func:`closest_hit_sc_lite` and :func:`lite_epilogue` while its
+    triangle rows fit ``_SC_RESIDENT_BYTES`` (and ``_SC_LITE``), else to
+    :func:`closest_hit_rows_sc`. A rows kernel's HitInfo carries ``rows``
+    for render/shading.py ``shading_from_rows``."""
     n = ray.o.x.shape[0]
     o4t, d4t = pack_rays(ray, active)
     if prep is None:
         prep = prepare_trace_inputs(scene)
-    rows = closest_hit_rows(o4t, d4t, prep.bounds, prep.mu, prep.mv,
-                            prep.mw, prep.tab)[:, :n]
+    if prep.superchunks and _SC_LITE \
+            and prep.m3_bytes <= _SC_RESIDENT_BYTES:
+        lite = closest_hit_sc_lite(o4t, d4t, prep.sc_bounds,
+                                   prep.chunk_bounds, prep.mu_pad,
+                                   prep.mv_pad, prep.mw_pad, prep.scc)[:, :n]
+        return lite_epilogue(scene, prep, ray, active, lite[0],
+                             lite[1].to(torch.int32))._replace(
+            steps=lite[2].to(torch.int32))
+    if prep.superchunks:
+        rows = closest_hit_rows_sc(o4t, d4t, prep.sc_bounds,
+                                   prep.chunk_bounds, prep.mu_pad,
+                                   prep.mv_pad, prep.mw_pad, prep.tab,
+                                   prep.scc)[:, :n]
+    else:
+        rows = closest_hit_rows(o4t, d4t, prep.bounds, prep.mu, prep.mv,
+                                prep.mw, prep.tab)[:, :n]
     return _hit_from_rows(rows, active)
 
 
 def occluded_pallas(scene: Scene, ray: Ray, t_max, active=None,
                     prep: TracePrep | None = None) -> torch.Tensor:
     """Any-hit query (port of ``occluded_pallas``): (N,) bool, True where
-    something blocks ``ray`` in (0, ``t_max``); False for inactive rays."""
+    something blocks ``ray`` in (0, ``t_max``); False for inactive rays.
+    Every scene, superchunk scenes too, takes the flat occlusion kernel
+    over its unpadded chunks, as the reference does."""
     n = ray.o.x.shape[0]
     o4t, d4t, tlim = pack_shadow_rays(ray, active, t_max)
     if prep is None:
@@ -568,12 +821,16 @@ def trace_occlude_pallas(scene: Scene, ray: Ray, active, sh_ray: Ray,
                          sh_tmax, sh_active, prep: TracePrep | None = None):
     """Closest hit for ``ray`` and any-hit occlusion for ``sh_ray`` in one
     :func:`closest_hit_rows_nee` launch (port of ``trace_occlude_pallas``).
-    Returns (HitInfo with rows, (N,) bool occluded & ``sh_active``)."""
+    Returns (HitInfo with rows, (N,) bool occluded & ``sh_active``).
+    Flat scenes only: neither frame loop fuses NEE on a superchunk scene."""
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
+    if prep.superchunks:
+        raise ValueError("trace_occlude_pallas takes flat scenes only (at "
+                         f"most {MAX_FLAT_CHUNKS} chunks)")
     n = ray.o.x.shape[0]
     o4t, d4t = pack_rays(ray, active)
     so4t, sd4t, stmax = pack_shadow_rays(sh_ray, sh_active, sh_tmax)
-    if prep is None:
-        prep = prepare_trace_inputs(scene)
     rows, occ = closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax,
                                      prep.bounds, prep.sub_bounds, prep.mu,
                                      prep.mv, prep.mw, prep.tab)

@@ -2,19 +2,24 @@
 
 Port of the standard loop of gdpathtracing_tpu/render/integrator.py for
 ``Traversal.PALLAS``: ``lax.fori_loop`` becomes a Python loop over bounces,
-and the group-granular survivor compaction (with the final unsort) is kept.
-Light transport is the reference's: BRDF importance sampling,
-``radiance += throughput * emission`` per segment, sky on a miss, a hard
-bounce cap and a ray-origin offset along the shading normal. With
-``config.nee`` each hit also samples an emitter (next-event estimation) and
-the two strategies are weighted by the power heuristic (MIS).
+and the reference's reorderings are kept: on large scenes a per-bounce
+stable sort of the wavefront by the Morton cell of the ray origin and the
+octant of its direction, otherwise group-granular survivor compaction,
+each with the final unsort. Light transport is the reference's: BRDF
+importance sampling, ``radiance += throughput * emission`` per segment, sky
+on a miss, a hard bounce cap and a ray-origin offset along the shading
+normal. With ``config.nee`` each hit also samples an emitter (next-event
+estimation) and the two strategies are weighted by the power heuristic
+(MIS).
 
-NEE runs the reference's fused form: bounce i's shadow query only gates an
-additive radiance term, so it is resolved by bounce i+1's closest-hit
-launch (ops/intersect.py ``trace_occlude_pallas``, kernel 4), and one
-trailing any-hit launch (``occluded_pallas``, kernel 2) resolves the last
-bounce's. The radiance accumulates in the same order as resolving each
-query at once would (emission_i, direct_i, emission_i+1, ...).
+On a flat scene NEE runs the reference's fused form: bounce i's shadow
+query only gates an additive radiance term, so it is resolved by bounce
+i+1's closest-hit launch (ops/intersect.py ``trace_occlude_pallas``,
+kernel 4), and one trailing any-hit launch (``occluded_pallas``, kernel 2)
+resolves the last bounce's. The radiance accumulates in the same order as
+resolving each query at once would (emission_i, direct_i, emission_i+1,
+...). On a superchunk scene, as in the reference, each bounce's shadow
+rays are resolved at once by their own any-hit launch.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                trace_occlude_pallas,
                                                trace_pallas)
 from gdpathtracing_torch.render import brdf, lights
-from gdpathtracing_torch.render.shading import shading_from_rows
+from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
@@ -45,10 +50,9 @@ def not_ported(what: str, item: int):
         f"(ROADMAP queue 1, item {item})")
 
 
-def check_transport_supported(scene: Scene, config: RenderConfig) -> None:
+def check_supported(scene: Scene, config: RenderConfig) -> None:
     """The transport both frame loops share: ``Traversal.PALLAS``, primal,
-    no Russian roulette, no transmission. Scenes of more than 16 chunks
-    raise in ops/intersect.py prepare_trace_inputs."""
+    no Russian roulette, no transmission."""
     if config.traversal != Traversal.PALLAS:
         oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
         not_ported(f"Traversal.{config.traversal.name}",
@@ -63,12 +67,31 @@ def check_transport_supported(scene: Scene, config: RenderConfig) -> None:
         not_ported("dielectric transmission", 3)
 
 
-def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """Gate of the standard loop: the shared transport, and no per-bounce
-    ray sorting."""
-    check_transport_supported(scene, config)
-    if config.sort_rays:
-        not_ported("per-bounce ray sorting (sort_rays=True)", 8)
+def morton_frame(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, span) of the scene's chunk boxes: the frame of the 8^3 Morton
+    cells that the ray sort keys on."""
+    cb = scene.isect_chunk_bounds
+    lo = cb[0:3].amin(dim=1)
+    return lo, torch.clamp(cb[3:6].amax(dim=1) - lo, min=1e-6)
+
+
+def morton_octant_key(o: Vec3, d: Vec3, lo, span) -> torch.Tensor:
+    """(N,) int64 sort key Morton(origin cell, 8^3) * 8 + octant(direction):
+    rays of one block then share both an origin region and a direction
+    cone, which is what the per-block slab culling needs."""
+    def q3(x, k):
+        return torch.clamp((x - lo[k]) / span[k] * 8.0, 0.0,
+                           7.0).to(torch.int64)
+    qx, qy, qz = q3(o.x, 0), q3(o.y, 1), q3(o.z, 2)
+    cell = torch.zeros_like(qx)
+    for b in range(3):  # 9-bit Morton interleave of 3-bit cells
+        cell = cell | (((qx >> b) & 1) << (3 * b + 2)) \
+            | (((qy >> b) & 1) << (3 * b + 1)) \
+            | (((qz >> b) & 1) << (3 * b))
+    octant = ((d.x > 0.0).to(torch.int64) * 4
+              + (d.y > 0.0).to(torch.int64) * 2
+              + (d.z > 0.0).to(torch.int64))
+    return cell * 8 + octant
 
 
 class PathTraceResult(NamedTuple):
@@ -84,12 +107,18 @@ def _compaction_group(n: int) -> int | None:
     return next((g for g in (128, 32, 8) if n % g == 0), None)
 
 
-def mis_emission(hit: HitInfo, ray_d: Vec3, emission: Vec3, is_hit,
-                 prev_pdf) -> Vec3:
+def mis_emission(scene: Scene, table: lights.LightTable, hit: HitInfo,
+                 ray_d: Vec3, emission: Vec3, is_hit, prev_pdf) -> Vec3:
     """Emission picked up by a BRDF-sampled ray, weighted against NEE by
     the power heuristic. Camera rays and the sky keep weight 1
-    (``prev_pdf`` < 0 marks a segment that was not a BRDF sample)."""
-    pl = lights.light_pdf_from_rows(hit.rows, ray_d, hit.t)
+    (``prev_pdf`` < 0 marks a segment that was not a BRDF sample). The
+    light pdf comes from the winner rows where the kernel wrote them,
+    else from the light ``table``."""
+    if hit.rows is not None:
+        pl = lights.light_pdf_from_rows(hit.rows, ray_d, hit.t)
+    else:
+        pl = lights.light_pdf_of_hit(table, scene, hit.inst, hit.tri, ray_d,
+                                     hit.t)
     pb = torch.clamp(prev_pdf, min=0.0)
     w_mis = torch.where(
         (prev_pdf > 0.0) & is_hit & (pl > 0.0),
@@ -142,15 +171,25 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     use_nee = config.nee and scene.n_lights > 0
+    fuse_nee = use_nee and not prep.superchunks
 
-    # Group-granular survivor compaction: stable partition of 128-ray
-    # groups by any-live, so dead groups pack into tail blocks whose slab
-    # tests all fail. Per-ray results do not depend on the order.
+    # Per-bounce sort (large scenes, where the per-block culling needs
+    # coherent blocks after a diffuse bounce) or group-granular survivor
+    # compaction (a stable partition of 128-ray groups by any-live, so dead
+    # groups pack into tail blocks whose slab tests all fail). The sort
+    # keys dead rays last, so it takes the place of compaction. Per-ray
+    # results do not depend on the order.
+    sort_rays = config.sort_rays
+    if sort_rays is None:
+        sort_rays = scene.isect_mu.shape[1] > 128 * 256
     compact = config.compact_rays
     if compact is None:
-        compact = n >= 65536
+        compact = not sort_rays and n >= 65536
     cg = _compaction_group(n)
-    compact = bool(compact) and cg is not None
+    compact = bool(compact) and not sort_rays and cg is not None
+    reorder = bool(sort_rays) or compact
+    if sort_rays:
+        cell_lo, cell_span = morton_frame(scene)
 
     zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
     zero3 = Vec3(zero_n, zero_n, zero_n)
@@ -162,26 +201,36 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
     segments = torch.zeros(n, dtype=torch.int32, device=dev)
     prev_pdf = zero_n - 1.0
-    src = torch.arange(n, device=dev) if compact else None
-    # The pending shadow query of the previous bounce (none at bounce 0).
+    src = torch.arange(n, device=dev) if reorder else None
+    # The pending shadow query of the previous bounce (fused NEE; none at
+    # bounce 0).
     pend = DirectLight(Ray(zero3, zero3), zero_n,
                        torch.zeros(n, dtype=torch.bool, device=dev), zero3)
 
     for i in range(config.bounces):
-        if compact:
-            # A ray whose shadow query is still pending keeps its group
-            # live: the fused launch resolves it this bounce.
-            live = active | pend.active if use_nee else active
-            glive = live.view(-1, cg).any(dim=1)
-            ng = glive.shape[0]
-            r_live = torch.cumsum(glive.to(torch.int64), 0)
-            r_dead = torch.cumsum((~glive).to(torch.int64), 0)
-            gdest = torch.where(glive, r_live - 1, r_live[-1] + r_dead - 1)
-            gorder = torch.empty(ng, dtype=torch.int64, device=dev)
-            gorder[gdest] = torch.arange(ng, device=dev)
+        if reorder:
+            if sort_rays:
+                key = torch.where(active, morton_octant_key(
+                    ray_o, ray_d, cell_lo, cell_span), 1 << 14)
+                order = torch.argsort(key, stable=True)
 
-            def g(x):
-                return x.view(-1, cg)[gorder].reshape(-1)
+                def g(x):
+                    return x[order]
+            else:
+                # A ray whose shadow query is still pending keeps its group
+                # live: the fused launch resolves it this bounce.
+                live = active | pend.active if fuse_nee else active
+                glive = live.view(-1, cg).any(dim=1)
+                ng = glive.shape[0]
+                r_live = torch.cumsum(glive.to(torch.int64), 0)
+                r_dead = torch.cumsum((~glive).to(torch.int64), 0)
+                gdest = torch.where(glive, r_live - 1,
+                                    r_live[-1] + r_dead - 1)
+                gorder = torch.empty(ng, dtype=torch.int64, device=dev)
+                gorder[gdest] = torch.arange(ng, device=dev)
+
+                def g(x):
+                    return x.view(-1, cg)[gorder].reshape(-1)
 
             def gv(v):
                 return Vec3(g(v.x), g(v.y), g(v.z))
@@ -192,13 +241,13 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
             active, depth, steps = g(active), g(depth), g(steps)
             segments, prev_pdf, src = g(segments), g(prev_pdf), g(src)
             seed = (g(seed[0]), g(seed[1]))
-            if use_nee:
+            if fuse_nee:
                 pend = DirectLight(Ray(gv(pend.shadow.o), gv(pend.shadow.d)),
                                    g(pend.tmax), g(pend.active),
                                    gv(pend.direct))
 
         r = Ray(ray_o, ray_d)
-        if use_nee:
+        if fuse_nee:
             hit, occ = trace_occlude_pallas(scene, r, active, pend.shadow,
                                             pend.tmax, pend.active, prep)
             # direct_i lands here, between emission_i and emission_i+1.
@@ -210,17 +259,25 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         steps = steps + torch.where(active, hit.steps, 0)
         segments = segments + active.to(torch.int32)
 
-        s = shading_from_rows(scene, hit, r)
+        s = get_shading_data(scene, hit, r)
         sky = sample_sky(ray_d, config, scene)
         emission = vwhere(is_hit, s.emission, sky)
         if use_nee:
-            emission = mis_emission(hit, r.d, emission, is_hit, prev_pdf)
+            emission = mis_emission(scene, prep.lights, hit, r.d, emission,
+                                    is_hit, prev_pdf)
         radiance = vwhere(active, radiance + throughput * emission, radiance)
 
         if use_nee:
-            pend, seed = sample_direct(s, throughput, is_hit, seed,
-                                       prep.lights, config)
-            segments = segments + pend.active.to(torch.int32)
+            dl, seed = sample_direct(s, throughput, is_hit, seed,
+                                     prep.lights, config)
+            segments = segments + dl.active.to(torch.int32)
+            if fuse_nee:
+                pend = dl
+            else:
+                occ = occluded_pallas(scene, dl.shadow, dl.tmax, dl.active,
+                                      prep)
+                radiance = vwhere(active, radiance + dl.direct
+                                  * (~occ).to(torch.float32), radiance)
 
         if i == 0:  # first-hit AOVs
             dist = (s.position - ray_o).length()
@@ -243,14 +300,14 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         active = survive
         prev_pdf = torch.where(survive, pdf, -1.0)
 
-    if use_nee:
+    if fuse_nee:
         # The last bounce's shadow queries: one trailing any-hit launch.
         occ = occluded_pallas(scene, pend.shadow, pend.tmax, pend.active,
                               prep)
         radiance = vwhere(pend.active, radiance + pend.direct
                           * (~occ).to(torch.float32), radiance)
 
-    if compact:
+    if reorder:
         def unsort(x):
             return torch.empty_like(x).index_copy_(0, src, x)
 

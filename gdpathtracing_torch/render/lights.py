@@ -6,8 +6,8 @@ The table is built once per scene (ops/intersect.py ``prepare_trace_inputs``
 keeps it); the closest-hit kernel's winner table carries each emitter's
 pick-pdf term and geometric normal (``build_trace_table`` rows 30-33), which
 ``light_pdf_from_rows`` reads for the MIS weight of a BRDF-sampled emitter
-hit. Emitters are double-sided. ``light_pdf_of_hit`` (the oracle traversals'
-form) is not ported.
+hit. Emitters are double-sided. After the superchunk lite kernel, which
+writes no rows, ``light_pdf_of_hit`` finds the emitter by (inst, tri).
 """
 
 from __future__ import annotations
@@ -132,3 +132,24 @@ def light_pdf_from_rows(hit_rows: torch.Tensor, ray_dir: Vec3, t
     dist2 = torch.clamp(t * t, min=_EPS)
     pdf = dist2 * inv_term / torch.clamp(cos_l, min=1e-6)
     return torch.where((inv_term > 0.0) & (cos_l > 1e-6), pdf, 0.0)
+
+
+def light_pdf_of_hit(table: LightTable, scene: Scene, hit_inst, hit_tri,
+                     ray_dir: Vec3, t) -> torch.Tensor:
+    """The pdf of :func:`light_pdf_from_rows` for a hit known only by
+    (inst, tri): matched against the (L,) emitters, the first match taken
+    (as ``jnp.argmax`` takes it); 0 when the hit is not an emitter.
+
+    Allocates an (N, L) match mask, as the reference does: small for the
+    bench scenes (L = 2 on the sphere grids), but a scene of many emitters
+    would want a per-triangle light index instead."""
+    eq = (scene.light_inst[None, :] == hit_inst[:, None]) & \
+        (scene.light_tri[None, :] == hit_tri[:, None])      # (N, L)
+    is_light = eq.any(dim=1)
+    k = torch.argmax(eq.to(torch.uint8), dim=1)
+    normal = Vec3(table.normal.x[k], table.normal.y[k], table.normal.z[k])
+    cos_l = torch.abs(normal.dot(-ray_dir))
+    dist2 = torch.clamp(t * t, min=_EPS)
+    pdf = dist2 / torch.clamp(cos_l * table.area[k], min=_EPS) * \
+        table.pick_prob[k]
+    return torch.where(is_light & (cos_l > 1e-6), pdf, 0.0)

@@ -9,8 +9,9 @@ PCG2D seed of (pixel, frame·spp + sample)), so each path draws exactly the
 random numbers, and runs exactly the per-segment arithmetic, of the
 standard loop (render/integrator.py), and the frame equals that loop's.
 
-One iteration traces one segment of every live lane (kernel 1; with NEE
-also one shadow query per lane, kernel 2), shades it and samples the next
+One iteration traces one segment of every live lane (kernel 1, or on a
+scene of more than 16 chunks a superchunk kernel; with NEE also one shadow
+query per lane, kernel 2), shades it and samples the next
 direction. Then the lanes are permuted: live lanes sorted by the Morton
 cell of their origin and the octant of their direction (blocks of similar
 rays sweep fewer chunks), then this iteration's dead, then the lanes that
@@ -41,10 +42,12 @@ from gdpathtracing_torch.ops.intersect import (BN, occluded_pallas,
                                                trace_pallas)
 from gdpathtracing_torch.render import brdf
 from gdpathtracing_torch.render.camera import Camera
-from gdpathtracing_torch.render.integrator import (check_transport_supported,
-                                                   mis_emission, not_ported,
-                                                   sample_direct)
-from gdpathtracing_torch.render.shading import shading_from_rows
+from gdpathtracing_torch.render.integrator import (check_supported,
+                                                   mis_emission,
+                                                   morton_frame,
+                                                   morton_octant_key,
+                                                   not_ported, sample_direct)
+from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.types import Ray
 from gdpathtracing_torch.scene.scene import Scene
@@ -76,7 +79,7 @@ def regen_auto(scene: Scene, config: RenderConfig) -> bool:
 def check_regen_supported(scene: Scene, config: RenderConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item (queue 1), for a
     regen configuration outside the ported slice."""
-    check_transport_supported(scene, config)
+    check_supported(scene, config)
     if config.regen_march:
         not_ported("regen's frontier march (regen_march=True)", 13)
     if config.regen_sort_key == "chunk":
@@ -125,9 +128,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     compact = config.compact_rays is not False
     use_log = config.regen_retire == "log" and compact
     sort_lanes = (config.sort_rays is not False) and compact
-    cb = scene.isect_chunk_bounds
-    cell_lo = cb[0:3].amin(dim=1)
-    cell_span = torch.clamp(cb[3:6].amax(dim=1) - cell_lo, min=1e-6)
+    cell_lo, cell_span = morton_frame(scene)
 
     def spawn(path_id):
         """Camera ray and RNG stream of path ``path_id`` (pixel-major
@@ -142,19 +143,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
         """Morton(origin cell, 8^3) * 8 + octant(direction) for live
         lanes; then this iteration's dead (the log appends them as one
         block), then the lanes that were dead before."""
-        def q3(x, k):
-            return torch.clamp((x - cell_lo[k]) / cell_span[k] * 8.0, 0.0,
-                               7.0).to(torch.int64)
-        qx, qy, qz = q3(o.x, 0), q3(o.y, 1), q3(o.z, 2)
-        cell = torch.zeros_like(qx)
-        for b in range(3):
-            cell = cell | (((qx >> b) & 1) << (3 * b + 2)) \
-                | (((qy >> b) & 1) << (3 * b + 1)) \
-                | (((qz >> b) & 1) << (3 * b))
-        octant = ((d.x > 0.0).to(torch.int64) * 4
-                  + (d.y > 0.0).to(torch.int64) * 2
-                  + (d.z > 0.0).to(torch.int64))
-        return torch.where(alive, cell * 8 + octant,
+        return torch.where(alive,
+                           morton_octant_key(o, d, cell_lo, cell_span),
                            torch.where(fresh, 1 << 14, 1 << 15))
 
     # Lane state: float rows [o3 d3 throughput3 radiance3 prev_pdf depth
@@ -208,11 +198,12 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             is_hit = hit.hit & active
             segs = segs + active.to(torch.int64)
 
-            s = shading_from_rows(scene, hit, r)
+            s = get_shading_data(scene, hit, r)
             sky = sample_sky(ray_d, config, scene)
             emission = vwhere(is_hit, s.emission, sky)
             if use_nee:
-                emission = mis_emission(hit, r.d, emission, is_hit, prev_pdf)
+                emission = mis_emission(scene, prep.lights, hit, r.d,
+                                        emission, is_hit, prev_pdf)
             rad = vwhere(active, rad + tp * emission, rad)
 
             if use_nee:

@@ -1,9 +1,13 @@
-"""Hit → shading data from the closest-hit kernel's packed winner rows.
+"""Hit → shading data.
 
-Port of ``shading_from_rows`` and ``sample_texture_array`` of
-gdpathtracing_tpu/render/shading.py. Everything a hit needs (normals, uvs,
-material values) arrives pre-selected in ``hit.rows`` (ops/intersect.py
-``build_trace_table`` layout); only textured scenes gather.
+Port of ``get_shading_data`` (its two PALLAS forms),
+``get_shading_data_fast``, ``shading_from_rows`` and
+``sample_texture_array`` of gdpathtracing_tpu/render/shading.py. After a
+rows kernel everything a hit needs (normals, uvs, material values) arrives
+pre-selected in ``hit.rows`` (ops/intersect.py ``build_trace_table``
+layout) and only textured scenes gather; after the superchunk lite kernel
+(``rows`` is None) shading gathers one packed triangle row and one
+material row per hit.
 """
 
 from __future__ import annotations
@@ -50,6 +54,79 @@ def sample_texture_array(textures: torch.Tensor, tex_idx: torch.Tensor,
     return vwhere(untextured, one, color)
 
 
+def material_table(scene: Scene) -> torch.Tensor:
+    """(M, 13) f32 material rows [albedo3, emission3, energy, metallic,
+    roughness, tex, transmission, ior, mr_tex]."""
+    return torch.cat([
+        scene.mat_albedo, scene.mat_emission,
+        scene.mat_emission_energy[:, None], scene.mat_metallic[:, None],
+        scene.mat_roughness[:, None],
+        scene.mat_tex.to(torch.float32)[:, None],
+        scene.mat_transmission[:, None], scene.mat_ior[:, None],
+        scene.mat_mr_tex.to(torch.float32)[:, None]], dim=1)
+
+
+def get_shading_data_fast(scene: Scene, hit: HitInfo, ray: Ray
+                          ) -> ShadingInfo:
+    """Shading from the expanded-triangle index: one (N, 16) gather of
+    ``isect_shade`` and one of the (M, 13) material table. The reference
+    selects the material row with a one-hot matmul at HIGHEST precision
+    for small M, which is exact; an index gather is the same select and
+    keeps TF32 out."""
+    row = scene.isect_shade[torch.clamp(hit.eidx, min=0).long()]  # (N, 16)
+    u, v = hit.u, hit.v
+    w = 1.0 - u - v
+    normal = Vec3(
+        row[:, 0] * w + row[:, 3] * u + row[:, 6] * v,
+        row[:, 1] * w + row[:, 4] * u + row[:, 7] * v,
+        row[:, 2] * w + row[:, 5] * u + row[:, 8] * v,
+    ).normalize(eps=1e-20)
+    normal = vwhere(hit.front, normal, -normal)
+    uv_u = row[:, 9] * w + row[:, 11] * u + row[:, 13] * v
+    uv_v = row[:, 10] * w + row[:, 12] * u + row[:, 14] * v
+    m = material_table(scene)[row[:, 15].to(torch.int64)]  # (N, 13)
+
+    albedo = Vec3(m[:, 0], m[:, 1], m[:, 2])
+    if scene.has_textures:
+        albedo = albedo * sample_texture_array(
+            scene.textures, m[:, 9].to(torch.int32), uv_u, uv_v)
+    energy = torch.clamp(m[:, 6], min=0.0)
+    emission = Vec3(m[:, 3] * energy, m[:, 4] * energy, m[:, 5] * energy)
+    metallic = m[:, 7]
+    roughness = m[:, 8]
+    if scene.has_mr_textures:
+        mr_idx = m[:, 12].to(torch.int32)
+        mr = sample_texture_array(scene.textures, mr_idx, uv_u, uv_v)
+        roughness = torch.where(mr_idx >= 0, roughness * mr.y, roughness)
+        metallic = torch.where(mr_idx >= 0, metallic * mr.z, metallic)
+    return _finish(ray, hit.t, normal, albedo, emission, metallic, roughness,
+                   m[:, 10], m[:, 11])
+
+
+def _finish(ray, t, normal, albedo, emission, metallic, roughness,
+            transmission, ior) -> ShadingInfo:
+    position = ray.at(t)
+    out_dir = -ray.d
+    fresnel_0 = Vec3.full(0.02, like=albedo) + \
+        (albedo - Vec3.full(0.02, like=albedo)) * metallic
+    diffuse_albedo = albedo - albedo * metallic
+    roughness = torch.clamp(roughness, min=MIN_ROUGHNESS)
+    return ShadingInfo(
+        position=position, normal=normal, out_dir=out_dir,
+        lambert_out=normal.dot(out_dir), emission=emission,
+        diffuse_albedo=diffuse_albedo, fresnel_0=fresnel_0,
+        roughness=roughness, transmission=transmission, ior=ior,
+        albedo=albedo)
+
+
+def get_shading_data(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:
+    """Shading of a PALLAS hit: from the winner rows where the kernel
+    wrote them, else by the gathers of :func:`get_shading_data_fast`."""
+    if hit.rows is not None:
+        return shading_from_rows(scene, hit, ray)
+    return get_shading_data_fast(scene, hit, ray)
+
+
 def shading_from_rows(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:
     """Gather-free shading fetch from the (48, N) winner rows."""
     r = hit.rows
@@ -78,15 +155,5 @@ def shading_from_rows(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:
         mr = sample_texture_array(scene.textures, mr_idx, uv_u, uv_v)
         roughness = torch.where(mr_idx >= 0, roughness * mr.y, roughness)
         metallic = torch.where(mr_idx >= 0, metallic * mr.z, metallic)
-    position = ray.at(hit.t)
-    out_dir = -ray.d
-    fresnel_0 = Vec3.full(0.02, like=albedo) + \
-        (albedo - Vec3.full(0.02, like=albedo)) * metallic
-    diffuse_albedo = albedo - albedo * metallic
-    roughness = torch.clamp(roughness, min=MIN_ROUGHNESS)
-    return ShadingInfo(
-        position=position, normal=normal, out_dir=out_dir,
-        lambert_out=normal.dot(out_dir), emission=emission,
-        diffuse_albedo=diffuse_albedo, fresnel_0=fresnel_0,
-        roughness=roughness,
-        transmission=r[27], ior=r[28], albedo=albedo)
+    return _finish(ray, hit.t, normal, albedo, emission, metallic, roughness,
+                   r[27], r[28])

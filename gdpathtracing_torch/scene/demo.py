@@ -1,7 +1,8 @@
 """The demo scene — port of gdpathtracing_tpu/scene/demo.py.
 
-The geometry asset is read by path from the JAX package's data directory
-(no import of that package, which would pull in JAX).
+The geometry asset is the port's own copy of the JAX package's
+``scene/data/demo_geometry.npz`` (tests/test_torch_scene.py holds the two
+byte-equal).
 
 Rebuild of the reference's Cornell demo.
 Mirrors project/demo/demo.tscn:69-93: an emissive ceiling plane light, the
@@ -29,8 +30,7 @@ from gdpathtracing_torch.scene.primitives import (cornell_box, plane_mesh,
                                                   uv_sphere)
 from gdpathtracing_torch.scene.scene import Scene, SceneBuilder
 
-_GEOMETRY_NPZ = (Path(__file__).resolve().parents[2] / "gdpathtracing_tpu"
-                 / "scene" / "data" / "demo_geometry.npz")
+_GEOMETRY_NPZ = Path(__file__).resolve().parent / "data" / "demo_geometry.npz"
 
 
 def load_demo_geometry(name: str):

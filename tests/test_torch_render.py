@@ -21,10 +21,12 @@ from gdpathtracing_tpu.scene.demo import (build_demo_scene as jax_demo_scene,
                                           demo_camera as jax_demo_camera)
 
 from gdpathtracing_torch.config import Jitter, RenderConfig, Traversal
+from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.post.tonemap import aces_film
 from gdpathtracing_torch.render.renderer import render, render_radiance
 from gdpathtracing_torch.scene.demo import (build_demo_scene,
-                                            build_sphere_grid, demo_camera)
+                                            build_sphere_grid, demo_camera,
+                                            grid_camera)
 
 torch.set_num_threads(1)
 DATA = Path(__file__).parent / "data"
@@ -127,6 +129,19 @@ def test_compaction_is_result_transparent(scene):
             assert torch.equal(a, b)
 
 
+def test_ray_sort_is_result_transparent(scene):
+    """The per-bounce Morton x octant sort forced on gives the frame of the
+    unsorted loop, bit for bit, with and without NEE: with the fused NEE
+    the pending shadow queries move with their rays."""
+    cam = demo_camera(40, 24)
+    for nee in (False, True):
+        cfg = SLICE.replace(bounces=4, nee=nee)
+        on = render_radiance(scene, cam, cfg.replace(sort_rays=True), 3)
+        off = render_radiance(scene, cam, cfg.replace(sort_rays=False), 3)
+        for a, b in zip(on, off):
+            assert torch.equal(a, b)
+
+
 def test_tiles_and_spp(scene):
     """Several tiles (tile_rays < pixels, last tile wrapping) and spp 2 give
     the one-tile frame."""
@@ -153,8 +168,9 @@ def test_render_tonemaps(scene):
     dict(regen=True, nee=True, regen_fuse_nee=True),
     dict(regen=True, regen_march=True),
     dict(regen=True, regen_sort_key="chunk"), dict(differentiable=True),
-    dict(soft_shadows=0.01), dict(soft_primary=0.01), dict(sort_rays=True),
-    dict(rr_start=2), dict(traversal=Traversal.MEGA)])
+    dict(soft_shadows=0.01), dict(soft_primary=0.01),
+    dict(traversal=Traversal.FUSED), dict(rr_start=2),
+    dict(traversal=Traversal.MEGA)])
 def test_outside_the_slice_raises(scene, change):
     cfg = SLICE.replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -166,8 +182,34 @@ def test_default_config_raises(scene):
         render(scene, demo_camera(8, 8))
 
 
-def test_superchunk_scene_raises():
-    grid = build_sphere_grid(n=5, sphere_detail=8, device="cpu")  # 22 chunks
+@pytest.mark.parametrize("lite", [True, False], ids=["lite", "rows"])
+def test_superchunk_scene_renders(lite, monkeypatch):
+    """A 22-chunk scene (3 superchunks) renders on the CPU, through kernel
+    3's plain version and, with ``_SC_LITE`` off, through kernel 6's; the
+    two give the same frame up to the lite path's other shading sums."""
+    grid = build_sphere_grid(n=5, sphere_detail=8, device="cpu")
     assert grid.isect_mu.shape[1] // 256 > 16
-    with pytest.raises(NotImplementedError, match="item 8"):
-        render_radiance(grid, demo_camera(8, 8), SLICE)
+    cam = grid_camera(16, 12, n=5)
+    cfg = SLICE.replace(bounces=3, nee=True)
+    ref = render_radiance(grid, cam, cfg, 1)  # the default: lite
+    monkeypatch.setattr(ti, "_SC_LITE", lite)
+    calls = {}
+    for name in ("closest_hit_sc_lite_plain", "closest_hit_rows_sc_plain"):
+        monkeypatch.setattr(ti, name, _counting(getattr(ti, name), calls,
+                                                name))
+    got = render_radiance(grid, cam, cfg, 1)
+    assert set(calls) == {"closest_hit_sc_lite_plain" if lite
+                          else "closest_hit_rows_sc_plain"}
+    assert got.radiance.shape == (12, 16, 3)
+    assert bool(torch.isfinite(got.radiance).all())
+    assert float(got.radiance.mean()) > 0.0
+    ok = (torch.abs(got.radiance - ref.radiance) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= MIN_PIXELS_OK
+    assert torch.equal(got.segments[ok], ref.segments[ok])
+
+
+def _counting(fn, calls, name):
+    def wrapped(*args):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*args)
+    return wrapped

@@ -5,6 +5,7 @@ a JAX scene's arrays become a port scene)."""
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,7 +13,10 @@ import torch
 
 from gdpathtracing_tpu.scene.demo import build_demo_scene as jax_demo_scene
 
-from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing_torch.ops.intersect import prepare_trace_inputs
+from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                            build_sphere_grid, demo_camera,
+                                            grid_camera)
 from gdpathtracing_torch.scene.scene import (Scene, scene_from_arrays,
                                              scene_to_arrays)
 
@@ -96,3 +100,46 @@ def test_demo_camera_matches_jax():
     assert float(tc.fov_deg) == float(jc.fov_deg)
     assert (tc.width, tc.height, tc.near, tc.far) == \
         (jc.width, jc.height, jc.near, jc.far)
+
+
+def test_demo_geometry_is_the_jax_asset():
+    """The port reads its own copy of the demo geometry, byte-equal to the
+    JAX package's."""
+    import gdpathtracing_torch.scene.demo as tdemo
+    import gdpathtracing_tpu.scene.demo as jdemo
+    ours = Path(tdemo._GEOMETRY_NPZ)
+    assert ours.parent.parent == Path(tdemo.__file__).resolve().parent
+    theirs = Path(jdemo.__file__).resolve().parent / "data" / \
+        "demo_geometry.npz"
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+# The sphere grids of the JAX bench (bench.py grid and mid axes, and a
+# larger grid), with what the JAX package's prepare_trace_inputs makes of
+# them: (n, sphere_detail) -> expanded triangles, chunks, superchunks of 8,
+# bytes of the interleaved triangle rows, emissive triangles.
+GRIDS = {(4, 12): (8704, 34, 5, 491520, 2),
+         (10, 16): (96256, 376, 47, 4620288, 2),
+         (14, 16): (188416, 736, 92, 9043968, 2)}
+
+
+@pytest.mark.parametrize("n,detail", sorted(GRIDS), ids=str)
+def test_sphere_grid_sizes(n, detail):
+    s = build_sphere_grid(n=n, sphere_detail=detail, device="cpu")
+    e, nc, nsc, m3_bytes, n_lights = GRIDS[(n, detail)]
+    prep = prepare_trace_inputs(s)
+    assert s.isect_mu.shape[1] == e and e // 256 == nc
+    assert prep.superchunks and prep.sc_bounds.shape[1] == nsc
+    assert prep.m3_bytes == m3_bytes and s.n_lights == n_lights
+
+
+def test_sphere_grid_bit_equal_to_jax():
+    from gdpathtracing_tpu.scene.demo import (
+        build_sphere_grid as jax_sphere_grid, grid_camera as jax_grid_camera)
+    js = jax_sphere_grid(n=4, sphere_detail=12)
+    ts = build_sphere_grid(n=4, sphere_detail=12, device="cpu")
+    _assert_bit_equal(scene_to_arrays(ts), _jax_arrays(js))
+    jc, tc = jax_grid_camera(16, 12, n=4), grid_camera(16, 12, n=4)
+    np.testing.assert_array_equal(tc.transform.numpy(),
+                                  np.asarray(jc.transform))
+    assert float(tc.fov_deg) == float(jc.fov_deg)

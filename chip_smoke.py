@@ -5,7 +5,7 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the five CUDA kernels from csrc/ with nvcc, in parallel, and
+1. builds the six CUDA kernels from csrc/ with nvcc, in parallel, and
    prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
@@ -23,6 +23,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      8 MiB lite threshold): each on the middle 1080p tile's primary rays,
      then one bounce from their hits; and on the grid tile, kernel 3 with
      the lite epilogue against kernel 6 (``_SC_LITE`` off);
+   - kernel 5 (the soft-shadow top-1 blocker): the shadow rays of the
+     middle tile's primary hits toward sampled light points, on the demo
+     and on the grid, with soft shadows' edge_eps of phase 3b;
 3. renders 1920x1080 frames (1 spp, 5 bounces) through render_radiance
    for each main path, with every launch count and the regen iteration
    count set to 0 just before and read just after: on the demo scene the
@@ -35,8 +38,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    device kernels launched, the device's busy time (the union of their
    intervals), the share of it in each traversal kernel, the largest other
    kernels, and the device's idle share of the median frame;
+3b. takes fwd+bwd steps of the differentiable path at 1920x1080 (1 spp,
+   5 bounces), each an image MSE against a zero target and its backward
+   pass: the demo's albedo gradient without and with per-bounce
+   checkpoints and with NEE, the demo's instance-transform gradient with
+   soft shadows and NEE (through diff/'s replace_instance_transforms), and
+   the grid's albedo gradient; checks the launches of each step and the
+   gradient, prints ms per step, Msegments/s (forward segments), peak
+   device memory, and one more step under torch.profiler;
 4. renders 64x48 on the GPU and on the CPU for each demo path and for grid
-   regen with and without NEE, and compares each pair.
+   regen with and without NEE, and compares each pair; the same for the
+   differentiable demo's albedo gradient and its soft-shadow transform
+   gradient.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -46,6 +59,7 @@ Needs one CUDA device and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +84,16 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 OPS_PER_TEST = 45
 # One slab test: 6 sub, 6 mul, 10 min/max, 3 comparisons.
 OPS_PER_SLAB = 25
+# One soft-shadow candidate test (csrc/soft_occlusion.cu): the six dot
+# products (33), the division, u and v (4), w = 1 - u - v (2), the three
+# openness tests, six selects and four minima of the margins, int_ok > 0,
+# |w_d|, t > 1e-6 and t < tmax, the candidate's select and its comparison
+# with the best.
+OPS_PER_SOFT_TEST = 59
+# The soft shadows of the differentiable paths (edge_eps).
+SOFT_EPS = 0.02
+# fwd+bwd steps of each differentiable path (the first is not timed).
+DIFF_STEPS = 3
 
 
 def fail(msg: str):
@@ -100,10 +124,11 @@ def cuda_ms(fn, iters: int, torch) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(tests: float, slabs: float, n_bytes: float):
+def bound(tests: float, slabs: float, n_bytes: float,
+          ops_per_test: int = OPS_PER_TEST):
     """(ms, what sets it): the least time for `tests` ray-triangle tests
     and `slabs` slab tests against moving `n_bytes` once."""
-    t_ops = (tests * OPS_PER_TEST + slabs * OPS_PER_SLAB) / PEAK_FP32
+    t_ops = (tests * ops_per_test + slabs * OPS_PER_SLAB) / PEAK_FP32
     t_bytes = n_bytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -118,6 +143,52 @@ def busy_ms(events) -> float:
             busy += b - max(a, end)
             end = b
     return busy / 1e3
+
+
+def profile_step(name: str, step, torch, steady_ms: float,
+                 kernel_symbols: dict) -> None:
+    """Run ``step`` once under torch.profiler and print the device kernels
+    it launched, the device's busy time (the union of their intervals),
+    the share of it in each traversal kernel, the largest other kernels,
+    and the device's idle share of the profiled and of the median step.
+    A busy time longer than the step fails the run."""
+    # Device activity only: the breakdown reads only device events, and
+    # recording every host op of a step (~10^5) costs seconds to collect.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        log(f"  {name}: the profiler saw no device time; busy time and "
+            f"idle share not measured")
+        return
+    busy = busy_ms(on_card)
+    log(f"  profiled: {prof_ms:.1f} ms, {len(on_card)} device "
+        f"kernels, busy {busy:.2f} ms; idle share "
+        f"{1.0 - busy / prof_ms:.3f} of the profiled run, "
+        f"{1.0 - busy / steady_ms:.3f} of the median")
+    # Every kernel ran between the two clock reads around the step.
+    check(busy <= prof_ms, f"{name}: the device was busy {busy:.2f} ms "
+          f"in a {prof_ms:.1f} ms step: the measurement is broken")
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    # Whole-word match: occlusion_kernel is also a part of
+    # soft_occlusion_kernel.
+    pats = {k: re.compile(rf"\b{sym}\b") for k, sym in kernel_symbols.items()}
+    for k, pat in pats.items():
+        t = sum(v for n, v in by_name.items() if pat.search(n))
+        if t:
+            log(f"    {k}: {t:.2f} ms ({t / busy:.3f} of busy)")
+    rest = sorted(((v, n) for n, v in by_name.items() if not any(
+        pat.search(n) for pat in pats.values())), reverse=True)
+    for v, n in rest[:4]:
+        log(f"    {v:8.2f} ms  {n[:100]}")
 
 
 def compare_frames(a, b, what: str, seg_share: float = 1.0):
@@ -155,6 +226,8 @@ def main() -> None:
 
     from gdpathtracing_torch.config import RenderConfig, Traversal
     from gdpathtracing_torch.core import rng
+    from gdpathtracing_torch.diff import (image_mse, replace_albedo,
+                                          replace_instance_transforms)
     from gdpathtracing_torch.ops import intersect as ti
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
     from gdpathtracing_torch.render import brdf
@@ -177,7 +250,13 @@ def main() -> None:
     log("card (nvidia-smi --query-gpu=name,power.limit), next line:")
     log(card)
 
+    t_start = time.perf_counter()
+
+    def phase(name):
+        log(f"== {name} ({time.perf_counter() - t_start:.1f} s into the run)")
+
     # -- 1. build -----------------------------------------------------------
+    phase("1. build")
     t0 = time.perf_counter()
     libs = load_libraries(KERNELS)
     log(f"built {len(libs)} kernels in parallel in "
@@ -189,6 +268,7 @@ def main() -> None:
                 log(f"    ptxas: {line.strip()}")
 
     # -- 2. each kernel against its plain version ---------------------------
+    phase("2. kernels against their plain versions")
     cfg = RenderConfig(traversal=Traversal.PALLAS)
     scene = build_demo_scene()
     check(scene.device.type == "cuda", "the scene is not on the card")
@@ -419,12 +499,60 @@ def main() -> None:
                     f"eidx, tri, inst equal; max |u, v diff| {duv:g}")
                 check(duv <= 1e-4, f"grid {name}: u/v differ by {duv:g}")
 
+    # Kernel 5 on the soft-shadow rays of the middle tile's primary hits,
+    # on the demo (the NEE shadow rays of kernel 4's check) and on the grid,
+    # over each scene's unpadded chunks.
+    _, ghit, gs, gseed = middle_rays(tile, mid_tile, grid, grid_cam,
+                                     grid_prep)
+    gpend, _ = sample_direct(gs, gs.position * 0.0 + 1.0, ghit.hit, gseed,
+                             grid_prep.lights, cfg)
+    for label, pscene, pprep, dl, iters in (
+            ("demo", scene, prep, pend, PLAIN_ITERS),
+            ("grid", grid, grid_prep, gpend, GRID_PLAIN_ITERS)):
+        so4t, sd4t, stmax = ti.pack_shadow_rays(dl.shadow, dl.active,
+                                                 dl.tmax)
+        e5 = pprep.mu.shape[1]
+        args = (so4t, sd4t, stmax,
+                ti.soft_bounds(pscene.isect_chunk_bounds, SOFT_EPS),
+                pprep.mu, pprep.mv, pprep.mw,
+                pscene.tri_edge_open[pscene.isect_tri.long()].T.contiguous())
+        n = so4t.shape[1]
+        margin, eidx = ti.soft_occluded(*args)
+        want = ti.soft_occluded_plain(*args)
+        torch.cuda.synchronize()
+        err = float((margin - want.margin).abs().max())
+        flips = int((eidx != want.eidx).sum())
+        found = want.margin > -1e8
+        n_q = int(dl.active.sum())
+        log(f"kernel 5 vs plain, {label}: {n} shadow rays ({n_q} queries, "
+            f"{int(found.sum())} with a candidate, "
+            f"{int((want.margin == 1.0).sum())} at margin 1.0, "
+            f"{int(((want.margin > -1e8) & (want.margin < 1.0)).sum())} "
+            f"below): max |margin diff| {err:g}, {flips} eidx mismatches")
+        check(torch.equal(margin.view(torch.int32),
+                          want.margin.view(torch.int32)) and flips == 0,
+              f"kernel 5, {label}: differs from its plain version")
+        check(int(found.sum()) > 0, f"kernel 5, {label}: no candidates")
+        needed = float(want.tests.sum())
+        spent = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+        k = cuda_ms(lambda: ti.soft_occluded(*args), KERNEL_ITERS, torch)
+        p = cuda_ms(lambda: ti.soft_occluded_plain(*args), iters, torch)
+        log(f"  {needed:.4g} candidate tests needed "
+            f"({needed / max(n_q, 1):.1f} per query), {spent:.4g} "
+            f"thread-slots swept ({needed / max(spent, 1.0):.3f} useful)")
+        record("soft_occluded", max(err, float(flips)), k, p, *bound(
+            needed, n * (e5 // ti.BT),
+            17 * 4 * n + 8 * n + (12 + 3) * 4 * e5 + 8 * 4 * (e5 // ti.BT),
+            OPS_PER_SOFT_TEST))
+
     # -- 3. the main paths at 1080p -----------------------------------------
+    phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
                "occluded": ti.occluded,
                "closest_hit_rows_nee": ti.closest_hit_rows_nee,
                "closest_hit_sc_lite": ti.closest_hit_sc_lite,
-               "closest_hit_rows_sc": ti.closest_hit_rows_sc}
+               "closest_hit_rows_sc": ti.closest_hit_rows_sc,
+               "soft_occluded": ti.soft_occluded}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     mid = build_sphere_grid(n=4, sphere_detail=12)
@@ -433,15 +561,15 @@ def main() -> None:
     runs = [
         ("demo", scene, cam, "closest_hit_rows", [
             ("standard loop", cfg.replace(regen=False), 2),
-            ("regen", cfg, 3),
-            ("regen + NEE", cfg.replace(nee=True), 3),
+            ("regen", cfg, 2),
+            ("regen + NEE", cfg.replace(nee=True), 2),
             ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2)]),
         ("grid", grid, grid_cam, "closest_hit_sc_lite", [
-            ("regen", cfg, 3),
-            ("regen + NEE", cfg.replace(nee=True), 3),
+            ("regen", cfg, 2),
+            ("regen + NEE", cfg.replace(nee=True), 2),
             ("standard loop (sorted)", cfg.replace(regen=False), 2)]),
         ("mid grid", mid, grid_camera(W, H, n=4), "closest_hit_sc_lite", [
-            ("regen", cfg, 3)]),
+            ("regen", cfg, 2)]),
         ("n=14 grid", big, big_cam, "closest_hit_rows_sc", [
             ("regen", cfg, 2)])]
     # Each wrapper's source (csrc/) and the line of the TPU kernel it
@@ -451,7 +579,8 @@ def main() -> None:
                "occluded": ("occlusion.cu", 1662),
                "closest_hit_rows_nee": ("closest_hit_rows_nee.cu", 613),
                "closest_hit_sc_lite": ("closest_hit_sc_lite.cu", 973),
-               "closest_hit_rows_sc": ("closest_hit_rows_sc.cu", 864)}
+               "closest_hit_rows_sc": ("closest_hit_rows_sc.cu", 864),
+               "soft_occluded": ("soft_occlusion.cu", 1828)}
     kernel_symbols = {k: Path(src).stem + "_kernel"
                       for k, (src, _) in sources.items()}
     paths = [(f"{label}, {name}", pscene, pcam, trace, pcfg, frames)
@@ -507,43 +636,90 @@ def main() -> None:
             f" on {card}")
 
         # One more frame under torch.profiler: where the device time goes.
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profile_step(name, lambda: render_radiance(pscene, pcam, pcfg,
+                                                   frames),
+                     torch, steady * 1e3, kernel_symbols)
+
+    # -- 3b. the differentiable path at 1080p: fwd+bwd steps ----------------
+    phase("3b. the differentiable path at 1080p")
+    # (path, scene, camera, parameter: "albedo" or "transforms", config,
+    # launches expected per step). 8 tiles x 5 bounces: one finder launch
+    # per tile and bounce is 40; with per-bounce checkpoints the backward
+    # pass recomputes every bounce, finder launch included (80).
+    dcfg = cfg.replace(differentiable=True)
+    per = n_tiles * dcfg.bounces
+    diff_paths = [
+        ("demo, backward", scene, cam, "albedo", dcfg,
+         {"closest_hit_rows": per}),
+        ("demo, backward, bwd_checkpoint=True", scene, cam, "albedo",
+         dcfg.replace(bwd_checkpoint=True), {"closest_hit_rows": 2 * per}),
+        ("demo, backward + NEE", scene, cam, "albedo",
+         dcfg.replace(nee=True),
+         {"closest_hit_rows_nee": per, "occluded": n_tiles}),
+        ("demo, soft shadows + NEE, instance transforms", scene, cam,
+         "transforms", dcfg.replace(nee=True, soft_shadows=SOFT_EPS),
+         {"closest_hit_rows": per, "soft_occluded": per}),
+        ("grid, backward", grid, grid_cam, "albedo", dcfg,
+         {"closest_hit_sc_lite": per})]
+    lane_bounces = n_tiles * cfg.tile_rays * dcfg.bounces
+
+    def diff_step(pscene, pcam, param, pcfg, frame):
+        """One fwd+bwd step: (segments, gradient)."""
+        base = pscene.mat_albedo if param == "albedo" \
+            else pscene.inst_transform
+        p = base.clone().requires_grad_(True)
+        s_p = replace_albedo(pscene, p) if param == "albedo" \
+            else replace_instance_transforms(pscene, p)
+        aovs = render_radiance(s_p, pcam, pcfg, frame)
+        image_mse(aovs.radiance, torch.zeros_like(aovs.radiance)).backward()
+        return int(aovs.segments.sum()), p.grad
+
+    for name, pscene, pcam, param, pcfg, per_step in diff_paths:
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        step_s, segs = [], []
+        for f in range(DIFF_STEPS):
             t0 = time.perf_counter()
-            render_radiance(pscene, pcam, pcfg, frames)
+            seg, grad = diff_step(pscene, pcam, param, pcfg, f)
             torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) * 1e3
-        on_card = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not on_card:
-            log(f"  {name}: the profiler saw no device time; busy time and "
-                f"idle share not measured")
-            continue
-        busy = busy_ms(on_card)
-        log(f"  profiled frame: {prof_ms:.1f} ms, {len(on_card)} device "
-            f"kernels, busy {busy:.2f} ms; idle share "
-            f"{1.0 - busy / prof_ms:.3f} of the profiled frame, "
-            f"{1.0 - busy / (steady * 1e3):.3f} of the median frame")
-        # Every kernel ran between the two clock reads around the frame.
-        check(busy <= prof_ms, f"{name}: the device was busy {busy:.2f} ms "
-              f"in a {prof_ms:.1f} ms frame: the measurement is broken")
-        by_name = {}
-        for e in on_card:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-        for k, sym in kernel_symbols.items():
-            t = sum(v for n, v in by_name.items() if sym in n)
-            if t:
-                log(f"    {k}: {t:.2f} ms ({t / busy:.3f} of busy)")
-        rest = sorted(((v, n) for n, v in by_name.items() if not any(
-            sym in n for sym in kernel_symbols.values())), reverse=True)
-        for v, n in rest[:4]:
-            log(f"    {v:8.2f} ms  {n[:100]}")
+            step_s.append(time.perf_counter() - t0)
+            segs.append(seg)
+            check(bool(torch.isfinite(grad).all())
+                  and float(grad.abs().max()) > 0,
+                  f"{name}, step {f}: the {param} gradient is not finite "
+                  f"and non-zero")
+            check(seg >= W * H, f"{name}, step {f}: {seg} segments")
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        got = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        for k, v in per_step.items():
+            want[k] = v * DIFF_STEPS
+        log(f"{name}: launches {got}")
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        for k in kernels:
+            launches[k] += got[k]
+        for f, (t, seg) in enumerate(zip(step_s, segs)):
+            log(f"  step {f}: {t * 1e3:.1f} ms, {seg} segments, "
+                f"{seg / t / 1e6:.2f} Msegments/s")
+        steady = statistics.median(step_s[1:])
+        log(f"1080p {name}, 1 spp, 5 bounces, fwd+bwd: median of steps 1-"
+            f"{DIFF_STEPS - 1} {steady * 1e3:.1f} ms/step, "
+            f"{statistics.median(segs[1:]) / steady / 1e6:.2f} "
+            f"Msegments/s; peak memory {peak / 2 ** 30:.2f} GiB above the "
+            f"scene ({peak / lane_bounces:.0f} B per lane-bounce); |grad| "
+            f"max {float(grad.abs().max()):.4g}; on {card}")
+        profile_step(name, lambda: diff_step(pscene, pcam, param, pcfg,
+                                             DIFF_STEPS),
+                     torch, steady * 1e3, kernel_symbols)
+
     for k, n_launch in launches.items():
         check(n_launch > 0, f"{k} was not launched on the main paths")
 
     # -- 4. GPU against CPU at 64x48 ----------------------------------------
+    phase("4. GPU against CPU at 64x48")
     small = {"demo": demo_camera(SMALL_W, SMALL_H),
              "grid": grid_camera(SMALL_W, SMALL_H, n=10)}
     for name, pscene, _, _, pcfg, _ in paths:
@@ -560,6 +736,33 @@ def main() -> None:
             # test_torch_cuda.py test_superchunk_render_cuda_matches_cpu).
             seg_share=0.99 if label == "grid" and pcfg.nee else 1.0)
 
+    # The differentiable demo's gradients, GPU against CPU: the images by
+    # the render tolerance, the gradients within 5% of their largest
+    # component (about 1% of pixels take another path after the card's
+    # other sqrt/sin/cos rounding, and each moves these image-wide sums).
+    small_cam = small["demo"]
+    for name, pscene, _, param, pcfg, _ in (diff_paths[0], diff_paths[3]):
+        out = []
+        for dscene in (pscene, pscene.to("cpu")):
+            base = dscene.mat_albedo if param == "albedo" \
+                else dscene.inst_transform
+            p = base.clone().requires_grad_(True)
+            s_p = replace_albedo(dscene, p) if param == "albedo" \
+                else replace_instance_transforms(dscene, p)
+            aovs = render_radiance(s_p, small_cam, pcfg, SMALL_FRAME)
+            (g,) = torch.autograd.grad(aovs.radiance.mean(), p)
+            out.append((type(aovs)(*(x.detach() for x in aovs)), g.cpu()))
+        what = f"{SMALL_W}x{SMALL_H} {name}, cuda vs cpu"
+        compare_frames(out[0][0], out[1][0], what)
+        ga, gb = out[0][1], out[1][1]
+        rel = float((ga - gb).abs().max()) / max(float(gb.abs().max()),
+                                                 1e-30)
+        log(f"{what}: {param} gradient max |diff| {rel:.3g} of its largest "
+            f"component")
+        check(bool(torch.isfinite(ga).all()) and rel <= 0.05,
+              f"{what}: the {param} gradients differ by {rel:.3g}")
+
+    phase("done")
     check(not any(m == "gdpathtracing_tpu" or m.startswith(
         "gdpathtracing_tpu.") for m in sys.modules),
         "the JAX package was imported")

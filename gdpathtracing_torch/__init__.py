@@ -6,10 +6,12 @@ primal ``Traversal.PALLAS`` render (``RenderConfig(traversal=
 Traversal.PALLAS)``) over scenes of any size (more than 16 triangle chunks
 take the two-level superchunk traversal), through the path-regeneration
 loop (the default) or the standard per-bounce loop (``regen=False``), with
-or without next-event estimation (``nee=True``); its five kernels (flat
-closest hit, occlusion, the two fused, and the two-level closest hit with
-and without winner rows) are in CUDA (``ops/intersect.py``, ``csrc/``).
-Scenes are built on the GPU unless the
+or without next-event estimation (``nee=True``), and the differentiable
+render (``differentiable=True``, with soft shadows and soft primary
+silhouettes; ``diff/`` and ``scene/dynamic.py``). Its six kernels (flat
+closest hit, occlusion, the two fused, the two-level closest hit with and
+without winner rows, and the soft-shadow top-1 blocker) are in CUDA
+(``ops/intersect.py``, ``csrc/``). Scenes are built on the GPU unless the
 caller asks for another device. Everything else raises NotImplementedError
 naming its ROADMAP item.
 

@@ -122,6 +122,9 @@ class Vec3(NamedTuple):
     def astype(self, dtype) -> "Vec3":
         return Vec3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
 
+    def detach(self) -> "Vec3":
+        return Vec3(self.x.detach(), self.y.detach(), self.z.detach())
+
 
 def where(mask: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:
     """Componentwise select; `mask` broadcasts against each component."""

@@ -1,7 +1,7 @@
 // Device code shared by the traversal kernels (closest_hit_rows.cu,
 // occlusion.cu, closest_hit_rows_nee.cu, closest_hit_sc_lite.cu,
-// closest_hit_rows_sc.cu): one thread per ray, 256-ray blocks, chunks of
-// 256 triangles staged in shared memory.
+// closest_hit_rows_sc.cu, soft_occlusion.cu): one thread per ray, 256-ray
+// blocks, chunks of 256 triangles staged in shared memory.
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0

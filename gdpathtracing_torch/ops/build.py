@@ -52,7 +52,7 @@ def nvcc_path() -> str:
 
 
 KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
-           "closest_hit_sc_lite", "closest_hit_rows_sc")
+           "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion")
 
 _loaded: dict[str, Library] = {}
 

@@ -3,8 +3,10 @@
 Port of the PALLAS traversal of gdpathtracing_tpu/ops/intersect_pallas.py:
 ``build_trace_table``, ``_inflate_bounds``, ``_sub_bounds``,
 ``prepare_trace_inputs`` (flat and superchunk), ``trace_pallas``,
-``lite_epilogue``, ``occluded_pallas`` and ``trace_occlude_pallas``, over
-five kernels of the TPU package, each here a wrapper that
+``lite_epilogue``, ``occluded_pallas``, ``trace_occlude_pallas``, their
+differentiable forms ``trace_pallas_diff`` and ``trace_occlude_pallas_diff``
+(``_diff_epilogue``) and ``soft_occluded_pallas``, over six kernels of the
+TPU package, each here a wrapper that
 
 - on a CUDA tensor launches a hand-written kernel from ``csrc/`` (built by
   nvcc at first use, ops/build.py) and counts the launch in ``.launches``;
@@ -23,6 +25,16 @@ its CUDA source (csrc/):
 - ``closest_hit_sc_lite``: ``_kernel_sc_lite`` + ``_lite_sc_sweep``;
   closest_hit_sc_lite.cu
 - ``closest_hit_rows_sc``: ``_kernel_rows_sc``; closest_hit_rows_sc.cu
+- ``soft_occluded``: ``_soft_occlusion_kernel`` (the top-1 blocker of a
+  soft shadow ray); soft_occlusion.cu
+
+The kernels find; they are not differentiated. Every wrapper, and
+``prepare_trace_inputs``, runs under ``torch.no_grad()`` and refuses an
+operand that requires grad (on either device, so the CPU and the card
+behave alike). The differentiable forms run a kernel on detached inputs and
+recompute the winner's t, u, v (or soft coverage) from the live
+``scene.isect_cols`` with ordinary torch ops, through which autograd flows,
+as the reference does with ``stop_gradient``: no kernel has a backward.
 
 Scenes of at most 16 chunks take the flat kernels; larger ones the
 two-level (superchunk) kernels for the closest hit, and the flat occlusion
@@ -179,12 +191,15 @@ class TracePrep(NamedTuple):
         return 4 * 3 * self.mu_pad.shape[1] * 4
 
 
+@torch.no_grad()
 def prepare_trace_inputs(scene: Scene) -> TracePrep:
     """The kernels' inputs. A scene of more than 16 chunks is padded to
     whole superchunks of ``scc`` chunks (``SCC``, raised to keep at most
     ~100 superchunks, as the reference does for its queue): zero triangle
     columns, a 1e30 point box for each pad chunk, and superchunk boxes
-    around the real chunks only."""
+    around the real chunks only. Built from the detached scene: every
+    field is a kernel operand or read with the kernels' results."""
+    scene = scene.detach()
     e = scene.isect_mu.shape[1]
     if e >= 2 ** 24:
         raise ValueError(f"scene has {e} expanded triangles; ids ride the "
@@ -250,6 +265,10 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
             raise ValueError(f"{name} is on {x.device}, o4t on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.requires_grad:
+            raise ValueError(f"{name} requires grad: the kernels only find "
+                             f"hits; pass detached operands (see "
+                             f"trace_pallas_diff)")
     n = o4t.shape[1] if o4t.dim() == 2 else -1
     e = mu.shape[1] if mu.dim() == 2 else -1
     nc = e // BT
@@ -257,7 +276,7 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
         raise ValueError(f"scc={scc!r} must be a positive int dividing the "
                          f"{nc} chunks")
     want = dict(o4t=(4, n), d4t=(4, n), so4t=(4, n), sd4t=(4, n),
-                tlim=(n,), stmax=(n,), bounds=(8, nc),
+                tlim=(n,), stmax=(n,), tmax=(n,), eo=(3, e), bounds=(8, nc),
                 sub_bounds=(8, SUB * nc), sc_bounds=(8, nc // scc),
                 mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e))
     for name, x in args.items():
@@ -428,6 +447,7 @@ def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     return walk.rows(tab, sweeps, 0.0)
 
 
+@torch.no_grad()
 def closest_hit_rows(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
     """(48, N) closest-hit rows for rays ``o4t``/``d4t`` (4, N) over the
     chunked triangles ``mu``/``mv``/``mw`` (4, E) with inflated chunk
@@ -504,6 +524,7 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
     return Occlusion(occ.to(torch.int32), tests, sweeps)
 
 
+@torch.no_grad()
 def occluded(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw) -> torch.Tensor:
     """(N,) int32, 1 where something blocks shadow ray ``o4t``/``d4t``
     (4, N) in (0, ``tlim``), over the chunked triangles with inflated chunk
@@ -543,6 +564,7 @@ def closest_hit_rows_nee_plain(o4t, d4t, so4t, sd4t, stmax, bounds,
     return rows, shadow.occ
 
 
+@torch.no_grad()
 def closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax, bounds, sub_bounds,
                          mu, mv, mw, tab):
     """((48, N) rows, (N,) int32 occlusion) in one pass: the closest hit
@@ -622,6 +644,7 @@ def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
     return out
 
 
+@torch.no_grad()
 def closest_hit_sc_lite(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
                         ) -> torch.Tensor:
     """(8, N) two-level closest hit of rays ``o4t``/``d4t`` (4, N): rows
@@ -658,6 +681,7 @@ def closest_hit_rows_sc_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab,
     return walk.rows(tab, sc_entries, chunk_sweeps)
 
 
+@torch.no_grad()
 def closest_hit_rows_sc(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab, scc
                         ) -> torch.Tensor:
     """(48, N) closest-hit rows over the two-level walk of
@@ -679,6 +703,131 @@ def closest_hit_rows_sc(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab, scc
 
 
 closest_hit_rows_sc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: the top-1 blocker of soft shadow rays
+# ---------------------------------------------------------------------------
+
+_NO_BLOCKER = -1e9  # the margin of a shadow ray that found no candidate
+
+
+class SoftOcclusion(NamedTuple):
+    """What :func:`soft_occluded_plain` finds for each of N shadow rays."""
+    margin: torch.Tensor  # (N,) f32 the winner's open-edge margin (-1e9:
+    #                       no candidate)
+    eidx: torch.Tensor    # (N,) i32 its expanded-triangle index (0: none)
+    tests: torch.Tensor   # (N,) f32 triangle tests the ray needed: 256 per
+    #                       chunk its own slab test passed
+    sweeps: torch.Tensor  # (N,) f32 chunks its 256-ray block swept
+
+
+def soft_bounds(chunk_bounds: torch.Tensor, edge_eps: float) -> torch.Tensor:
+    """(8, nc) chunk boxes grown by ``edge_eps`` times their diagonal on
+    every side (intersect_pallas.py:1987-1991; not ``_inflate_bounds``): a
+    near-miss candidate lies within about ``edge_eps`` of an edge length of
+    its triangle, so a ray that narrowly misses the chunk's own box must
+    still sweep it, or soft coverage clips to zero at chunk faces."""
+    cb = chunk_bounds
+    diag = torch.sqrt(torch.clamp(((cb[3:6] - cb[0:3]) ** 2).sum(dim=0),
+                                  min=0.0))
+    infl = (edge_eps * diag)[None, :]
+    return torch.cat([cb[0:3] - infl, cb[3:6] + infl, cb[6:8]],
+                     dim=0).contiguous()
+
+
+def _edge_margins(u, v, ou, ov, ow):
+    """(m_open, int_ok) of barycentrics u, v of a plane crossing, with the
+    triangle's edge openness masks ``ou``, ``ov``, ``ow`` (the u = 0, v = 0
+    and w = 0 edges): the least coordinate over the open edges (1 where
+    all are closed), and whether the crossing is inside every closed
+    edge."""
+    w = 1.0 - u - v
+    m_open = torch.minimum(torch.minimum(torch.where(ou, u, 1.0),
+                                         torch.where(ov, v, 1.0)),
+                           torch.where(ow, w, 1.0))
+    int_ok = torch.minimum(torch.minimum(torch.where(ou, 1.0, u),
+                                         torch.where(ov, 1.0, v)),
+                           torch.where(ow, 1.0, w)) > 0.0
+    return m_open, int_ok
+
+
+def _soft_margins(u, v, t, wd_ok, tmax, eo):
+    """(r, k) candidate margins of rays against triangles with openness
+    ``eo`` (3, k): ``m_open`` where the ray crosses the triangle's plane in
+    (1e-6, tmax) inside every closed edge, else -1e9."""
+    m_open, int_ok = _edge_margins(u, v, eo[0] > 0.0, eo[1] > 0.0,
+                                   eo[2] > 0.0)
+    in_t = wd_ok & (t > 1e-6) & (t < tmax[:, None]) & int_ok
+    return torch.where(in_t, m_open, _NO_BLOCKER)
+
+
+def soft_occluded_plain(o4t, d4t, tmax, bounds, mu, mv, mw, eo
+                        ) -> SoftOcclusion:
+    """Plain PyTorch version of csrc/soft_occlusion.cu: chunks in index
+    order; a ray sweeps a chunk when its own slab test against the chunk's
+    (soft-inflated) box passes with tmin < tmax; no early exit, since a
+    maximum cannot resolve early. The winner is the largest margin, and
+    among equal margins above -1e8 the lowest eidx."""
+    n, e = o4t.shape[1], mu.shape[1]
+    o, d = o4t.unbind(0), d4t.unbind(0)
+    rd = tuple(_rcp(x) for x in d[:3])
+    best_m = torch.full((n,), _NO_BLOCKER, dtype=torch.float32,
+                        device=o4t.device)
+    best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device)
+    tests = torch.zeros_like(best_m)
+    sweeps = torch.zeros_like(best_m)
+    lane = torch.arange(BT, device=o4t.device)
+    for c in range(e // BT):
+        tmin, tmx = _slab(bounds[:, c], *o[:3], *rd)
+        may = (tmx >= tmin) & (tmx > 0.0) & (tmin < tmax)
+        sweeps += _block_any(may)
+        idx = torch.nonzero(may).squeeze(1)
+        if idx.numel() == 0:
+            continue
+        tests[idx] += float(BT)
+        cols = slice(c * BT, (c + 1) * BT)
+        u, v, t, _, wd_ok = _uvt(cols, mu, mv, mw,
+                                 tuple(x[idx] for x in o),
+                                 tuple(x[idx] for x in d))
+        m = _soft_margins(u, v, t, wd_ok, tmax[idx], eo[:, cols])
+        mk = torch.amax(m, dim=1)
+        k = torch.where(m == mk[:, None], lane, BT).amin(dim=1)
+        mk = m.gather(1, k[:, None])[:, 0]  # the lowest index's own value
+        ek = k + c * BT
+        cur_m, cur_e = best_m[idx], best_e[idx]
+        better = (mk > cur_m) | ((mk == cur_m) & (mk > -1e8) & (ek < cur_e))
+        sel = idx[better]
+        best_m[sel] = mk[better]
+        best_e[sel] = ek[better]
+    return SoftOcclusion(best_m, best_e.to(torch.int32), tests, sweeps)
+
+
+@torch.no_grad()
+def soft_occluded(o4t, d4t, tmax, bounds, mu, mv, mw, eo):
+    """((N,) f32 margin, (N,) i32 eidx): the top-1 blocker candidate of
+    each shadow ray ``o4t``/``d4t`` (4, N) with query (1e-6, ``tmax``),
+    over the chunked triangles ``mu``/``mv``/``mw`` (4, E) with
+    soft-inflated chunk ``bounds`` (8, E/256, :func:`soft_bounds`) and
+    per-triangle edge openness ``eo`` (3, E) (1 = an open, silhouette
+    edge). Margin -1e9 and eidx 0 where no triangle qualifies.
+
+    CUDA tensors launch the kernel (counted in ``soft_occluded.launches``);
+    CPU tensors run the plain version. Anything else raises."""
+    n, e = _check_inputs(o4t=o4t, d4t=d4t, tmax=tmax, bounds=bounds, mu=mu,
+                         mv=mv, mw=mw, eo=eo)
+    if o4t.device.type == "cpu":
+        r = soft_occluded_plain(o4t, d4t, tmax, bounds, mu, mv, mw, eo)
+        return r.margin, r.eidx
+    margin = torch.empty(n, dtype=torch.float32, device=o4t.device)
+    eidx = torch.empty(n, dtype=torch.int32, device=o4t.device)
+    _launch("soft_occlusion", (o4t, d4t, tmax, bounds, mu, mv, mw, eo,
+                               margin, eidx), n, e)
+    soft_occluded.launches += 1
+    return margin, eidx
+
+
+soft_occluded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -835,3 +984,98 @@ def trace_occlude_pallas(scene: Scene, ray: Ray, active, sh_ray: Ray,
                                      prep.bounds, prep.sub_bounds, prep.mu,
                                      prep.mv, prep.mw, prep.tab)
     return _hit_from_rows(rows[:, :n], active), (occ[:n] != 0) & sh_active
+
+
+# ---------------------------------------------------------------------------
+# Differentiable forms: a kernel finds, torch recomputes
+# ---------------------------------------------------------------------------
+
+def _winner_uvt(rows12, ray: Ray):
+    """(t, u, v, w_d) of ``ray`` against its winner's (N, 12) ``isect_cols``
+    rows, with 4-term dots (the reference's recompute epilogue); where
+    |w_d| <= 1e-12 it divides by +-1e-12 instead."""
+    def dot4(c0, x, y, z, w):
+        return rows12[:, c0] * x + rows12[:, c0 + 1] * y + \
+            rows12[:, c0 + 2] * z + rows12[:, c0 + 3] * w
+
+    (ox, oy, oz), (dx, dy, dz) = ray.o, ray.d
+    one, zero = torch.ones_like(ox), torch.zeros_like(ox)
+    w_o = dot4(8, ox, oy, oz, one)
+    w_d = dot4(8, dx, dy, dz, zero)
+    inv_wd = torch.where(torch.abs(w_d) > _WD_EPS, w_d,
+                         torch.where(w_d < 0, -_WD_EPS, _WD_EPS))
+    t = -w_o / inv_wd
+    u = dot4(0, ox, oy, oz, one) + t * dot4(0, dx, dy, dz, zero)
+    v = dot4(4, ox, oy, oz, one) + t * dot4(4, dx, dy, dz, zero)
+    return t, u, v, w_d
+
+
+def _diff_epilogue(scene: Scene, ray: Ray, hit0: HitInfo) -> HitInfo:
+    """Differentiable recompute of t, u and v of the winner ``hit0.eidx``
+    from the live ``scene.isect_cols`` (port of ``_diff_epilogue``): one
+    (N, 12) gather and 4-term dots, through which autograd reaches the
+    triangle tables (so vertices and instance transforms) and the ray (so
+    the camera). ``rows`` is None, so shading gathers from the live
+    material and texture tables. MISS_T where ``hit0`` missed."""
+    rows12 = scene.isect_cols.index_select(0, hit0.eidx)
+    t, u, v, _ = _winner_uvt(rows12, ray)
+    t = torch.where(hit0.t < MISS_T, t, MISS_T)
+    return HitInfo(t=t, tri=hit0.tri, inst=hit0.inst,
+                   u=torch.clamp(u, 0.0, 1.0), v=torch.clamp(v, 0.0, 1.0),
+                   front=hit0.front, steps=hit0.steps, eidx=hit0.eidx)
+
+
+def trace_pallas_diff(scene: Scene, ray: Ray, active=None,
+                      prep: TracePrep | None = None) -> HitInfo:
+    """Differentiable closest hit (port of ``trace_pallas_diff``):
+    :func:`trace_pallas` on the detached scene and rays finds each winner,
+    :func:`_diff_epilogue` recomputes its hit record from the live ones.
+    The primal values are trace_pallas's up to the recompute's rounding."""
+    hit0 = trace_pallas(scene.detach(), ray.detach(), active, prep)
+    return _diff_epilogue(scene, ray, hit0)
+
+
+def trace_occlude_pallas_diff(scene: Scene, ray: Ray, active, sh_ray: Ray,
+                              sh_tmax, sh_active,
+                              prep: TracePrep | None = None):
+    """Differentiable form of :func:`trace_occlude_pallas` (port of
+    ``trace_occlude_pallas_diff``): kernel 4 finds on detached inputs, the
+    closest hit is recomputed by :func:`_diff_epilogue`; hard shadow
+    visibility has no derivative almost everywhere and stays a bool."""
+    hit0, occ = trace_occlude_pallas(scene.detach(), ray.detach(), active,
+                                     sh_ray.detach(), sh_tmax.detach(),
+                                     sh_active, prep)
+    return _diff_epilogue(scene, ray, hit0), occ
+
+
+def soft_occluded_pallas(scene: Scene, ray: Ray, t_max, active=None,
+                         edge_eps: float = 2e-2,
+                         prep: TracePrep | None = None) -> torch.Tensor:
+    """Differentiable soft visibility in [0, 1] of shadow rays (port of
+    ``soft_occluded_pallas``): :func:`soft_occluded` (kernel 5, on detached
+    inputs, over the unpadded chunks of any scene) finds each ray's
+    candidate blocker with the largest open-edge margin; its coverage
+    ``sigmoid(margin / edge_eps)`` is recomputed from the live
+    ``scene.isect_cols`` row, so gradients reach blocker vertices and
+    instance poses. The openness gates and the range test are detached.
+    1 for inactive rays and where no candidate was found."""
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
+    n = ray.o.x.shape[0]
+    o4t, d4t, tlim = pack_shadow_rays(ray.detach(), active, t_max.detach())
+    eo_n = scene.tri_edge_open.detach()[scene.isect_tri.long()]  # (E, 3)
+    marg0, eidx = soft_occluded(
+        o4t, d4t, tlim,
+        soft_bounds(scene.isect_chunk_bounds.detach(), edge_eps),
+        prep.mu, prep.mv, prep.mw, eo_n.T.contiguous())
+    found = marg0[:n] > -1e8
+    eidx = eidx[:n].long()
+
+    t, u, v, w_d = _winner_uvt(scene.isect_cols.index_select(0, eidx), ray)
+    eo_w = eo_n[eidx] > 0.0  # (N, 3), detached like the kernel's gates
+    m_open, int_ok = _edge_margins(u, v, eo_w[:, 0], eo_w[:, 1], eo_w[:, 2])
+    in_t = ((torch.abs(w_d) > _WD_EPS) & (t > 1e-6) & (t < t_max)
+            & int_ok).detach()
+    cov = torch.where(found & in_t, torch.sigmoid(m_open / edge_eps), 0.0)
+    vis = 1.0 - cov
+    return vis if active is None else torch.where(active, vis, 1.0)

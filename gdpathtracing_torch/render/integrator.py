@@ -20,6 +20,14 @@ resolves the last bounce's. The radiance accumulates in the same order as
 resolving each query at once would (emission_i, direct_i, emission_i+1,
 ...). On a superchunk scene, as in the reference, each bounce's shadow
 rays are resolved at once by their own any-hit launch.
+
+With ``config.differentiable`` the loop runs the same transport as the
+reference's differentiable one: the kernels find hits on detached inputs,
+the hit records are recomputed from the live scene, sampling decisions are
+detached (unless ``grad_attached``), and autograd differentiates the rest;
+each bounce may run under ``torch.utils.checkpoint`` (``bwd_checkpoint``).
+``soft_shadows`` and ``soft_primary`` add the reference's differentiable
+silhouette relaxations.
 """
 
 from __future__ import annotations
@@ -27,14 +35,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                prepare_trace_inputs,
+                                               soft_occluded_pallas,
                                                trace_occlude_pallas,
-                                               trace_pallas)
+                                               trace_occlude_pallas_diff,
+                                               trace_pallas,
+                                               trace_pallas_diff)
 from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
@@ -51,16 +63,12 @@ def not_ported(what: str, item: int):
 
 
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """The transport both frame loops share: ``Traversal.PALLAS``, primal,
-    no Russian roulette, no transmission."""
+    """The transport both frame loops share: ``Traversal.PALLAS``, no
+    Russian roulette, no transmission."""
     if config.traversal != Traversal.PALLAS:
         oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
         not_ported(f"Traversal.{config.traversal.name}",
                    3 if oracle else 13)
-    if config.differentiable or config.soft_primary > 0.0:
-        not_ported("the differentiable path", 9)
-    if config.soft_shadows > 0.0:
-        not_ported("soft shadows", 9)
     if config.rr_start > 0:
         not_ported("Russian roulette (rr_start > 0)", 3)
     if scene.has_transmission:
@@ -134,29 +142,82 @@ class DirectLight(NamedTuple):
     direct: Vec3          # the contribution if the light is visible
 
 
+def _sampled(config: RenderConfig):
+    """What a sampling decision (a direction, a pdf; a tensor or a Vec3)
+    goes through: detached unless ``config.grad_attached`` asks for the
+    exact chain rule of the primal estimator (the reference's
+    ``stop_gradient``; no effect on values)."""
+    if config.grad_attached:
+        return lambda x: x
+    return lambda x: x.detach()
+
+
 def sample_direct(s: ShadingInfo, throughput: Vec3, is_hit, seed,
-                  table: lights.LightTable, config: RenderConfig):
+                  table: lights.LightTable, config: RenderConfig,
+                  visibility=None):
     """Sample an emitter from each hit (two PCG2D draws) and return
     (DirectLight, new seed): the shadow ray and the MIS-weighted direct
-    contribution, which counts only where the shadow ray is unoccluded."""
+    contribution. Without ``visibility`` it counts only where the caller
+    finds the shadow ray unoccluded; ``visibility(shadow ray, tmax,
+    active)`` (soft shadows) gives a factor in [0, 1] folded in here, where
+    the reference folds it."""
     (lr1, lr2), seed = rng.pcg2d(seed)
     (lr3, _), seed = rng.pcg2d(seed)
     ls = lights.sample_light(table, s.position, lr3, lr1, lr2)
     cos_i = s.normal.dot(ls.wi)
-    shadow_o = s.position + s.normal * config.ray_eps
+    shadow = Ray(s.position + s.normal * config.ray_eps, ls.wi)
+    tmax = ls.dist * (1.0 - 1e-3)
     shadow_active = is_hit & (cos_i > 0.0) & torch.isfinite(ls.pdf_solid)
+    vis = None if visibility is None else visibility(shadow, tmax,
+                                                     shadow_active)
     f_l = brdf.eval_brdf(s, ls.wi)
-    pb_l = brdf.brdf_pdf(s, ls.wi)
-    pl_l = ls.pdf_solid
-    # Sanitise the inf of a grazing light sample before any arithmetic.
+    sg = _sampled(config)
+    pb_l = sg(brdf.brdf_pdf(s, ls.wi))
+    pl_l = sg(ls.pdf_solid)
+    # Sanitise the inf of a grazing light sample before any arithmetic
+    # (inf/inf is NaN, which the backward pass would carry into cos_i), and
+    # the pdf of every lane that posts no query: on a lane that missed, the
+    # light is ~1e9 away and pl_safe² overflows. The reference sanitises
+    # only the first, so its geometry gradients are NaN once a lane misses
+    # with NEE on; selected lanes keep their values.
     pl_ok = torch.isfinite(pl_l) & (pl_l > 1e-12)
-    pl_safe = torch.where(pl_ok, pl_l, 1.0)
+    pl_safe = torch.where(pl_ok & shadow_active, pl_l, 1.0)
     w_l = (pl_safe * pl_safe) / torch.clamp(pl_safe * pl_safe + pb_l * pb_l,
                                             min=1e-20)
     scale_l = torch.where(shadow_active & pl_ok, cos_i * w_l / pl_safe, 0.0)
+    if vis is not None:
+        scale_l = scale_l * vis
     direct = throughput * f_l * ls.emission * scale_l
-    return DirectLight(Ray(shadow_o, ls.wi), ls.dist * (1.0 - 1e-3),
-                       shadow_active, direct), seed
+    return DirectLight(shadow, tmax, shadow_active, direct), seed
+
+
+class _Carry(NamedTuple):
+    """The per-lane state one bounce reads and writes."""
+    ray_o: Vec3
+    ray_d: Vec3
+    throughput: Vec3
+    radiance: Vec3
+    active: torch.Tensor
+    seed: tuple
+    depth: torch.Tensor
+    steps: torch.Tensor
+    segments: torch.Tensor
+    prev_pdf: torch.Tensor
+    normal: Vec3
+    src: torch.Tensor | None  # each lane's source slot (reordering only)
+    pend: DirectLight         # the pending shadow query (fused NEE)
+
+
+def checkpoint_bounces(config: RenderConfig, n: int) -> bool:
+    """Whether a differentiable render recomputes each bounce in the
+    backward pass instead of keeping its intermediates: ``bwd_checkpoint``,
+    or for ``None`` the reference's rule, on when the estimated residuals
+    (``n`` lanes × bounces × ``bwd_resid_bytes_per_seg``) exceed
+    ``bwd_resid_budget``."""
+    if config.bwd_checkpoint is not None:
+        return bool(config.bwd_checkpoint)
+    return n * config.bounces * config.bwd_resid_bytes_per_seg \
+        > config.bwd_resid_budget
 
 
 def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
@@ -164,14 +225,39 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
                far: float = 1000.0) -> PathTraceResult:
     """Trace one path per ray; all rays advance in lockstep through the
     bounce loop under an `active` mask. ``prep`` is the scene's
-    :func:`prepare_trace_inputs` (built here when not given)."""
+    :func:`prepare_trace_inputs` (built here when not given).
+
+    With ``config.differentiable`` the kernels find hits on detached inputs
+    and the hit records are recomputed from the live scene
+    (``trace_pallas_diff``, ``trace_occlude_pallas_diff``), so autograd
+    reaches every scene tensor the radiance depends on; sampled directions
+    and pdfs are detached unless ``config.grad_attached``. With
+    ``bwd_checkpoint`` (see :func:`checkpoint_bounces`) each bounce runs
+    under ``torch.utils.checkpoint``: the backward pass recomputes it, the
+    kernel launch included. ``soft_shadows > 0`` takes shadow visibility
+    from kernel 5 (``soft_occluded_pallas``) and turns NEE fusion off;
+    ``soft_primary > 0`` relaxes the primary hit's silhouette."""
     check_supported(scene, config)
     if prep is None:
         prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
+    diff = config.differentiable
     use_nee = config.nee and scene.n_lights > 0
-    fuse_nee = use_nee and not prep.superchunks
+    soft_shadows = config.soft_shadows > 0.0
+    fuse_nee = use_nee and not prep.superchunks and not soft_shadows
+    # The differentiable path reads emitters from the live scene, so light
+    # sampling and the MIS weights carry emission and geometry gradients.
+    table = (lights.build_light_table(scene) if diff else prep.lights) \
+        if use_nee else None
+    trace = trace_pallas_diff if diff else trace_pallas
+    trace_occlude = trace_occlude_pallas_diff if diff \
+        else trace_occlude_pallas
+    sampled = _sampled(config)
+
+    def soft_visibility(shadow, tmax, active):
+        return soft_occluded_pallas(scene, shadow, tmax, active,
+                                    config.soft_shadows, prep)
 
     # Per-bounce sort (large scenes, where the per-block culling needs
     # coherent blocks after a diffuse bounce) or group-granular survivor
@@ -189,29 +275,19 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     compact = bool(compact) and not sort_rays and cg is not None
     reorder = bool(sort_rays) or compact
     if sort_rays:
-        cell_lo, cell_span = morton_frame(scene)
+        cell_lo, cell_span = morton_frame(scene.detach())
 
-    zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
-    zero3 = Vec3(zero_n, zero_n, zero_n)
-    ray_o, ray_d = ray.o, ray.d
-    throughput = Vec3(zero_n + 1.0, zero_n + 1.0, zero_n + 1.0)
-    radiance = normal = zero3
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    depth = zero_n + far
-    steps = torch.zeros(n, dtype=torch.int32, device=dev)
-    segments = torch.zeros(n, dtype=torch.int32, device=dev)
-    prev_pdf = zero_n - 1.0
-    src = torch.arange(n, device=dev) if reorder else None
-    # The pending shadow query of the previous bounce (fused NEE; none at
-    # bounce 0).
-    pend = DirectLight(Ray(zero3, zero3), zero_n,
-                       torch.zeros(n, dtype=torch.bool, device=dev), zero3)
-
-    for i in range(config.bounces):
+    def body(i: int, c: _Carry) -> _Carry:
+        ray_o, ray_d, throughput, radiance = (c.ray_o, c.ray_d, c.throughput,
+                                              c.radiance)
+        active, seed, depth, steps = c.active, c.seed, c.depth, c.steps
+        segments, prev_pdf, normal, src, pend = (c.segments, c.prev_pdf,
+                                                 c.normal, c.src, c.pend)
         if reorder:
             if sort_rays:
                 key = torch.where(active, morton_octant_key(
-                    ray_o, ray_d, cell_lo, cell_span), 1 << 14)
+                    ray_o.detach(), ray_d.detach(), cell_lo, cell_span),
+                    1 << 14)
                 order = torch.argsort(key, stable=True)
 
                 def g(x):
@@ -248,34 +324,59 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
 
         r = Ray(ray_o, ray_d)
         if fuse_nee:
-            hit, occ = trace_occlude_pallas(scene, r, active, pend.shadow,
-                                            pend.tmax, pend.active, prep)
+            hit, occ = trace_occlude(scene, r, active, pend.shadow,
+                                     pend.tmax, pend.active, prep)
             # direct_i lands here, between emission_i and emission_i+1.
             radiance = vwhere(pend.active, radiance + pend.direct
                               * (~occ).to(torch.float32), radiance)
         else:
-            hit = trace_pallas(scene, r, active, prep)
+            hit = trace(scene, r, active, prep)
         is_hit = hit.hit & active
         steps = steps + torch.where(active, hit.steps, 0)
         segments = segments + active.to(torch.int32)
 
         s = get_shading_data(scene, hit, r)
         sky = sample_sky(ray_d, config, scene)
+        if config.soft_primary > 0.0 and i == 0:
+            # The primary silhouette relaxed (SoftRas-style): the winner's
+            # margin over its open (silhouette) edges gives a coverage
+            # alpha, 0 on the silhouette and ~1 a few soft_primary inside;
+            # the uncovered share takes the sky, and every surface term of
+            # this bounce scales by alpha. Gradients of alpha flow through
+            # u and v to vertices, poses and the camera. Later bounces
+            # multiply by 1, which the reference does and which changes
+            # nothing.
+            eo = scene.tri_edge_open[hit.tri.long()]  # (N, 3)
+            u, v = hit.u, hit.v
+            margin = torch.minimum(
+                torch.minimum(torch.where(eo[:, 0] > 0, u, 1.0),
+                              torch.where(eo[:, 1] > 0, v, 1.0)),
+                torch.where(eo[:, 2] > 0, 1.0 - u - v, 1.0))
+            alpha = 2.0 * torch.sigmoid(torch.clamp(margin, min=0.0)
+                                        / config.soft_primary) - 1.0
+            radiance = vwhere(is_hit, radiance + throughput * sky
+                              * (1.0 - alpha), radiance)
+            throughput = throughput * torch.where(is_hit, alpha, 1.0)
         emission = vwhere(is_hit, s.emission, sky)
         if use_nee:
-            emission = mis_emission(scene, prep.lights, hit, r.d, emission,
+            emission = mis_emission(scene, table, hit, r.d, emission,
                                     is_hit, prev_pdf)
         radiance = vwhere(active, radiance + throughput * emission, radiance)
 
         if use_nee:
-            dl, seed = sample_direct(s, throughput, is_hit, seed,
-                                     prep.lights, config)
+            dl, seed = sample_direct(
+                s, throughput, is_hit, seed, table, config,
+                soft_visibility if soft_shadows else None)
             segments = segments + dl.active.to(torch.int32)
             if fuse_nee:
                 pend = dl
+            elif soft_shadows:
+                radiance = vwhere(active, radiance + dl.direct, radiance)
             else:
-                occ = occluded_pallas(scene, dl.shadow, dl.tmax, dl.active,
-                                      prep)
+                # Hard visibility has no derivative almost everywhere: the
+                # kernel sees detached inputs.
+                occ = occluded_pallas(scene, dl.shadow.detach(),
+                                      dl.tmax.detach(), dl.active, prep)
                 radiance = vwhere(active, radiance + dl.direct
                                   * (~occ).to(torch.float32), radiance)
 
@@ -286,28 +387,54 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
 
         # Next segment: BRDF sampling.
         (r1, r2), seed = rng.pcg2d(seed)
-        new_dir = brdf.sample_brdf(s, r1, r2)
-        pdf = brdf.brdf_pdf(s, new_dir)
+        new_dir = sampled(brdf.sample_brdf(s, r1, r2))
+        pdf = sampled(brdf.brdf_pdf(s, new_dir))
         lambert_in = s.normal.dot(new_dir)
         f = brdf.eval_brdf(s, new_dir)
         scale = torch.where(pdf > 1e-12,
                             lambert_in / torch.clamp(pdf, min=1e-12), 0.0)
         survive = is_hit & (lambert_in > 0.0) & (pdf > 1e-12)
         new_o = s.position + s.normal * config.ray_eps
-        ray_o = vwhere(survive, new_o, ray_o)
-        ray_d = vwhere(survive, new_dir, ray_d)
-        throughput = vwhere(survive, throughput * (f * scale), throughput)
-        active = survive
-        prev_pdf = torch.where(survive, pdf, -1.0)
+        return _Carry(vwhere(survive, new_o, ray_o),
+                      vwhere(survive, new_dir, ray_d),
+                      vwhere(survive, throughput * (f * scale), throughput),
+                      radiance, survive, seed, depth, steps, segments,
+                      torch.where(survive, pdf, -1.0), normal, src, pend)
 
+    zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
+    zero3 = Vec3(zero_n, zero_n, zero_n)
+    carry = _Carry(
+        ray.o, ray.d, Vec3(zero_n + 1.0, zero_n + 1.0, zero_n + 1.0), zero3,
+        torch.ones(n, dtype=torch.bool, device=dev), seed, zero_n + far,
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev), zero_n - 1.0, zero3,
+        torch.arange(n, device=dev) if reorder else None,
+        # No shadow query is pending at bounce 0.
+        DirectLight(Ray(zero3, zero3), zero_n,
+                    torch.zeros(n, dtype=torch.bool, device=dev), zero3))
+    ckpt = diff and checkpoint_bounces(config, n)
+    for i in range(config.bounces):
+        if ckpt:
+            carry = torch.utils.checkpoint.checkpoint(
+                body, i, carry, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            carry = body(i, carry)
+
+    radiance, pend = carry.radiance, carry.pend
     if fuse_nee:
-        # The last bounce's shadow queries: one trailing any-hit launch.
-        occ = occluded_pallas(scene, pend.shadow, pend.tmax, pend.active,
-                              prep)
+        # The last bounce's shadow queries: one trailing any-hit launch, on
+        # detached inputs.
+        occ = occluded_pallas(scene, pend.shadow.detach(), pend.tmax.detach(),
+                              pend.active, prep)
         radiance = vwhere(pend.active, radiance + pend.direct
                           * (~occ).to(torch.float32), radiance)
 
+    normal, depth = carry.normal, carry.depth
+    steps, segments = carry.steps, carry.segments
     if reorder:
+        src = carry.src
+
         def unsort(x):
             return torch.empty_like(x).index_copy_(0, src, x)
 

@@ -8,6 +8,13 @@ pick-pdf term and geometric normal (``build_trace_table`` rows 30-33), which
 ``light_pdf_from_rows`` reads for the MIS weight of a BRDF-sampled emitter
 hit. Emitters are double-sided. After the superchunk lite kernel, which
 writes no rows, ``light_pdf_of_hit`` finds the emitter by (inst, tri).
+
+A differentiable render builds the table from the live scene instead, as
+the reference does in every render (render/integrator.py): then
+``sample_light`` and ``light_pdf_of_hit``, which the differentiable
+traversal always takes, carry emission and emitter-geometry gradients.
+Their per-lane fetches are ``index_select`` (see render/shading.py
+``get_shading_data_fast``): every lane that hit no emitter reads row 0.
 """
 
 from __future__ import annotations
@@ -97,7 +104,7 @@ def sample_light(table: LightTable, position: Vec3, r_pick, r1, r2
     n_lights = table.cdf.shape[0]
     pick = torch.clamp(torch.searchsorted(table.cdf, r_pick.contiguous(),
                                           right=False), 0, n_lights - 1)
-    r = table.rows[pick]  # (N, 17)
+    r = table.rows.index_select(0, pick)  # (N, 17)
     v0 = Vec3(r[:, 0], r[:, 1], r[:, 2])
     e1 = Vec3(r[:, 3], r[:, 4], r[:, 5])
     e2 = Vec3(r[:, 6], r[:, 7], r[:, 8])
@@ -147,9 +154,9 @@ def light_pdf_of_hit(table: LightTable, scene: Scene, hit_inst, hit_tri,
         (scene.light_tri[None, :] == hit_tri[:, None])      # (N, L)
     is_light = eq.any(dim=1)
     k = torch.argmax(eq.to(torch.uint8), dim=1)
-    normal = Vec3(table.normal.x[k], table.normal.y[k], table.normal.z[k])
+    normal = Vec3(*(x.index_select(0, k) for x in table.normal))
     cos_l = torch.abs(normal.dot(-ray_dir))
     dist2 = torch.clamp(t * t, min=_EPS)
-    pdf = dist2 / torch.clamp(cos_l * table.area[k], min=_EPS) * \
-        table.pick_prob[k]
+    pdf = dist2 / torch.clamp(cos_l * table.area.index_select(0, k),
+                              min=_EPS) * table.pick_prob.index_select(0, k)
     return torch.where(is_light & (cos_l > 1e-6), pdf, 0.0)

@@ -6,7 +6,9 @@ same AOVs as the JAX version: through the path-regeneration loop
 (render/regen.py) when ``config.regen`` asks for it or, as ``None``, by the
 reference's auto policy (every primal PALLAS render); otherwise through the
 standard loop in tiles of ``config.tile_rays`` rays (``lax.map`` over tiles
-becomes a Python loop). ``render`` adds the ACES tonemap.
+becomes a Python loop). A differentiable render always takes the standard
+loop; its radiance carries the autograd graph back to the scene and camera
+tensors. ``render`` adds the ACES tonemap.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ class FrameAOVs(NamedTuple):
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
     """Trace the full frame on ``scene.device``. Only the ported slice
-    renders (``Traversal.PALLAS``, primal, see ROADMAP); any other config
-    raises NotImplementedError naming its ROADMAP item."""
+    renders (``Traversal.PALLAS``, see ROADMAP); any other config raises
+    NotImplementedError naming its ROADMAP item."""
     if config.regen is not False:
         if config.regen and not regen_supported(scene, config):
             raise ValueError("config.regen requires a primal "
@@ -54,6 +56,15 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
     tile = min(config.tile_rays, n_pix)
     n_tiles = -(-n_pix // tile)
     padded = n_tiles * tile
+
+    if config.differentiable and config.bwd_checkpoint is None:
+        # The auto checkpoint rule at frame scope: without checkpoints the
+        # residuals of every tile and sample stay alive until the backward
+        # pass, so the estimate counts them all, not one call's wavefront.
+        resid = (padded * config.spp * config.bounces
+                 * config.bwd_resid_bytes_per_seg)
+        config = config.replace(
+            bwd_checkpoint=resid > config.bwd_resid_budget)
 
     pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
     prep = prepare_trace_inputs(scene)

@@ -71,9 +71,13 @@ def get_shading_data_fast(scene: Scene, hit: HitInfo, ray: Ray
     """Shading from the expanded-triangle index: one (N, 16) gather of
     ``isect_shade`` and one of the (M, 13) material table. The reference
     selects the material row with a one-hot matmul at HIGHEST precision
-    for small M, which is exact; an index gather is the same select and
-    keeps TF32 out."""
-    row = scene.isect_shade[torch.clamp(hit.eidx, min=0).long()]  # (N, 16)
+    for small M, which is exact, because a gather's backward is slow on
+    its device; an ``index_select`` is the same select, keeps TF32 out, and
+    its backward (an atomic ``index_add_``) copes with millions of lanes
+    reading a handful of rows, where advanced indexing's sorted
+    ``index_put_`` serialises them (PERF.md §6)."""
+    row = scene.isect_shade.index_select(
+        0, torch.clamp(hit.eidx, min=0))  # (N, 16)
     u, v = hit.u, hit.v
     w = 1.0 - u - v
     normal = Vec3(
@@ -84,7 +88,8 @@ def get_shading_data_fast(scene: Scene, hit: HitInfo, ray: Ray
     normal = vwhere(hit.front, normal, -normal)
     uv_u = row[:, 9] * w + row[:, 11] * u + row[:, 13] * v
     uv_v = row[:, 10] * w + row[:, 12] * u + row[:, 14] * v
-    m = material_table(scene)[row[:, 15].to(torch.int64)]  # (N, 13)
+    m = material_table(scene).index_select(
+        0, row[:, 15].to(torch.int64))  # (N, 13)
 
     albedo = Vec3(m[:, 0], m[:, 1], m[:, 2])
     if scene.has_textures:

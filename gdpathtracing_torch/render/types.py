@@ -20,6 +20,9 @@ class Ray(NamedTuple):
     def at(self, t) -> Vec3:
         return self.o + self.d * t
 
+    def detach(self) -> "Ray":
+        return Ray(self.o.detach(), self.d.detach())
+
 
 MISS_T = 1e9  # float32-exact miss distance
 

@@ -103,6 +103,12 @@ class Scene:
         return dataclasses.replace(self, **{
             name: getattr(self, name).to(device) for name in _TENSOR_FIELDS})
 
+    def detach(self) -> "Scene":
+        """The same scene cut from the autograd graph (the reference's
+        ``stop_gradient(scene)``): what the kernels are handed."""
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).detach() for name in _TENSOR_FIELDS})
+
 
 def resolve_device(device) -> torch.device:
     """The device a scene is built on. The default is the card; asking for
@@ -148,8 +154,10 @@ def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
 
 
 def scene_to_arrays(scene: Scene) -> dict:
-    """Inverse of :func:`scene_from_arrays`: every field as NumPy."""
-    out = {n: getattr(scene, n).cpu().numpy() for n in _TENSOR_FIELDS}
+    """Inverse of :func:`scene_from_arrays`: every field as NumPy (tensors
+    that require grad included)."""
+    out = {n: getattr(scene, n).detach().cpu().numpy()
+           for n in _TENSOR_FIELDS}
     out.update({n: np.asarray(getattr(scene, n)) for n in _STATIC_TYPES})
     return out
 

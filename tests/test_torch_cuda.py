@@ -207,6 +207,60 @@ def test_superchunk_render_cuda_matches_cpu(grid, regen, nee):
     assert same.float().mean() >= (0.99 if nee else 1.0)
 
 
+def _soft_args(scene, n, device):
+    """Kernel 5's operands: random shadow rays with limits in (0, 6), a
+    quarter of them parked (limit 0), over the soft-inflated chunk boxes
+    (edge_eps 0.05) and the triangles' edge openness."""
+    s = scene.to(device)
+    prep = ti.prepare_trace_inputs(s)
+    o4, d4 = _rays(n, 5)
+    g = np.random.default_rng(6)
+    tmax = g.uniform(0.0, 6.0, n).astype(np.float32)
+    tmax[g.uniform(size=n) < 0.25] = 0.0
+    return (o4.to(device), d4.to(device), torch.from_numpy(tmax).to(device),
+            ti.soft_bounds(s.isect_chunk_bounds, 0.05), prep.mu, prep.mv,
+            prep.mw, s.tri_edge_open[s.isect_tri.long()].T.contiguous())
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_soft_occlusion_kernel_matches_plain(scene, n):
+    """Kernel 5 against its plain version: margins bit for bit, eidx
+    equal, with candidates found and all-closed ties at 1.0 among them."""
+    args = _soft_args(scene, n, "cuda")
+    before = ti.soft_occluded.launches
+    margin, eidx = ti.soft_occluded(*args)
+    torch.cuda.synchronize()
+    assert ti.soft_occluded.launches == before + 1
+    want = ti.soft_occluded_plain(*args)
+    assert torch.equal(margin.view(torch.int32),
+                       want.margin.view(torch.int32))
+    assert torch.equal(eidx, want.eidx)
+    assert (margin > -1e8).any() and (margin == 1.0).any()
+
+
+def test_albedo_gradient_cuda_matches_cpu(scene):
+    """The differentiable standard loop (kernel 1 as the finder) on the
+    card against the CPU at 32x32: the images by the render tolerance, the
+    albedo gradient of the mean radiance within 5% of its largest
+    component (about 1% of pixels take another path after the card's
+    other sqrt/sin/cos rounding, and each moves this image-wide sum)."""
+    from gdpathtracing_torch.diff import replace_albedo
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=4,
+                       differentiable=True)
+    cam = demo_camera(32, 32)
+    out = []
+    for s in (scene.to("cuda"), scene):
+        alb = s.mat_albedo.clone().requires_grad_(True)
+        rad = render_radiance(replace_albedo(s, alb), cam, cfg, 3).radiance
+        (g,) = torch.autograd.grad(rad.mean(), alb)
+        out.append((rad.detach().cpu(), g.cpu()))
+    (ra, ga), (rb, gb) = out
+    ok = (torch.abs(ra - rb) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= 0.99
+    assert bool(torch.isfinite(ga).all()) and float(gb.abs().max()) > 0
+    assert float((ga - gb).abs().max()) <= 0.05 * float(gb.abs().max())
+
+
 def test_pcg2d_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

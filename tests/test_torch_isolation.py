@@ -1,7 +1,9 @@
 """The port never imports JAX: a fresh interpreter in which ``import jax``
 (and the JAX package) cannot succeed imports every module of
-gdpathtracing_torch and renders 16x16 frames: the standard loop, and the
-default regeneration loop with NEE."""
+gdpathtracing_torch (diff/ and scene/dynamic.py among them) and renders
+16x16 frames: the standard loop, the default regeneration loop with NEE,
+and a differentiable render with soft shadows through diff/'s re-posed
+instances, whose transform gradient it takes."""
 
 from __future__ import annotations
 
@@ -37,6 +39,15 @@ nee = render_radiance(scene, demo_camera(16, 16),
                                    bounces=2))
 assert bool(torch.isfinite(nee.radiance).all())
 assert int(nee.segments.sum()) > int(aovs.segments.sum())  # shadow rays
+from gdpathtracing_torch.diff import replace_instance_transforms
+tf = scene.inst_transform.clone().requires_grad_(True)
+diff = render_radiance(replace_instance_transforms(scene, tf),
+                       demo_camera(16, 16),
+                       RenderConfig(traversal=Traversal.PALLAS, nee=True,
+                                    bounces=2, differentiable=True,
+                                    soft_shadows=0.02))
+(g,) = torch.autograd.grad(diff.radiance.mean(), tf)
+assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
           or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
 assert not leaked, leaked
@@ -49,4 +60,4 @@ def test_port_imports_and_renders_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 18  # every module of the slice, csrc/ aside
+    assert n >= 21  # every module of the slice, csrc/ aside

@@ -167,8 +167,7 @@ def test_render_tonemaps(scene):
     dict(traversal=Traversal.BVH, regen=False),
     dict(regen=True, nee=True, regen_fuse_nee=True),
     dict(regen=True, regen_march=True),
-    dict(regen=True, regen_sort_key="chunk"), dict(differentiable=True),
-    dict(soft_shadows=0.01), dict(soft_primary=0.01),
+    dict(regen=True, regen_sort_key="chunk"),
     dict(traversal=Traversal.FUSED), dict(rr_start=2),
     dict(traversal=Traversal.MEGA)])
 def test_outside_the_slice_raises(scene, change):

@@ -5,7 +5,7 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the six CUDA kernels from csrc/ with nvcc, in parallel, and
+1. builds the eight CUDA kernels from csrc/ with nvcc, in parallel, and
    prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
@@ -26,14 +26,24 @@ Phases, each of which ends the run with a non-zero exit on failure:
    - kernel 5 (the soft-shadow top-1 blocker): the shadow rays of the
      middle tile's primary hits toward sampled light points, on the demo
      and on the grid, with soft shadows' edge_eps of phase 3b;
+   - kernel 10 (MEGA's per-bounce megakernel) on the middle demo tile's
+     packed path state, bounce 0 and bounce 1, without and with NEE;
+     kernel 11 (FUSED's all-bounces kernel) on the middle demo tile and on
+     the middle mid-grid tile, 5 bounces: these two call sqrtf, sinf and
+     cosf besides + - * /, and equal their plain versions bit for bit all
+     the same (IEEE sqrtf; PyTorch's CUDA sin and cos are CUDA's sinf and
+     cosf);
 3. renders 1920x1080 frames (1 spp, 5 bounces) through render_radiance
    for each main path, with every launch count and the regen iteration
    count set to 0 just before and read just after: on the demo scene the
    standard loop (regen=False), the default regen loop, regen with NEE
    and the standard loop with NEE; on the grid regen, regen with NEE and
    the standard loop (which sorts rays each bounce); regen on the mid grid
-   (n=4) and on the n=14 grid. Checks the launches against the regen
-   iterations and the tiles, and prints ms/frame and Msegments/s. Then it
+   (n=4) and on the n=14 grid; and the path kernels' traversals: MEGA,
+   MEGA + NEE and FUSED on the demo, FUSED on the mid grid. Checks the
+   launches against the regen iterations and the tiles (40 of kernel 10
+   and 8 of kernel 11 a frame, and none of kernels 1-6 there), and prints
+   ms/frame and Msegments/s. Then it
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
    intervals), the share of it in each traversal kernel, the largest other
@@ -46,10 +56,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the grid's albedo gradient; checks the launches of each step and the
    gradient, prints ms per step, Msegments/s (forward segments), peak
    device memory, and one more step under torch.profiler;
-4. renders 64x48 on the GPU and on the CPU for each demo path and for grid
-   regen with and without NEE, and compares each pair; the same for the
-   differentiable demo's albedo gradient and its soft-shadow transform
-   gradient.
+4. renders 64x48 on the GPU and on the CPU for each demo path (MEGA with
+   and without NEE and FUSED among them) and for grid regen with and
+   without NEE, and compares each pair; the same for the differentiable
+   demo's albedo gradient and its soft-shadow transform gradient.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -94,6 +104,13 @@ OPS_PER_SOFT_TEST = 59
 SOFT_EPS = 0.02
 # fwd+bwd steps of each differentiable path (the first is not timed).
 DIFF_STEPS = 3
+# Float operations of the path kernels' shading per ray (kernel 10) or per
+# ray and bounce (kernel 11), counted from csrc/path_common.cuh and
+# mega_step.cu (transcendentals as one): shading from the winner row ~60,
+# a BRDF continuation (sample, pdf, evaluation) ~330, the rest ~30; NEE
+# adds two light samples (~70 each), one more shading, the light's BRDF
+# evaluation and pdf and the MIS weights (~430).
+OPS_SHADE_MEGA, OPS_SHADE_MEGA_NEE, OPS_SHADE_FUSED = 420, 850, 420
 
 
 def fail(msg: str):
@@ -125,10 +142,12 @@ def cuda_ms(fn, iters: int, torch) -> float:
 
 
 def bound(tests: float, slabs: float, n_bytes: float,
-          ops_per_test: int = OPS_PER_TEST):
-    """(ms, what sets it): the least time for `tests` ray-triangle tests
-    and `slabs` slab tests against moving `n_bytes` once."""
-    t_ops = (tests * ops_per_test + slabs * OPS_PER_SLAB) / PEAK_FP32
+          ops_per_test: int = OPS_PER_TEST, other_ops: float = 0.0):
+    """(ms, what sets it): the least time for `tests` ray-triangle tests,
+    `slabs` slab tests and `other_ops` more operations against moving
+    `n_bytes` once."""
+    t_ops = (tests * ops_per_test + slabs * OPS_PER_SLAB
+             + other_ops) / PEAK_FP32
     t_bytes = n_bytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -191,6 +210,17 @@ def profile_step(name: str, step, torch, steady_ms: float,
         log(f"    {v:8.2f} ms  {n[:100]}")
 
 
+def bit_mismatch(got, want, torch):
+    """(rays whose outputs are not all equal bit for bit, largest |diff| of
+    an f32 output) of a path kernel's (f32 rows (R, N), i32 rows (R', N) or
+    (N,)) against its plain version's."""
+    (fa, ia), (fb, ib) = got, want
+    n = fa.shape[1]
+    differ = (fa.view(torch.int32) != fb.view(torch.int32)).any(dim=0) \
+        | (ia.reshape(-1, n) != ib.reshape(-1, n)).any(dim=0)
+    return int(differ.sum()), float((fa - fb).abs().max())
+
+
 def compare_frames(a, b, what: str, seg_share: float = 1.0):
     """The CPU parity tolerance of tests/test_torch_render.py: radiance
     within 1e-4 on >= 99% of pixels, segments equal on those pixels (on
@@ -228,7 +258,9 @@ def main() -> None:
     from gdpathtracing_torch.core import rng
     from gdpathtracing_torch.diff import (image_mse, replace_albedo,
                                           replace_instance_transforms)
+    from gdpathtracing_torch.ops import fused as fu
     from gdpathtracing_torch.ops import intersect as ti
+    from gdpathtracing_torch.ops import megakernel as mk
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
     from gdpathtracing_torch.render import brdf
     from gdpathtracing_torch.render.integrator import sample_direct
@@ -545,6 +577,86 @@ def main() -> None:
             17 * 4 * n + 8 * n + (12 + 3) * 4 * e5 + 8 * 4 * (e5 // ti.BT),
             OPS_PER_SOFT_TEST))
 
+    # Kernels 10 and 11 on the camera paths of the middle 1080p tile: kernel
+    # 10 at bounce 0 and, from its plain version's state, bounce 1, without
+    # and with NEE; kernel 11 over 5 bounces on the demo and the mid grid.
+    mid = build_sphere_grid(n=4, sphere_detail=12)
+    mid_cam = grid_camera(W, H, n=4)
+    mid_prep = ti.prepare_trace_inputs(mid)
+
+    def camera_paths(pcam, n, first):
+        pids = torch.arange(n, device=dev) + first
+        seed = rng.prng_seed(pids % W,
+                             torch.div(pids, W, rounding_mode="floor"), 0)
+        return pcam.to(dev).generate_rays(pids, seed, cfg)
+
+    ray, pseed = camera_paths(cam, tile, mid_tile)
+    for nee in (False, True):
+        mcfg = cfg.replace(traversal=Traversal.MEGA, nee=nee)
+        lt = mk._build_light_block(prep.lights if nee else None, dev)
+        geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw,
+               prep.tab, lt)
+        state = mk.pack_state(ray, pseed, cam.far)
+        n = state[0].shape[1]
+        for b in (0, 1):
+            got = mk.mega_step(*state, *geo, b, mcfg)
+            counts = {}
+            want = mk.mega_step_plain(*state, *geo, b, mcfg, counts=counts)
+            torch.cuda.synchronize()
+            differ, err = bit_mismatch(got, want, torch)
+            live = int((state[0][12] > 0).sum())
+            what = f"kernel 10{', NEE' if nee else ''}, bounce {b}"
+            log(f"{what} vs plain ({n} rays, {live} live, "
+                f"{counts.get('shadow_rays', 0)} shadow queries): "
+                f"{differ} rays not bit-equal, max |diff| {err:g}")
+            check(live > n // 10, f"{what}: only {live} live rays")
+            check(differ == 0, f"{what}: {differ} rays differ from the "
+                  f"plain version")
+            k = cuda_ms(lambda: mk.mega_step(*state, *geo, b, mcfg),
+                        KERNEL_ITERS, torch)
+            p = cuda_ms(lambda: mk.mega_step_plain(*state, *geo, b, mcfg),
+                        PLAIN_ITERS, torch)
+            log(f"  {counts['tests']:.4g} ray-triangle tests needed "
+                f"(both walks)")
+            record("mega_step", err, k, p, *bound(
+                counts["tests"], (2 if nee else 1) * n * nc,
+                2 * (mk.FS_R + mk.IS_R) * 4 * n + scene_bytes + tab_bytes
+                + lt.numel() * 4,
+                other_ops=live * (OPS_SHADE_MEGA_NEE if nee
+                                  else OPS_SHADE_MEGA)))
+            state = want
+
+    fcfg = cfg.replace(traversal=Traversal.FUSED)
+    for label, fscene, fcam, fprep, iters in (
+            ("demo", scene, cam, prep, PLAIN_ITERS),
+            ("mid grid", mid, mid_cam, mid_prep, GRID_PLAIN_ITERS)):
+        ray, pseed = camera_paths(fcam, tile, mid_tile)
+        args = (*fu.pack_paths(ray, pseed), fprep.bounds, fprep.mu, fprep.mv,
+                fprep.mw, fu._build_table(fscene), fu._build_mats(fscene))
+        got = fu.fused_paths(*args, fcfg)
+        counts = {}
+        want = fu.fused_paths_plain(*args, fcfg, counts=counts)
+        torch.cuda.synchronize()
+        differ, err = bit_mismatch(got, want, torch)
+        n, e11 = args[0].shape[1], fprep.mu.shape[1]
+        segs = int(want[1].sum())
+        n_hit = int((want[0][3] < ti._MISS).sum())
+        log(f"kernel 11 vs plain, {label} ({n} rays, {n_hit} hit, {segs} "
+            f"segments, {e11 // ti.BT} chunks): {differ} rays not "
+            f"bit-equal, max |diff| {err:g}")
+        check(n_hit > n // 10, f"kernel 11, {label}: only {n_hit} rays hit")
+        check(differ == 0, f"kernel 11, {label}: {differ} rays differ from "
+              f"the plain version")
+        k = cuda_ms(lambda: fu.fused_paths(*args, fcfg), KERNEL_ITERS, torch)
+        p = cuda_ms(lambda: fu.fused_paths_plain(*args, fcfg), iters, torch)
+        log(f"  {counts['tests']:.4g} ray-triangle tests needed "
+            f"({counts['tests'] / segs:.1f} per segment)")
+        record("fused_paths", err, k, p, *bound(
+            counts["tests"], fcfg.bounces * n * (e11 // ti.BT),
+            18 * 4 * n + (12 + ti.TABLE_W) * 4 * e11
+            + 8 * 4 * (e11 // ti.BT) + args[-1].numel() * 4,
+            other_ops=segs * OPS_SHADE_FUSED))
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -552,42 +664,56 @@ def main() -> None:
                "closest_hit_rows_nee": ti.closest_hit_rows_nee,
                "closest_hit_sc_lite": ti.closest_hit_sc_lite,
                "closest_hit_rows_sc": ti.closest_hit_rows_sc,
-               "soft_occluded": ti.soft_occluded}
+               "soft_occluded": ti.soft_occluded,
+               "mega_step": mk.mega_step,
+               "fused_paths": fu.fused_paths}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
-    mid = build_sphere_grid(n=4, sphere_detail=12)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
     # config, timed frames)])
+    mega, fused = Traversal.MEGA, Traversal.FUSED
     runs = [
         ("demo", scene, cam, "closest_hit_rows", [
             ("standard loop", cfg.replace(regen=False), 2),
             ("regen", cfg, 2),
             ("regen + NEE", cfg.replace(nee=True), 2),
-            ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2)]),
+            ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2),
+            ("MEGA", cfg.replace(traversal=mega), 2),
+            ("MEGA + NEE", cfg.replace(traversal=mega, nee=True), 2),
+            ("FUSED", cfg.replace(traversal=fused), 2)]),
         ("grid", grid, grid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
             ("regen + NEE", cfg.replace(nee=True), 2),
             ("standard loop (sorted)", cfg.replace(regen=False), 2)]),
-        ("mid grid", mid, grid_camera(W, H, n=4), "closest_hit_sc_lite", [
-            ("regen", cfg, 2)]),
+        ("mid grid", mid, mid_cam, "closest_hit_sc_lite", [
+            ("regen", cfg, 2),
+            ("FUSED", cfg.replace(traversal=fused), 2)]),
         ("n=14 grid", big, big_cam, "closest_hit_rows_sc", [
             ("regen", cfg, 2)])]
     # Each wrapper's source (csrc/) and the line of the TPU kernel it
-    # replaces in gdpathtracing_tpu/ops/intersect_pallas.py; the source
-    # `x.cu` defines the kernel `x_kernel`.
-    sources = {"closest_hit_rows": ("closest_hit_rows.cu", 520),
-               "occluded": ("occlusion.cu", 1662),
-               "closest_hit_rows_nee": ("closest_hit_rows_nee.cu", 613),
-               "closest_hit_sc_lite": ("closest_hit_sc_lite.cu", 973),
-               "closest_hit_rows_sc": ("closest_hit_rows_sc.cu", 864),
-               "soft_occluded": ("soft_occlusion.cu", 1828)}
+    # replaces in gdpathtracing_tpu/ops/; the source `x.cu` defines the
+    # kernel `x_kernel`.
+    sources = {"closest_hit_rows": ("closest_hit_rows.cu",
+                                    "intersect_pallas.py:520"),
+               "occluded": ("occlusion.cu", "intersect_pallas.py:1662"),
+               "closest_hit_rows_nee": ("closest_hit_rows_nee.cu",
+                                        "intersect_pallas.py:613"),
+               "closest_hit_sc_lite": ("closest_hit_sc_lite.cu",
+                                       "intersect_pallas.py:973"),
+               "closest_hit_rows_sc": ("closest_hit_rows_sc.cu",
+                                       "intersect_pallas.py:864"),
+               "soft_occluded": ("soft_occlusion.cu",
+                                 "intersect_pallas.py:1828"),
+               "mega_step": ("mega_step.cu", "megakernel.py:182"),
+               "fused_paths": ("fused_paths.cu", "fused_pallas.py:174")}
     kernel_symbols = {k: Path(src).stem + "_kernel"
                       for k, (src, _) in sources.items()}
     paths = [(f"{label}, {name}", pscene, pcam, trace, pcfg, frames)
              for label, pscene, pcam, trace, group in runs
              for name, pcfg, frames in group]
     for name, pscene, pcam, trace, pcfg, frames in paths:
-        regen = pcfg.regen is not False
+        # The reference's auto policy: regen renders only PALLAS.
+        regen = pcfg.regen is not False and pcfg.traversal == Traversal.PALLAS
         for fn in kernels.values():
             fn.launches = 0
         render_radiance_regen.iterations = 0
@@ -611,7 +737,11 @@ def main() -> None:
         nee = pcfg.nee
         want = dict.fromkeys(kernels, 0)
         per_tile = frames * n_tiles
-        if regen:  # one closest hit and, with NEE, one shadow query each
+        if pcfg.traversal == mega:  # one launch a tile and bounce
+            want["mega_step"] = per_tile * pcfg.bounces
+        elif pcfg.traversal == fused:  # one launch a tile
+            want["fused_paths"] = per_tile
+        elif regen:  # one closest hit and, with NEE, one shadow query each
             want[trace] = iters
             want["occluded"] = iters if nee else 0
         elif nee and trace == "closest_hit_rows":  # fused NEE
@@ -771,8 +901,7 @@ def main() -> None:
         "name": name,
         "route": "cuda",
         "source": f"gdpathtracing_torch/csrc/{sources[name][0]}",
-        "replaces": "gdpathtracing_tpu/ops/intersect_pallas.py:"
-                    f"{sources[name][1]}",
+        "replaces": f"gdpathtracing_tpu/ops/{sources[name][1]}",
         "launches": launches[name],
         "max_abs_err": r["err"],
         "ms": statistics.mean(r["ms"]),

@@ -8,12 +8,19 @@ take the two-level superchunk traversal), through the path-regeneration
 loop (the default) or the standard per-bounce loop (``regen=False``), with
 or without next-event estimation (``nee=True``), and the differentiable
 render (``differentiable=True``, with soft shadows and soft primary
-silhouettes; ``diff/`` and ``scene/dynamic.py``). Its six kernels (flat
-closest hit, occlusion, the two fused, the two-level closest hit with and
-without winner rows, and the soft-shadow top-1 blocker) are in CUDA
-(``ops/intersect.py``, ``csrc/``). Scenes are built on the GPU unless the
-caller asks for another device. Everything else raises NotImplementedError
-naming its ROADMAP item.
+silhouettes; ``diff/`` and ``scene/dynamic.py``); and the path kernels'
+traversals through the standard tile loop: ``Traversal.MEGA`` (one kernel
+per bounce, with NEE and Russian roulette; flat untextured scenes of at
+most 16 chunks) and ``Traversal.FUSED`` (all bounces in one kernel; no NEE,
+at most 16384 triangles), which raise ValueError outside the reference's
+gates, with ``regen=True`` or with ``differentiable=True``. Its eight
+kernels (flat closest hit, occlusion, the two fused, the two-level closest
+hit with and without winner rows, the soft-shadow top-1 blocker, MEGA's
+per-bounce megakernel and FUSED's all-bounces kernel) are in CUDA
+(``ops/intersect.py``, ``ops/megakernel.py``, ``ops/fused.py``,
+``csrc/``). Scenes are built on the GPU unless the caller asks for another
+device. Everything else raises NotImplementedError naming its ROADMAP
+item.
 
 Entry points: ``render.renderer.render_radiance`` and ``render.renderer.render``
 (the latter is not re-exported here, where its name would shadow the

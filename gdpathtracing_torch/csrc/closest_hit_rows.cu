@@ -55,21 +55,8 @@ closest_hit_rows_kernel(const float* __restrict__ o4,
 
   Best best = no_hit();
   float steps = 0.f, sweeps = 0.f;
-
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(r, bounds, nc, c, tmin, tmax);
-    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
-
-    // Also the barrier that ends every read of the previous chunk's rows.
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, (size_t)e, c, tid);
-    __syncthreads();
-    sweeps += 1.f;
-    if (!may) continue;
-    steps += (float)kBT;
-    sweep_closest(s_m, r, c * kBT, best);
-  }
+  walk_flat_closest(s_m, r, bounds, nc, mu, mv, mw, (size_t)e, tid, best,
+                    steps, sweeps);
   write_rows(out, tab, (size_t)n, (size_t)e, ray, best, steps, sweeps, 0.f);
 }
 

@@ -50,19 +50,8 @@ occlusion_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, (size_t)n, ray);
   const float lim = tlim[ray];
-  bool occ = false;
-
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(r, bounds, nc, c, tmin, tmax);
-    const bool may = !occ && (tmax >= tmin) && (tmax > 0.f) && (tmin < lim);
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, (size_t)e, c, tid);
-    __syncthreads();
-    if (may) occ = occlude_chunk(s_m, r, lim, sub_bounds, kSub * nc, c);
-    // Also the barrier that ends every read of this chunk's rows.
-    if (!__syncthreads_or(!occ && lim > 0.f)) break;
-  }
+  const bool occ = walk_flat_any(s_m, r, lim, bounds, sub_bounds, nc, mu, mv,
+                                 mw, (size_t)e, tid);
   occ_out[ray] = occ ? 1 : 0;
 }
 

@@ -1,6 +1,7 @@
 // Device code shared by the traversal kernels (closest_hit_rows.cu,
 // occlusion.cu, closest_hit_rows_nee.cu, closest_hit_sc_lite.cu,
-// closest_hit_rows_sc.cu, soft_occlusion.cu): one thread per ray, 256-ray
+// closest_hit_rows_sc.cu, soft_occlusion.cu, and the walks of the path
+// kernels mega_step.cu and fused_paths.cu): one thread per ray, 256-ray
 // blocks, chunks of 256 triangles staged in shared memory.
 //
 // Layouts (ops/intersect.py):
@@ -149,6 +150,33 @@ __device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
   }
 }
 
+// Flat closest-hit walk (kernels 1, 10 and 11) over the nc chunks in
+// index order. A ray sweeps chunk c when its own slab test against the
+// inflated box passes (tmax >= tmin, tmax > 0, tmin <= its best t so far);
+// the block skips a chunk none of its rays needs, otherwise it stages the
+// chunk and every ray that needs it sweeps it. `steps` counts the
+// triangles the ray swept, `sweeps` the chunks its block staged. The
+// winner depends on neither the visit order nor the block.
+__device__ __forceinline__ void walk_flat_closest(
+    ChunkRows& s_m, const Ray& r, const float* __restrict__ bounds, int nc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid, Best& best,
+    float& steps, float& sweeps) {
+  for (int c = 0; c < nc; ++c) {
+    float tmin, tmax;
+    slab(r, bounds, nc, c, tmin, tmax);
+    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
+    // Also the barrier that ends every read of the previous chunk's rows.
+    if (!__syncthreads_or(may)) continue;
+    stage_chunk(s_m, mu, mv, mw, e, c, tid);
+    __syncthreads();
+    sweeps += 1.f;
+    if (!may) continue;
+    steps += (float)kBT;
+    sweep_closest(s_m, r, c * kBT, best);
+  }
+}
+
 // What the two-level walk counts: triangles this ray swept, superchunks
 // its block entered, chunks its block swept.
 struct WalkCounts {
@@ -213,6 +241,33 @@ __device__ __forceinline__ bool occlude_chunk(
     }
   }
   return false;
+}
+
+// Flat any-hit walk (kernels 2 and 10) of shadow ray `r` in (0, lim)
+// over the nc chunks in index order: a ray tests chunk c when its slab
+// test against the inflated box passes with tmin < lim (then each half
+// by its own box, occlude_chunk), and stops at its first blocker; the
+// block skips a chunk none of its rays needs and ends the walk once none
+// is unresolved (lim <= 0 marks a parked ray).
+__device__ __forceinline__ bool walk_flat_any(
+    ChunkRows& s_m, const Ray& r, float lim, const float* __restrict__ bounds,
+    const float* __restrict__ sub_bounds, int nc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid) {
+  bool occ = false;
+  for (int c = 0; c < nc; ++c) {
+    float tmin, tmax;
+    slab(r, bounds, nc, c, tmin, tmax);
+    const bool may = !occ && (tmax >= tmin) && (tmax > 0.f) && (tmin < lim);
+    // Also the barrier that ends every read of the previous chunk's rows.
+    if (!__syncthreads_or(may)) continue;
+    stage_chunk(s_m, mu, mv, mw, e, c, tid);
+    __syncthreads();
+    if (may) occ = occlude_chunk(s_m, r, lim, sub_bounds, kSub * nc, c);
+    // Also the barrier that ends every read of this chunk's rows.
+    if (!__syncthreads_or(!occ && lim > 0.f)) break;
+  }
+  return occ;
 }
 
 // Rows 0-39 the winner's table row (0 on a miss), 40 t, 41 u, 42 v,

@@ -52,7 +52,8 @@ def nvcc_path() -> str:
 
 
 KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
-           "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion")
+           "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion",
+           "mega_step", "fused_paths")
 
 _loaded: dict[str, Library] = {}
 

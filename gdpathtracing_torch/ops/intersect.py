@@ -69,6 +69,11 @@ OUT_R = 48   # output rows: 0:40 table | 40 t | 41 u | 42 v | 43 w_d |
 #              in 46 and chunks its block swept in 47.
 LITE_R = 8   # superchunk lite rows: 0 t | 1 eidx (exact f32) | 2 triangles
 #              swept by the ray | 3 superchunks its block entered | 4-7 zero
+FS_R = 24    # the path kernels' operands (ops/megakernel.py,
+IS_R = 8     # ops/fused.py): packed f32 and i32 path state rows, light-block
+LT_R = 18    # columns, winner-table and material-row widths
+TABLE_W = 32
+MAT_W = 16
 SUB = 2      # sub-chunks per chunk: a shadow ray tests each 128-triangle
 SW = BT // SUB  # half's own box before sweeping it
 MAX_FLAT_CHUNKS = 16  # larger scenes take the superchunk kernels
@@ -249,27 +254,35 @@ def prepare_trace_inputs(scene: Scene) -> TracePrep:
 # Shared by the kernels: input checks, launch, the slab test
 # ---------------------------------------------------------------------------
 
+# Operands the kernels take as int32 (ops/megakernel.py, ops/fused.py);
+# every other operand is float32.
+_INT_OPERANDS = ("istate", "seeds")
+
+
 def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
     """Check the kernel operands named in ``args`` (dtype, device, layout,
-    shape) and return (N, E). N rays come from ``o4t``, E triangles from
-    ``mu``; the two-level kernels' ``sc_bounds`` hold one box per ``scc``
-    chunks."""
-    o4t, mu = args["o4t"], args["mu"]
-    dev = o4t.device
+    shape) and return (N, E). N rays come from ``o4t`` (or the path state
+    ``fstate``), E triangles from ``mu``; the two-level kernels'
+    ``sc_bounds`` hold one box per ``scc`` chunks; the light block ``lt``
+    and the material rows ``mats`` may have any number of rows."""
+    rays = args["o4t"] if "o4t" in args else args["fstate"]
+    mu = args["mu"]
+    dev = rays.device
     for name, x in args.items():
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        want_dtype = torch.int32 if name in _INT_OPERANDS else torch.float32
+        if x.dtype != want_dtype:
+            raise TypeError(f"{name} must be {want_dtype}, got {x.dtype}")
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, o4t on {dev}")
+            raise ValueError(f"{name} is on {x.device}, the rays on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.requires_grad:
             raise ValueError(f"{name} requires grad: the kernels only find "
                              f"hits; pass detached operands (see "
                              f"trace_pallas_diff)")
-    n = o4t.shape[1] if o4t.dim() == 2 else -1
+    n = rays.shape[1] if rays.dim() == 2 else -1
     e = mu.shape[1] if mu.dim() == 2 else -1
     nc = e // BT
     if not isinstance(scc, int) or scc < 1 or nc % scc:
@@ -278,9 +291,12 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
     want = dict(o4t=(4, n), d4t=(4, n), so4t=(4, n), sd4t=(4, n),
                 tlim=(n,), stmax=(n,), tmax=(n,), eo=(3, e), bounds=(8, nc),
                 sub_bounds=(8, SUB * nc), sc_bounds=(8, nc // scc),
-                mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e))
+                mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e),
+                fstate=(FS_R, n), istate=(IS_R, n), seeds=(2, n),
+                lt=(None, LT_R), table=(e, TABLE_W), mats=(None, MAT_W))
     for name, x in args.items():
-        if tuple(x.shape) != want[name]:
+        if x.dim() != len(want[name]) or any(
+                w is not None and w != k for w, k in zip(want[name], x.shape)):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                              f"expected {want[name]}")
     if n <= 0 or n % BN or e <= 0 or e % BT:
@@ -292,27 +308,29 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _c_function(name: str, n_ptrs: int, n_ints: int):
+def _c_function(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` device
-    pointers, ``n_ints`` ints (N, E and any more the kernel takes), then
-    the stream; returns a cudaError_t."""
+    pointers, ``n_ints`` ints (N, E and any more the kernel takes),
+    ``n_floats`` floats, then the stream; returns a cudaError_t."""
     from gdpathtracing_torch.ops.build import load_library
 
     fn = getattr(load_library(name).lib, name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, tensors: tuple, *ints: int) -> None:
+def _launch(name: str, tensors: tuple, *ints: int, floats: tuple = ()
+            ) -> None:
     """Launch kernel ``name`` on the current stream (no synchronisation)
-    with the ``tensors``' pointers and the ``ints``; raise if the launch was
-    refused."""
+    with the ``tensors``' pointers, the ``ints`` and the ``floats`` (each
+    passed as the float32 nearest to it, as PyTorch takes a Python float
+    into a float32 op); raise if the launch was refused."""
     dev = tensors[0].device
-    fn = _c_function(name, len(tensors), len(ints))
+    fn = _c_function(name, len(tensors), len(ints), len(floats))
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in tensors), *ints,
+        err = fn(*(t.data_ptr() for t in tensors), *ints, *floats,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -434,16 +452,26 @@ class _ClosestWalk:
         return out
 
 
-def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's contract (see
-    csrc/closest_hit_rows.cu): chunks in index order, each ray gated by its
-    own slab test against the chunk's inflated box."""
+def walk_flat_plain(o4t, d4t, bounds, mu, mv, mw
+                    ) -> tuple[_ClosestWalk, torch.Tensor]:
+    """Plain version of csrc/trace_common.cuh ``walk_flat_closest``
+    (kernels 1, 10 and 11): chunks in index order, each ray gated by its
+    own slab test against the chunk's inflated box. Returns the walk and,
+    per ray, the chunks its 256-ray block swept."""
     walk = _ClosestWalk(o4t, d4t)
     sweeps = torch.zeros_like(walk.best_t)
     for c in range(mu.shape[1] // BT):
         may = walk.passes(bounds[:, c])
         sweeps += _block_any(may)
         walk.sweep(c, may, mu, mv, mw)
+    return walk, sweeps
+
+
+def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract (see
+    csrc/closest_hit_rows.cu): :func:`walk_flat_plain` and the winner's
+    rows."""
+    walk, sweeps = walk_flat_plain(o4t, d4t, bounds, mu, mv, mw)
     return walk.rows(tab, sweeps, 0.0)
 
 

@@ -40,6 +40,7 @@ import torch.utils.checkpoint
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
+from gdpathtracing_torch.ops.fused import fused_supported, path_trace_fused
 from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                prepare_trace_inputs,
                                                soft_occluded_pallas,
@@ -47,6 +48,7 @@ from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                trace_occlude_pallas_diff,
                                                trace_pallas,
                                                trace_pallas_diff)
+from gdpathtracing_torch.ops.megakernel import mega_supported, path_trace_mega
 from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
@@ -62,9 +64,39 @@ def not_ported(what: str, item: int):
         f"(ROADMAP queue 1, item {item})")
 
 
+def check_path_kernel(scene: Scene, config: RenderConfig) -> None:
+    """Raise ValueError where ``Traversal.MEGA`` or ``Traversal.FUSED``
+    cannot render: outside the reference's gates (its texts), or with
+    ``differentiable=True``, where the reference renders through the kernel
+    with no gradient reaching the scene (neither kernel has a VJP) and the
+    port refuses rather than return an image whose graph is cut."""
+    name = config.traversal.name
+    if config.differentiable:
+        raise ValueError(
+            f"{name} traversal has no gradient (its kernel is not "
+            f"differentiated); use PALLAS with differentiable=True")
+    if config.traversal == Traversal.FUSED and not fused_supported(scene,
+                                                                   config):
+        raise ValueError(
+            "FUSED traversal unsupported for this scene/config "
+            "(textures/env/NEE/transmission or too many triangles); "
+            "use PALLAS")
+    if config.traversal == Traversal.MEGA and not mega_supported(scene,
+                                                                 config):
+        raise ValueError(
+            "MEGA traversal unsupported for this scene/config "
+            "(textures/env/transmission/soft_shadows, >16 chunks, or "
+            ">4096 lights); use PALLAS")
+
+
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """The transport both frame loops share: ``Traversal.PALLAS``, no
-    Russian roulette, no transmission."""
+    """The transport the frame loops render: ``Traversal.PALLAS`` without
+    Russian roulette or transmission, or the path kernels (MEGA, FUSED)
+    within their gates (:func:`check_path_kernel`; MEGA runs Russian
+    roulette in its kernel)."""
+    if config.traversal in (Traversal.MEGA, Traversal.FUSED):
+        check_path_kernel(scene, config)
+        return
     if config.traversal != Traversal.PALLAS:
         oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
         not_ported(f"Traversal.{config.traversal.name}",
@@ -236,8 +268,17 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     under ``torch.utils.checkpoint``: the backward pass recomputes it, the
     kernel launch included. ``soft_shadows > 0`` takes shadow visibility
     from kernel 5 (``soft_occluded_pallas``) and turns NEE fusion off;
-    ``soft_primary > 0`` relaxes the primary hit's silhouette."""
+    ``soft_primary > 0`` relaxes the primary hit's silhouette.
+
+    ``Traversal.FUSED`` and ``Traversal.MEGA`` go to their path kernels
+    (ops/fused.py ``path_trace_fused``, ops/megakernel.py
+    ``path_trace_mega``) within the reference's gates, as the reference
+    dispatches them."""
     check_supported(scene, config)
+    if config.traversal == Traversal.FUSED:
+        return path_trace_fused(scene, ray, seed, config, prep, far=far)
+    if config.traversal == Traversal.MEGA:
+        return path_trace_mega(scene, ray, seed, config, prep, far=far)
     if prep is None:
         prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]

@@ -101,10 +101,19 @@ def sample_light(table: LightTable, position: Vec3, r_pick, r1, r2
     number of cdf entries below ``r``, so a tie ``cdf[j] == r`` picks ``j``
     and a round-off ``cdf[-1] < r`` picks the last emitter. JAX's one-hot
     product for few emitters selects the same row."""
-    n_lights = table.cdf.shape[0]
-    pick = torch.clamp(torch.searchsorted(table.cdf, r_pick.contiguous(),
-                                          right=False), 0, n_lights - 1)
-    r = table.rows.index_select(0, pick)  # (N, 17)
+    return sample_light_rows(table.rows, table.cdf, position, r_pick, r1,
+                             r2)
+
+
+def sample_light_rows(rows: torch.Tensor, cdf: torch.Tensor, position: Vec3,
+                      r_pick, r1, r2) -> LightSample:
+    """:func:`sample_light` on the table's (L, 17) ``rows`` and its
+    ``cdf`` (the path kernels' light block, ops/megakernel.py)."""
+    n_lights = cdf.shape[0]
+    pick = torch.clamp(torch.searchsorted(cdf.contiguous(),
+                                          r_pick.contiguous(), right=False),
+                       0, n_lights - 1)
+    r = rows.index_select(0, pick)  # (N, 17)
     v0 = Vec3(r[:, 0], r[:, 1], r[:, 2])
     e1 = Vec3(r[:, 3], r[:, 4], r[:, 5])
     e2 = Vec3(r[:, 6], r[:, 7], r[:, 8])

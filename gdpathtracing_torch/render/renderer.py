@@ -6,9 +6,11 @@ same AOVs as the JAX version: through the path-regeneration loop
 (render/regen.py) when ``config.regen`` asks for it or, as ``None``, by the
 reference's auto policy (every primal PALLAS render); otherwise through the
 standard loop in tiles of ``config.tile_rays`` rays (``lax.map`` over tiles
-becomes a Python loop). A differentiable render always takes the standard
-loop; its radiance carries the autograd graph back to the scene and camera
-tensors. ``render`` adds the ACES tonemap.
+becomes a Python loop), where each tile's ``path_trace`` runs the PALLAS
+bounce loop or, for ``Traversal.MEGA`` and ``Traversal.FUSED``, the path
+kernels (one launch a bounce, or one a tile). A differentiable render
+always takes the standard loop; its radiance carries the autograd graph
+back to the scene and camera tensors. ``render`` adds the ACES tonemap.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ class FrameAOVs(NamedTuple):
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
     """Trace the full frame on ``scene.device``. Only the ported slice
-    renders (``Traversal.PALLAS``, see ROADMAP); any other config raises
-    NotImplementedError naming its ROADMAP item."""
+    renders (``Traversal.PALLAS``, ``MEGA`` and ``FUSED``, see ROADMAP); any
+    other config raises NotImplementedError naming its ROADMAP item, and
+    MEGA or FUSED outside their gates raise ValueError."""
     if config.regen is not False:
         if config.regen and not regen_supported(scene, config):
             raise ValueError("config.regen requires a primal "

@@ -271,3 +271,67 @@ def test_pcg2d_matches_cpu():
     (u0, v0), (sx0, sy0) = rng.pcg2d((s[0], s[1]))
     assert torch.equal(sx.cpu(), sx0) and torch.equal(sy.cpu(), sy0)
     assert torch.equal(u.cpu(), u0) and torch.equal(v.cpu(), v0)
+
+
+def _camera_paths(cam, device, w=64, h=32, frame=1):
+    """Camera rays and PCG2D words of a w x h frame of ``cam`` (a function
+    of w and h) on ``device``."""
+    cfg = RenderConfig(traversal=Traversal.MEGA)
+    pids = torch.arange(w * h, device=device)
+    seed = rng.prng_seed(pids % w, torch.div(pids, w, rounding_mode="floor"),
+                         frame)
+    return cam(w, h).to(device).generate_rays(pids, seed, cfg)
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_mega_step_kernel_matches_plain(scene, nee, bounce):
+    """Kernel 10 against its plain version on the card, one bounce of 2048
+    camera paths (bounce 1 from the plain version's bounce 0): the whole
+    state equal bit for bit."""
+    from gdpathtracing_torch.ops import megakernel as mk
+    dev = scene.to("cuda")
+    prep = ti.prepare_trace_inputs(dev)
+    cfg = RenderConfig(traversal=Traversal.MEGA, nee=nee)
+    lt = mk._build_light_block(prep.lights if nee else None, "cuda")
+    ray, seed = _camera_paths(demo_camera, "cuda")
+    fs, iv = mk.pack_state(ray, seed)
+    geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw, prep.tab,
+           lt)
+    if bounce:
+        fs, iv = mk.mega_step_plain(fs, iv, *geo, 0, cfg)
+    before = mk.mega_step.launches
+    got = mk.mega_step(fs, iv, *geo, bounce, cfg)
+    torch.cuda.synchronize()
+    assert mk.mega_step.launches == before + 1
+    want = mk.mega_step_plain(fs, iv, *geo, bounce, cfg)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert bool((want[0][12] > 0).any())
+
+
+@pytest.mark.parametrize("scene_name", ["demo", "mid"])
+def test_fused_paths_kernel_matches_plain(scene, scene_name):
+    """Kernel 11 against its plain version on the card, 3 bounces of 2048
+    camera paths, on the demo scene and on the mid grid (34 chunks, walked
+    flat): every output equal bit for bit."""
+    from gdpathtracing_torch.ops import fused as fu
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if scene_name == "demo":
+        s, cam = scene.to("cuda"), demo_camera
+    else:
+        s = build_sphere_grid(n=4, sphere_detail=12, device="cuda")
+        cam = lambda w, h: grid_camera(w, h, n=4)  # noqa: E731
+    prep = ti.prepare_trace_inputs(s)
+    cfg = RenderConfig(traversal=Traversal.FUSED, bounces=3)
+    ray, seed = _camera_paths(cam, "cuda")
+    args = (*fu.pack_paths(ray, seed), prep.bounds, prep.mu, prep.mv,
+            prep.mw, fu._build_table(s), fu._build_mats(s))
+    before = fu.fused_paths.launches
+    got = fu.fused_paths(*args, cfg)
+    torch.cuda.synchronize()
+    assert fu.fused_paths.launches == before + 1
+    want = fu.fused_paths_plain(*args, cfg)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert bool((want[0][3] < 1e9).any())

@@ -2,8 +2,9 @@
 (and the JAX package) cannot succeed imports every module of
 gdpathtracing_torch (diff/ and scene/dynamic.py among them) and renders
 16x16 frames: the standard loop, the default regeneration loop with NEE,
-and a differentiable render with soft shadows through diff/'s re-posed
-instances, whose transform gradient it takes."""
+a differentiable render with soft shadows through diff/'s re-posed
+instances, whose transform gradient it takes, and the path kernels'
+traversals (MEGA with NEE, FUSED)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,12 @@ diff = render_radiance(replace_instance_transforms(scene, tf),
                                     soft_shadows=0.02))
 (g,) = torch.autograd.grad(diff.radiance.mean(), tf)
 assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+for cfg in (RenderConfig(traversal=Traversal.MEGA, nee=True, bounces=2),
+            RenderConfig(traversal=Traversal.FUSED, bounces=2)):
+    k = render_radiance(scene, demo_camera(16, 16), cfg)
+    assert k.radiance.shape == (16, 16, 3)
+    assert bool(torch.isfinite(k.radiance).all())
+    assert int(k.segments.sum()) >= 16 * 16
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
           or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
 assert not leaked, leaked

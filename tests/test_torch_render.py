@@ -168,8 +168,8 @@ def test_render_tonemaps(scene):
     dict(regen=True, nee=True, regen_fuse_nee=True),
     dict(regen=True, regen_march=True),
     dict(regen=True, regen_sort_key="chunk"),
-    dict(traversal=Traversal.FUSED), dict(rr_start=2),
-    dict(traversal=Traversal.MEGA)])
+    dict(traversal=Traversal.BRUTE), dict(rr_start=2),
+    dict(traversal=Traversal.UNIT)])
 def test_outside_the_slice_raises(scene, change):
     cfg = SLICE.replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

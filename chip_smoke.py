@@ -5,8 +5,8 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the eight CUDA kernels from csrc/ with nvcc, in parallel, and
-   prints ptxas' registers, shared memory and spills;
+1. builds the eleven CUDA kernels from the ten sources in csrc/ with nvcc,
+   in parallel, and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
    - kernel 1 (closest hit): primary rays of the 262144-ray tile through
@@ -23,6 +23,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
      8 MiB lite threshold): each on the middle 1080p tile's primary rays,
      then one bounce from their hits; and on the grid tile, kernel 3 with
      the lite epilogue against kernel 6 (``_SC_LITE`` off);
+   - kernel 7 (one round of regen's frontier march) on the grid's middle
+     tile, its lanes in the march's sort order and queued by the march's
+     own candidate scan: primary rays from the spawn state, a second round
+     from the first's carried best, bounce-1 rays; and a round whose queue
+     lists every superchunk, which must give kernel 3's winners;
    - kernel 5 (the soft-shadow top-1 blocker): the shadow rays of the
      middle tile's primary hits toward sampled light points, on the demo
      and on the grid, with soft shadows' edge_eps of phase 3b;
@@ -33,17 +38,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
      cosf besides + - * /, and equal their plain versions bit for bit all
      the same (IEEE sqrtf; PyTorch's CUDA sin and cos are CUDA's sinf and
      cosf);
-3. renders 1920x1080 frames (1 spp, 5 bounces) through render_radiance
-   for each main path, with every launch count and the regen iteration
-   count set to 0 just before and read just after: on the demo scene the
-   standard loop (regen=False), the default regen loop, regen with NEE
-   and the standard loop with NEE; on the grid regen, regen with NEE and
-   the standard loop (which sorts rays each bounce); regen on the mid grid
-   (n=4) and on the n=14 grid; and the path kernels' traversals: MEGA,
-   MEGA + NEE and FUSED on the demo, FUSED on the mid grid. Checks the
-   launches against the regen iterations and the tiles (40 of kernel 10
-   and 8 of kernel 11 a frame, and none of kernels 1-6 there), and prints
-   ms/frame and Msegments/s. Then it
+   - kernels 8 and 9 (the classic (t, idx) closest hit, gated per ray and
+     per block) on the demo's middle tile, primary and bounce-1 rays, and
+     on the mid grid's, with the share of rays on which they find the
+     default traversal's winners;
+3. drives kernels 8 and 9 through their own entry points
+   (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
+   demo frame's camera rays, one launch a tile each, against kernel 1's
+   winners; then renders 1920x1080 frames (1 spp, 5 bounces) through
+   render_radiance for each main path, with every launch count and the
+   regen iteration count set to 0 just before each frame and read just
+   after: on the demo scene the standard loop (regen=False), the default
+   regen loop, regen with NEE and the standard loop with NEE; on the grid
+   regen, regen with NEE, the standard loop (which sorts rays each bounce)
+   and regen with the frontier march, without and with NEE; regen on the
+   mid grid (n=4), with and without the march, and on the n=14 grid, with
+   and without regen_march=True (there over the 8 MiB threshold, so
+   ignored); and the path kernels' traversals: MEGA, MEGA + NEE and FUSED
+   on the demo, FUSED on the mid grid. Each regen_march=True frame comes
+   right after its no-march counterpart at the same frame index and must
+   equal it in radiance, depth and segments. Checks the launches against
+   the regen iterations and the tiles (kernel 7 once an iteration where
+   the march runs, kernel 6 where it is ignored; 40 of kernel 10 and 8 of
+   kernel 11 a frame, and none of kernels 1-7 there), and prints ms/frame,
+   Msegments/s and the regen iterations. Then it
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
    intervals), the share of it in each traversal kernel, the largest other
@@ -58,8 +76,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    device memory, and one more step under torch.profiler;
 4. renders 64x48 on the GPU and on the CPU for each demo path (MEGA with
    and without NEE and FUSED among them) and for grid regen with and
-   without NEE, and compares each pair; the same for the differentiable
-   demo's albedo gradient and its soft-shadow transform gradient.
+   without NEE and with and without the march, and compares each pair;
+   the same for the differentiable demo's albedo gradient and its
+   soft-shadow transform gradient.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -264,7 +283,8 @@ def main() -> None:
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
     from gdpathtracing_torch.render import brdf
     from gdpathtracing_torch.render.integrator import sample_direct
-    from gdpathtracing_torch.render.regen import render_radiance_regen
+    from gdpathtracing_torch.render.regen import (march_lane_key,
+                                                  render_radiance_regen)
     from gdpathtracing_torch.render.renderer import render_radiance
     from gdpathtracing_torch.render.shading import get_shading_data
     from gdpathtracing_torch.render.types import Ray
@@ -531,6 +551,124 @@ def main() -> None:
                     f"eidx, tri, inst equal; max |u, v diff| {duv:g}")
                 check(duv <= 1e-4, f"grid {name}: u/v differ by {duv:g}")
 
+    # Kernel 7 (one round of regen's frontier march) on the grid's middle
+    # tile, the lanes in regen's march-key order and queued by the march's
+    # own candidate scan and block queues (sentinels and repeats among
+    # them): primary rays from the spawn state (no winner, BIG_E), a second
+    # round from the first's carried best with the cursors past the first
+    # candidate, bounce-1 rays; and one round whose queue lists every
+    # superchunk, which must give kernel 3's winners.
+    nsc = grid_prep.sc_bounds.shape[1]
+    mgeo = (grid_prep.sc_bounds, grid_prep.chunk_bounds, grid_prep.mu_pad,
+            grid_prep.mv_pad, grid_prep.mw_pad, grid_prep.scc)
+    primary, ghit, gs, gseed = middle_rays(tile, mid_tile, grid, grid_cam,
+                                           grid_prep)
+    bounce, bactive = bounce_rays(gs, ghit, gseed)
+    ones = torch.ones(tile, dtype=torch.bool, device=dev)
+
+    def no_winner(n):
+        return torch.stack([torch.full((n,), ti._MISS, device=dev),
+                            torch.full((n,), float(ti.BIG_E), device=dev)])
+
+    def candidates(ray, active, m_t=None, m_sc=None, b_t=None):
+        n = active.shape[0]
+        return ti.march_next_candidates(
+            grid_prep, ray.o, ray.d, active,
+            torch.full((n,), -torch.inf, device=dev) if m_t is None else m_t,
+            torch.full((n,), -1, dtype=torch.int64, device=dev)
+            if m_sc is None else m_sc,
+            torch.full((n,), ti._MISS, device=dev) if b_t is None else b_t,
+            k=cfg.regen_march_k)
+
+    def march_lanes(ray, active):
+        """The lanes sorted by regen's march key (next superchunk, the one
+        after it, octant), and their candidates."""
+        es, ss = candidates(ray, active)
+        key = torch.where(active, march_lane_key(ray.d, ss[0], ss[1], nsc),
+                          1 << 22)
+        perm = torch.argsort(key, stable=True)
+        ray = Ray(type(ray.o)(*(x[perm] for x in ray.o)),
+                  type(ray.d)(*(x[perm] for x in ray.d)))
+        return ray, active[perm], [x[perm] for x in es], [x[perm] for x in ss]
+
+    def first_visits(queue, n):
+        """``queue`` with each block's repeats of an entry after its first
+        replaced by the sentinel nsc."""
+        q = queue.view(n // ti.BN, -1)
+        ql = q.shape[1]
+        slot = torch.arange(ql, device=dev)
+        earlier = slot[:, None] > slot[None, :]  # (this slot, an earlier)
+        seen = ((q[:, :, None] == q[:, None, :]) & earlier).any(dim=2)
+        return torch.where(seen & (q < nsc), nsc, q).reshape(-1)
+
+    def march_check(what, o4t, d4t, init, queue):
+        """Kernel 7 against its plain version on one round; the plain
+        version's rows. The bound counts the tests of the same round
+        without the queue's repeats, which change no winner."""
+        args = (o4t, d4t, init, queue) + mgeo
+        n = o4t.shape[1]
+        got = ti.march_step_sc(*args)
+        want = ti.march_step_sc_plain(*args)
+        counts = {}
+        once = ti.march_step_sc_plain(o4t, d4t, init,
+                                      first_visits(queue, n), *mgeo,
+                                      counts=counts)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        real = queue.view(n // ti.BN, -1) < nsc
+        repeats = int(real.sum()) - int((first_visits(queue, n) < nsc).sum())
+        check(torch.equal(once[:2].view(torch.int32),
+                          want[:2].view(torch.int32)),
+              f"kernel 7, {what}: the queue's repeats changed a winner")
+        n_hit = int((want[0] < ti._MISS).sum())
+        log(f"kernel 7 vs plain, grid, {what} ({n} rays, {n_hit} with a "
+            f"best; queue {queue.numel()} slots: {int(real.sum())} "
+            f"superchunks, {int((~real).sum())} sentinels, {repeats} "
+            f"repeats): max |diff| {err:g}")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"kernel 7, {what}: differs from its plain version")
+        needed = float(once[2].sum())
+        k = cuda_ms(lambda: ti.march_step_sc(*args), KERNEL_ITERS, torch)
+        p = cuda_ms(lambda: ti.march_step_sc_plain(*args), GRID_PLAIN_ITERS,
+                    torch)
+        log(f"  {needed:.4g} ray-triangle tests and "
+            f"{counts['slab_tests']:.4g} slab tests needed (the round "
+            f"swept {float(want[2].sum()):.4g} with the repeats)")
+        record("march_step_sc", err, k, p, *bound(
+            needed, counts["slab_tests"], two_level_bytes(grid_prep, n, 8,
+                                                          False)
+            + 2 * 4 * n + 4 * queue.numel()))
+        return want
+
+    ray, act, es, ss = march_lanes(primary, ones)
+    o4t, d4t = ti.pack_rays(ray)
+    first = march_check("primary rays, spawn", o4t, d4t, no_winner(tile),
+                        ti.march_block_queue(ss, nsc,
+                                             cfg.regen_march_ql)[0])
+    check(int((first[0] < ti._MISS).sum()) > tile // 10,
+          "kernel 7: few primary rays found a best in the first round")
+    moved = ss[0] < nsc
+    _, ss2 = candidates(ray, act, torch.where(moved, es[0], -torch.inf),
+                        torch.where(moved, ss[0], -1), first[0])
+    march_check("primary rays, carried", o4t, d4t, first[:2].contiguous(),
+                ti.march_block_queue(ss2, nsc, cfg.regen_march_ql)[0])
+    bray, bact, _, bss = march_lanes(bounce, bactive)
+    bo4t, bd4t = ti.pack_rays(bray, bact)
+    march_check("bounce-1 rays, spawn", bo4t, bd4t, no_winner(tile),
+                ti.march_block_queue(bss, nsc, cfg.regen_march_ql)[0])
+    every = torch.arange(nsc, dtype=torch.int32, device=dev).repeat(
+        tile // ti.BN)
+    full = march_check("primary rays, every superchunk queued", o4t, d4t,
+                       no_winner(tile), every)
+    lite = ti.closest_hit_sc_lite(o4t, d4t, *mgeo)
+    torch.cuda.synchronize()
+    hit = lite[0] < ti._MISS
+    check(torch.equal(full[[0, 2, 3]], lite[[0, 2, 3]])
+          and torch.equal(full[1][hit], lite[1][hit]),
+          "kernel 7 with every superchunk queued differs from kernel 3")
+    log("  kernel 7 with every superchunk queued: kernel 3's t, eidx, "
+        "steps and entries on every ray")
+
     # Kernel 5 on the soft-shadow rays of the middle tile's primary hits,
     # on the demo (the NEE shadow rays of kernel 4's check) and on the grid,
     # over each scene's unpadded chunks.
@@ -657,6 +795,60 @@ def main() -> None:
             + 8 * 4 * (e11 // ti.BT) + args[-1].numel() * 4,
             other_ops=segs * OPS_SHADE_FUSED))
 
+    # Kernels 8 and 9 (the classic (t, idx) closest hit over the raw chunk
+    # boxes, gated per ray and per block) on the demo's middle tile, primary
+    # and bounce-1 rays, and on the mid grid's (34 chunks, flat), against
+    # their plain versions and against the default traversal's winners
+    # (kernel 1 on the demo, kernel 3 on the mid grid).
+    primary, dhit, ds, dseed = middle_rays(tile, mid_tile)
+    dbounce, dactive = bounce_rays(ds, dhit, dseed)
+    mprimary = middle_rays(tile, mid_tile, mid, mid_cam, mid_prep)[0]
+    for label, cscene, cprep, ray, active in (
+            ("demo, primary", scene, prep, primary, None),
+            ("demo, bounce 1", scene, prep, dbounce, dactive),
+            ("mid grid, primary", mid, mid_prep, mprimary, None)):
+        o4t, d4t = ti.pack_rays(ray, active)
+        n, e8 = o4t.shape[1], cprep.mu.shape[1]
+        args = (o4t, d4t, cscene.isect_chunk_bounds.contiguous(), cprep.mu,
+                cprep.mv, cprep.mw)
+        iters = PLAIN_ITERS if label.startswith("demo") else GRID_PLAIN_ITERS
+        out = {}
+        for kname, kfn, pfn in (
+                ("closest_hit_classic", ti.closest_hit_classic,
+                 ti.closest_hit_classic_plain),
+                ("closest_hit_loop", ti.closest_hit_loop,
+                 ti.closest_hit_loop_plain)):
+            t, idx = kfn(*args)
+            counts = {}
+            want_t, want_i = pfn(*args, counts=counts)
+            torch.cuda.synchronize()
+            err = float((t - want_t).abs().max())
+            n_hit = int((want_t < ti._MISS).sum())
+            log(f"{kname} vs plain, {label} ({n} rays, {n_hit} hit, "
+                f"{e8 // ti.BT} chunks): max |diff| {err:g}")
+            check(n_hit > n // 10, f"{kname}, {label}: only {n_hit} hit")
+            check(torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+                  and torch.equal(idx, want_i),
+                  f"{kname}, {label}: differs from its plain version")
+            k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
+            p = cuda_ms(lambda: pfn(*args), iters, torch)
+            log(f"  {counts['tests']:.4g} ray-triangle tests swept")
+            record(kname, err, k, p, *bound(
+                counts["tests"], n * (e8 // ti.BT),
+                8 * 4 * n + 2 * 4 * n + 3 * 4 * e8 * 4
+                + 8 * 4 * (e8 // ti.BT)))
+            out[kname] = (t[:tile], idx[:tile])
+        ref = ti.trace_pallas(cscene, ray, active, cprep)
+        (t8, i8), (t9, i9) = out["closest_hit_classic"], \
+            out["closest_hit_loop"]
+        same8 = float(((t8 == ref.t) & (i8 == ref.eidx)).float().mean())
+        same9 = float(((t9 == t8) & (i9 == i8)).float().mean())
+        log(f"  {label}: kernel 8's (t, eidx) equal the default traversal's "
+            f"on {same8:.6f} of rays, kernel 9's equal kernel 8's on "
+            f"{same9:.6f}")
+        check(same8 >= 0.99 and same9 >= 0.99,
+              f"{label}: kernels 8 and 9 disagree with the other winners")
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -666,12 +858,16 @@ def main() -> None:
                "closest_hit_rows_sc": ti.closest_hit_rows_sc,
                "soft_occluded": ti.soft_occluded,
                "mega_step": mk.mega_step,
-               "fused_paths": fu.fused_paths}
+               "fused_paths": fu.fused_paths,
+               "march_step_sc": ti.march_step_sc,
+               "closest_hit_classic": ti.closest_hit_classic,
+               "closest_hit_loop": ti.closest_hit_loop}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
     # config, timed frames)])
     mega, fused = Traversal.MEGA, Traversal.FUSED
+    march = cfg.replace(regen_march=True)
     runs = [
         ("demo", scene, cam, "closest_hit_rows", [
             ("standard loop", cfg.replace(regen=False), 2),
@@ -684,15 +880,21 @@ def main() -> None:
         ("grid", grid, grid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
             ("regen + NEE", cfg.replace(nee=True), 2),
-            ("standard loop (sorted)", cfg.replace(regen=False), 2)]),
+            ("standard loop (sorted)", cfg.replace(regen=False), 2),
+            ("regen, march", march, 2),
+            ("regen + NEE, march", march.replace(nee=True), 2)]),
         ("mid grid", mid, mid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
-            ("FUSED", cfg.replace(traversal=fused), 2)]),
+            ("FUSED", cfg.replace(traversal=fused), 2),
+            ("regen, march", march, 2)]),
         ("n=14 grid", big, big_cam, "closest_hit_rows_sc", [
-            ("regen", cfg, 2)])]
+            ("regen", cfg, 2),
+            # over the 8 MiB threshold: the flag is ignored (kernel 6)
+            ("regen, regen_march=True", march, 2)])]
     # Each wrapper's source (csrc/) and the line of the TPU kernel it
     # replaces in gdpathtracing_tpu/ops/; the source `x.cu` defines the
-    # kernel `x_kernel`.
+    # kernel `x_kernel`, but for kernel 9, which closest_hit_classic.cu
+    # defines as closest_hit_loop_kernel.
     sources = {"closest_hit_rows": ("closest_hit_rows.cu",
                                     "intersect_pallas.py:520"),
                "occluded": ("occlusion.cu", "intersect_pallas.py:1662"),
@@ -705,33 +907,105 @@ def main() -> None:
                "soft_occluded": ("soft_occlusion.cu",
                                  "intersect_pallas.py:1828"),
                "mega_step": ("mega_step.cu", "megakernel.py:182"),
-               "fused_paths": ("fused_paths.cu", "fused_pallas.py:174")}
+               "fused_paths": ("fused_paths.cu", "fused_pallas.py:174"),
+               "march_step_sc": ("march_step_sc.cu",
+                                 "intersect_pallas.py:1117"),
+               "closest_hit_classic": ("closest_hit_classic.cu",
+                                       "intersect_pallas.py:52"),
+               "closest_hit_loop": ("closest_hit_classic.cu",
+                                    "intersect_pallas.py:2047")}
     kernel_symbols = {k: Path(src).stem + "_kernel"
                       for k, (src, _) in sources.items()}
+    kernel_symbols["closest_hit_loop"] = "closest_hit_loop_kernel"
+
+    # Kernels 8 and 9 through their own entry points, over every tile of a
+    # 1080p demo frame's camera rays: trace_pallas_classic (kernel 8) and
+    # closest_hit_loop (kernel 9), one launch a tile each; then kernel 1's
+    # winners on the same rays, outside the count.
+    tiles = []
+    for k in range(n_tiles):
+        pids = torch.arange(k * tile, min((k + 1) * tile, W * H), device=dev)
+        tiles.append(cam.to(dev).generate_rays(pids, rng.prng_seed(
+            pids % W, torch.div(pids, W, rounding_mode="floor"), 0), cfg)[0])
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    classic = [ti.trace_pallas_classic(scene, ray, None, prep)
+               for ray in tiles]
+    torch.cuda.synchronize()
+    t_classic = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    looped = [ti.closest_hit_loop(*ti.pack_rays(ray),
+                                  scene.isect_chunk_bounds.contiguous(),
+                                  prep.mu, prep.mv, prep.mw)
+              for ray in tiles]
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in kernels.items()}
+    want = dict.fromkeys(kernels, 0)
+    want["closest_hit_classic"] = want["closest_hit_loop"] = n_tiles
+    log(f"demo, trace_pallas_classic and closest_hit_loop over a 1080p "
+        f"frame's camera rays: launches {got}")
+    check(got == want, f"classic entry points: launches {got}, expected "
+          f"{want}")
+    for k in kernels:
+        launches[k] += got[k]
+    same8 = same9 = 0
+    for ray, h8, (t9, i9) in zip(tiles, classic, looped):
+        h1 = ti.trace_pallas(scene, ray, None, prep)
+        n = h1.t.shape[0]
+        same8 += int(((h8.t == h1.t) & (h8.eidx == h1.eidx)).sum())
+        same9 += int(((t9[:n] == h8.t) & (i9[:n] == h8.eidx)).sum())
+    log(f"  {t_classic * 1e3:.1f} ms (trace_pallas_classic), "
+        f"{t_loop * 1e3:.1f} ms (closest_hit_loop) for {W * H} rays; "
+        f"kernel 8's (t, eidx) equal kernel 1's on {same8 / (W * H):.6f} "
+        f"of them, kernel 9's equal kernel 8's on {same9 / (W * H):.6f}; "
+        f"on {card}")
+    check(same8 >= 0.99 * W * H and same9 >= 0.99 * W * H,
+          "kernels 8 and 9 disagree with kernel 1 over the frame")
+
     paths = [(f"{label}, {name}", pscene, pcam, trace, pcfg, frames)
              for label, pscene, pcam, trace, group in runs
              for name, pcfg, frames in group]
     for name, pscene, pcam, trace, pcfg, frames in paths:
         # The reference's auto policy: regen renders only PALLAS.
         regen = pcfg.regen is not False and pcfg.traversal == Traversal.PALLAS
-        for fn in kernels.values():
-            fn.launches = 0
-        render_radiance_regen.iterations = 0
-        torch.cuda.synchronize()
-        frame_s, segs = [], []
+        # A march path renders, in turns, its no-march counterpart at the
+        # same frame index (outside the counts), and must equal it.
+        march_flag = pcfg.regen_march is True
+        got, iters = dict.fromkeys(kernels, 0), 0
+        frame_s, segs, ref_s = [], [], []
         for f in range(frames):
+            if march_flag:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = render_radiance(pscene, pcam,
+                                      pcfg.replace(regen_march=None), f)
+                torch.cuda.synchronize()
+                ref_s.append(time.perf_counter() - t0)
+            for fn in kernels.values():
+                fn.launches = 0
+            render_radiance_regen.iterations = 0
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             aovs = render_radiance(pscene, pcam, pcfg, f)
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
+            for k, fn in kernels.items():
+                got[k] += fn.launches
+            iters += render_radiance_regen.iterations
             check(aovs.radiance.shape == (H, W, 3), f"{name}: shape")
             check(bool(torch.isfinite(aovs.radiance).all()),
                   f"{name}, frame {f}: non-finite radiance")
             seg = int(aovs.segments.sum())
             check(seg >= W * H, f"{name}, frame {f}: {seg} segments")
             segs.append(seg)
-        got = {k: fn.launches for k, fn in kernels.items()}
-        iters = render_radiance_regen.iterations
+            if march_flag:
+                for a in ("radiance", "depth", "segments"):
+                    check(torch.equal(getattr(aovs, a), getattr(ref, a)),
+                          f"{name}, frame {f}: {a} differs from the frame "
+                          f"without the march")
         check(iters > 0 if regen else iters == 0,
               f"{name}: render_radiance ran {iters} regen iterations")
         nee = pcfg.nee
@@ -741,8 +1015,10 @@ def main() -> None:
             want["mega_step"] = per_tile * pcfg.bounces
         elif pcfg.traversal == fused:  # one launch a tile
             want["fused_paths"] = per_tile
-        elif regen:  # one closest hit and, with NEE, one shadow query each
-            want[trace] = iters
+        elif regen:  # one closest hit (or march round) and, with NEE, one
+            #          shadow query each
+            marching = march_flag and trace == "closest_hit_sc_lite"
+            want["march_step_sc" if marching else trace] = iters
             want["occluded"] = iters if nee else 0
         elif nee and trace == "closest_hit_rows":  # fused NEE
             want["closest_hit_rows_nee"] = per_tile * pcfg.bounces
@@ -757,7 +1033,12 @@ def main() -> None:
             launches[k] += got[k]
         for f, (t, seg) in enumerate(zip(frame_s, segs)):
             log(f"  frame {f}: {t * 1e3:.1f} ms, {seg} segments, "
-                f"{seg / t / 1e6:.2f} Msegments/s")
+                f"{seg / t / 1e6:.2f} Msegments/s"
+                + (f"; {iters / frames:g} regen iterations a frame"
+                   if regen else "")
+                + (f"; without the march, in turns: {ref_s[f] * 1e3:.1f} "
+                   f"ms, equal radiance, depth and segments"
+                   if march_flag else ""))
         steady = statistics.median(frame_s[1:])
         log(f"1080p {name}, 1 spp, 5 bounces: median of frames 1-"
             f"{frames - 1} {steady * 1e3:.1f} ms/frame, "

@@ -13,12 +13,16 @@ traversals through the standard tile loop: ``Traversal.MEGA`` (one kernel
 per bounce, with NEE and Russian roulette; flat untextured scenes of at
 most 16 chunks) and ``Traversal.FUSED`` (all bounces in one kernel; no NEE,
 at most 16384 triangles), which raise ValueError outside the reference's
-gates, with ``regen=True`` or with ``differentiable=True``. Its eight
-kernels (flat closest hit, occlusion, the two fused, the two-level closest
-hit with and without winner rows, the soft-shadow top-1 blocker, MEGA's
-per-bounce megakernel and FUSED's all-bounces kernel) are in CUDA
-(``ops/intersect.py``, ``ops/megakernel.py``, ``ops/fused.py``,
-``csrc/``). Scenes are built on the GPU unless the caller asks for another
+gates, with ``regen=True`` or with ``differentiable=True``. Regen's
+frontier march (``regen_march=True``) renders on the superchunk scenes the
+reference marches on, and the classic closest hit
+(``ops.intersect.trace_pallas_classic``) is public as in the reference.
+All eleven kernels of the reference are in CUDA (``ops/intersect.py``,
+``ops/megakernel.py``, ``ops/fused.py``, ``csrc/``): flat closest hit,
+occlusion, the two fused, the two-level closest hit with and without
+winner rows, the soft-shadow top-1 blocker, one round of the march, the
+classic (t, idx) closest hit and its block-gated loop form, MEGA's
+per-bounce megakernel and FUSED's all-bounces kernel. Scenes are built on the GPU unless the caller asks for another
 device. Everything else raises NotImplementedError naming its ROADMAP
 item.
 

@@ -1,8 +1,9 @@
 // Device code shared by the traversal kernels (closest_hit_rows.cu,
 // occlusion.cu, closest_hit_rows_nee.cu, closest_hit_sc_lite.cu,
-// closest_hit_rows_sc.cu, soft_occlusion.cu, and the walks of the path
-// kernels mega_step.cu and fused_paths.cu): one thread per ray, 256-ray
-// blocks, chunks of 256 triangles staged in shared memory.
+// closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
+// closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
+// and fused_paths.cu): one thread per ray, 256-ray blocks, chunks of 256
+// triangles staged in shared memory.
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -183,40 +184,53 @@ struct WalkCounts {
   float steps, sc_entries, chunk_sweeps;
 };
 
+// Superchunk `s` of the two-level closest-hit walk (kernels 3, 6 and 7):
+// s holds the `scc` consecutive chunks s*scc .. s*scc + scc - 1. A ray
+// sweeps chunk c when its own slab tests against the inflated box of s
+// and of c itself both pass (tmax >= tmin, tmax > 0, tmin <= its best t
+// so far). The block skips the superchunk when none of its rays enters
+// it, and a chunk none of them needs; otherwise it stages the chunk and
+// every ray that needs it sweeps it. Every thread of the block calls it
+// with the same s.
+__device__ __forceinline__ void walk_superchunk(
+    ChunkRows& s_m, const Ray& r, int s, const float* __restrict__ sc_bounds,
+    int nsc, const float* __restrict__ chunk_bounds, int scc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid, Best& best,
+    WalkCounts& cnt) {
+  const int nc = nsc * scc;
+  float tmin, tmax;
+  slab(r, sc_bounds, nsc, s, tmin, tmax);
+  const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
+  // Also the barrier that ends every read of the previous chunk's rows.
+  if (!__syncthreads_or(sc_may)) return;
+  cnt.sc_entries += 1.f;
+  for (int c = s * scc; c < (s + 1) * scc; ++c) {
+    slab(r, chunk_bounds, nc, c, tmin, tmax);
+    const bool may = sc_may && (tmax >= tmin) && (tmax > 0.f) &&
+                     (tmin <= best.t);
+    if (!__syncthreads_or(may)) continue;
+    stage_chunk(s_m, mu, mv, mw, e, c, tid);
+    __syncthreads();
+    cnt.chunk_sweeps += 1.f;
+    if (!may) continue;
+    cnt.steps += (float)kBT;
+    sweep_closest(s_m, r, c * kBT, best);
+  }
+}
+
 // Two-level closest-hit walk (closest_hit_sc_lite.cu, closest_hit_rows_sc.cu)
-// over nsc superchunks of `scc` consecutive chunks each, in index order.
-// A ray sweeps chunk c when its own slab tests against the inflated box
-// of c's superchunk and of c itself both pass (tmax >= tmin, tmax > 0,
-// tmin <= its best t so far). The block skips a superchunk none of its
-// rays enters, and a chunk none of them needs; otherwise it stages the
-// chunk and every ray that needs it sweeps it. The winner depends on
-// neither the visit order nor the block.
+// over the nsc superchunks in index order (walk_superchunk each). The
+// winner depends on neither the visit order nor the block.
 __device__ __forceinline__ void walk_two_level(
     ChunkRows& s_m, const Ray& r, const float* __restrict__ sc_bounds,
     int nsc, const float* __restrict__ chunk_bounds, int scc,
     const float* __restrict__ mu, const float* __restrict__ mv,
     const float* __restrict__ mw, size_t e, int tid, Best& best,
     WalkCounts& cnt) {
-  const int nc = nsc * scc;
   for (int s = 0; s < nsc; ++s) {
-    float tmin, tmax;
-    slab(r, sc_bounds, nsc, s, tmin, tmax);
-    const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
-    // Also the barrier that ends every read of the previous chunk's rows.
-    if (!__syncthreads_or(sc_may)) continue;
-    cnt.sc_entries += 1.f;
-    for (int c = s * scc; c < (s + 1) * scc; ++c) {
-      slab(r, chunk_bounds, nc, c, tmin, tmax);
-      const bool may = sc_may && (tmax >= tmin) && (tmax > 0.f) &&
-                       (tmin <= best.t);
-      if (!__syncthreads_or(may)) continue;
-      stage_chunk(s_m, mu, mv, mw, e, c, tid);
-      __syncthreads();
-      cnt.chunk_sweeps += 1.f;
-      if (!may) continue;
-      cnt.steps += (float)kBT;
-      sweep_closest(s_m, r, c * kBT, best);
-    }
+    walk_superchunk(s_m, r, s, sc_bounds, nsc, chunk_bounds, scc, mu, mv,
+                    mw, e, tid, best, cnt);
   }
 }
 

@@ -51,9 +51,11 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+# One library per source; closest_hit_classic.cu exports two entry points
+# (kernels 8 and 9).
 KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
            "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion",
-           "mega_step", "fused_paths")
+           "mega_step", "fused_paths", "march_step_sc", "closest_hit_classic")
 
 _loaded: dict[str, Library] = {}
 

@@ -5,7 +5,10 @@ Port of the PALLAS traversal of gdpathtracing_tpu/ops/intersect_pallas.py:
 ``prepare_trace_inputs`` (flat and superchunk), ``trace_pallas``,
 ``lite_epilogue``, ``occluded_pallas``, ``trace_occlude_pallas``, their
 differentiable forms ``trace_pallas_diff`` and ``trace_occlude_pallas_diff``
-(``_diff_epilogue``) and ``soft_occluded_pallas``, over six kernels of the
+(``_diff_epilogue``), ``soft_occluded_pallas``, regen's frontier march
+(``march_sweep`` and, as torch ops outside any kernel, like the reference's
+XLA, ``march_next_candidates``, ``march_block_queue`` and
+``march_supported``) and ``trace_pallas_classic``, over nine kernels of the
 TPU package, each here a wrapper that
 
 - on a CUDA tensor launches a hand-written kernel from ``csrc/`` (built by
@@ -27,6 +30,12 @@ its CUDA source (csrc/):
 - ``closest_hit_rows_sc``: ``_kernel_rows_sc``; closest_hit_rows_sc.cu
 - ``soft_occluded``: ``_soft_occlusion_kernel`` (the top-1 blocker of a
   soft shadow ray); soft_occlusion.cu
+- ``march_step_sc``: ``_kernel_sc_march`` (one march round: kernel 3's
+  superchunk walk over each block's queue, from a carried best);
+  march_step_sc.cu
+- ``closest_hit_classic`` and ``closest_hit_loop``: ``_kernel`` and
+  ``_kernel_loop`` (the classic (t, idx) closest hit over the raw chunk
+  boxes, gated per ray and per block); closest_hit_classic.cu
 
 The kernels find; they are not differentiated. Every wrapper, and
 ``prepare_trace_inputs``, runs under ``torch.no_grad()`` and refuses an
@@ -42,7 +51,8 @@ kernel over the unpadded chunks for shadow rays, as the reference does.
 The TPU kernels visit chunks near-to-far from a per-block queue; neither
 the closest-hit winner nor the any-hit answer depends on visit order, so
 every version here walks the chunks in index order (only the ``steps`` row
-and the sweep telemetry see the difference).
+and the sweep telemetry see the difference). Kernel 7 walks the
+superchunks its block's queue names, in queue order, from a carried best.
 """
 
 from __future__ import annotations
@@ -256,15 +266,16 @@ def prepare_trace_inputs(scene: Scene) -> TracePrep:
 
 # Operands the kernels take as int32 (ops/megakernel.py, ops/fused.py);
 # every other operand is float32.
-_INT_OPERANDS = ("istate", "seeds")
+_INT_OPERANDS = ("istate", "seeds", "queue")
 
 
 def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
     """Check the kernel operands named in ``args`` (dtype, device, layout,
     shape) and return (N, E). N rays come from ``o4t`` (or the path state
     ``fstate``), E triangles from ``mu``; the two-level kernels'
-    ``sc_bounds`` hold one box per ``scc`` chunks; the light block ``lt``
-    and the material rows ``mats`` may have any number of rows."""
+    ``sc_bounds`` hold one box per ``scc`` chunks; the light block ``lt``,
+    the material rows ``mats`` and the march ``queue`` may have any
+    length."""
     rays = args["o4t"] if "o4t" in args else args["fstate"]
     mu = args["mu"]
     dev = rays.device
@@ -293,6 +304,7 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
                 sub_bounds=(8, SUB * nc), sc_bounds=(8, nc // scc),
                 mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e),
                 fstate=(FS_R, n), istate=(IS_R, n), seeds=(2, n),
+                init=(2, n), queue=(None,),
                 lt=(None, LT_R), table=(e, TABLE_W), mats=(None, MAT_W))
     for name, x in args.items():
         if x.dim() != len(want[name]) or any(
@@ -308,27 +320,30 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _c_function(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
-    """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` device
-    pointers, ``n_ints`` ints (N, E and any more the kernel takes),
-    ``n_floats`` floats, then the stream; returns a cudaError_t."""
+def _c_function(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
+                source: str | None = None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``): ``n_ptrs`` device pointers, ``n_ints`` ints (N,
+    E and any more the kernel takes), ``n_floats`` floats, then the stream;
+    returns a cudaError_t."""
     from gdpathtracing_torch.ops.build import load_library
 
-    fn = getattr(load_library(name).lib, name)
+    fn = getattr(load_library(source or name).lib, name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
         + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, tensors: tuple, *ints: int, floats: tuple = ()
-            ) -> None:
-    """Launch kernel ``name`` on the current stream (no synchronisation)
-    with the ``tensors``' pointers, the ``ints`` and the ``floats`` (each
-    passed as the float32 nearest to it, as PyTorch takes a Python float
-    into a float32 op); raise if the launch was refused."""
+def _launch(name: str, tensors: tuple, *ints: int, floats: tuple = (),
+            source: str | None = None) -> None:
+    """Launch kernel ``name`` (of ``csrc/<source>.cu``, by default
+    ``<name>.cu``) on the current stream (no synchronisation) with the
+    ``tensors``' pointers, the ``ints`` and the ``floats`` (each passed as
+    the float32 nearest to it, as PyTorch takes a Python float into a
+    float32 op); raise if the launch was refused."""
     dev = tensors[0].device
-    fn = _c_function(name, len(tensors), len(ints), len(floats))
+    fn = _c_function(name, len(tensors), len(ints), len(floats), source)
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in tensors), *ints, *floats,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -392,14 +407,19 @@ class _ClosestWalk:
     matmul, so no TF32), run only on the rays whose gate passed, so
     temporaries are (rays, 256), never (rays, E)."""
 
-    def __init__(self, o4t, d4t):
+    def __init__(self, o4t, d4t, best_t=None, best_e=None):
+        """Rays ``o4t``/``d4t`` (4, N); each ray's best so far is
+        (``best_t``, ``best_e``) when given (a march round's carried best),
+        else no hit (1e9, 0)."""
         n = o4t.shape[1]
         self.o = o4t.unbind(0)
         self.d = d4t.unbind(0)
         self.rd = tuple(_rcp(x) for x in self.d[:3])
         self.best_t = torch.full((n,), _MISS, dtype=torch.float32,
-                                 device=o4t.device)
-        self.best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device)
+                                 device=o4t.device) if best_t is None \
+            else best_t.clone()
+        self.best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device) \
+            if best_e is None else best_e.to(torch.int64, copy=True)
         self.best_u = torch.zeros_like(self.best_t)
         self.best_v = torch.zeros_like(self.best_t)
         self.best_wd = torch.zeros_like(self.best_t)
@@ -632,31 +652,47 @@ class TwoLevelWalk(NamedTuple):
     sc_entries: torch.Tensor    # (N,) superchunks its block entered
     chunk_sweeps: torch.Tensor  # (N,) chunks its block swept
     slab_tests: torch.Tensor    # (N,) slab tests the ray itself needed:
-    #                             every superchunk's, and the chunks' of
-    #                             each superchunk its own test passed
+    #                             every walked superchunk's, and the
+    #                             chunks' of each one its own test passed
+
+    @classmethod
+    def start(cls, walk: _ClosestWalk) -> "TwoLevelWalk":
+        z = torch.zeros_like(walk.best_t)
+        return cls(walk, z, z.clone(), z.clone())
+
+
+def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
+                          mu, mv, mw, scc) -> None:
+    """Plain version of csrc/trace_common.cuh ``walk_superchunk``:
+    superchunk ``s`` for the rays where ``sel`` (N,) is set (a union of
+    whole 256-ray blocks; None: every ray), into ``acc`` in place. A ray
+    sweeps a chunk of ``s`` when its own slab tests against the
+    superchunk's and the chunk's inflated boxes both pass before its best
+    t."""
+    walk = acc.walk
+    sc_may = walk.passes(sc_bounds[:, s])
+    acc.slab_tests.add_(1.0 if sel is None else sel.to(torch.float32))
+    if sel is not None:
+        sc_may &= sel
+    if not bool(sc_may.any()):
+        return
+    acc.sc_entries.add_(_block_any(sc_may))
+    acc.slab_tests.add_(scc * sc_may.to(torch.float32))
+    for c in range(s * scc, (s + 1) * scc):
+        may = sc_may & walk.passes(bounds[:, c])
+        acc.chunk_sweeps.add_(_block_any(may))
+        walk.sweep(c, may, mu, mv, mw)
 
 
 def walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
                          ) -> TwoLevelWalk:
-    """Plain version of csrc/trace_common.cuh ``walk_two_level``:
-    superchunks in index order, then their chunks; a ray sweeps a chunk
-    when its own slab tests against the superchunk's and the chunk's
-    inflated boxes both pass before its best t."""
-    walk = _ClosestWalk(o4t, d4t)
-    sc_entries = torch.zeros_like(walk.best_t)
-    chunk_sweeps = torch.zeros_like(walk.best_t)
-    slab_tests = torch.full_like(walk.best_t, float(sc_bounds.shape[1]))
+    """Plain version of csrc/trace_common.cuh ``walk_two_level``: every
+    superchunk in index order (:func:`walk_superchunk_plain`)."""
+    acc = TwoLevelWalk.start(_ClosestWalk(o4t, d4t))
     for s in range(sc_bounds.shape[1]):
-        sc_may = walk.passes(sc_bounds[:, s])
-        if not bool(sc_may.any()):
-            continue
-        sc_entries += _block_any(sc_may)
-        slab_tests += scc * sc_may.to(torch.float32)
-        for c in range(s * scc, (s + 1) * scc):
-            may = sc_may & walk.passes(bounds[:, c])
-            chunk_sweeps += _block_any(may)
-            walk.sweep(c, may, mu, mv, mw)
-    return TwoLevelWalk(walk, sc_entries, chunk_sweeps, slab_tests)
+        walk_superchunk_plain(acc, s, None, sc_bounds, bounds, mu, mv, mw,
+                              scc)
+    return acc
 
 
 def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
@@ -731,6 +767,177 @@ def closest_hit_rows_sc(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab, scc
 
 
 closest_hit_rows_sc.launches = 0
+
+
+def _sc_lite_fits(prep: TracePrep) -> bool:
+    """Kernel 3's envelope: a superchunk scene whose triangle rows fit
+    ``_SC_RESIDENT_BYTES``, with ``_SC_LITE`` on."""
+    return prep.superchunks and _SC_LITE \
+        and prep.m3_bytes <= _SC_RESIDENT_BYTES
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: one round of regen's frontier march
+# ---------------------------------------------------------------------------
+
+BIG_E = (1 << 24) - 1  # the march's "no winner" eidx: exact in f32 and above
+#                        every real eidx (E < 2^24)
+
+
+def march_supported(prep: TracePrep) -> bool:
+    """The march's gate (port of ``march_supported``): kernel 3's envelope
+    (:func:`_sc_lite_fits`), which the march keeps, as the reference
+    does."""
+    return _sc_lite_fits(prep)
+
+
+def march_step_sc_plain(o4t, d4t, init, queue, sc_bounds, bounds, mu, mv,
+                        mw, scc, counts: dict | None = None) -> torch.Tensor:
+    """Plain version of csrc/march_step_sc.cu: from each ray's carried best
+    ``init`` (2, N), each 256-ray block walks its slots of ``queue`` in
+    order (:func:`walk_superchunk_plain` per real entry; an entry outside
+    [0, nsc) sweeps nothing). (8, N) rows: t, eidx, triangles swept by the
+    ray, superchunks its block entered, 4 zeros. ``counts``, when given,
+    receives the slab tests the rays needed (``"slab_tests"``)."""
+    n, nsc = o4t.shape[1], sc_bounds.shape[1]
+    acc = TwoLevelWalk.start(_ClosestWalk(o4t, d4t, init[0],
+                                          init[1].to(torch.int64)))
+    q = queue.view(n // BN, -1)
+    for j in range(q.shape[1]):
+        col = q[:, j].repeat_interleave(BN)  # slot j of each ray's block
+        for s in torch.unique(q[:, j]).tolist():
+            if 0 <= s < nsc:
+                walk_superchunk_plain(acc, s, col == s, sc_bounds, bounds,
+                                      mu, mv, mw, scc)
+    if counts is not None:
+        counts["slab_tests"] = float(acc.slab_tests.sum())
+    out = torch.zeros((LITE_R, n), dtype=torch.float32, device=o4t.device)
+    out[0], out[1] = acc.walk.best_t, acc.walk.best_e.to(torch.float32)
+    out[2], out[3] = acc.walk.steps, acc.sc_entries
+    return out
+
+
+@torch.no_grad()
+def march_step_sc(o4t, d4t, init, queue, sc_bounds, bounds, mu, mv, mw, scc
+                  ) -> torch.Tensor:
+    """(8, N) lite rows of one march round (port of ``_march_step_sc``):
+    rays ``o4t``/``d4t`` (4, N) start from their carried best ``init``
+    (2, N: t, then eidx as f32; (1e9, ``BIG_E``) for none) and sweep their
+    256-ray block's ``queue`` entries (int32, QL per block) with kernel 3's
+    superchunk walk; the other operands are kernel 3's.
+
+    CUDA tensors launch the kernel (counted in ``march_step_sc.launches``);
+    CPU tensors run the plain version. Anything else raises."""
+    n, e = _check_inputs(scc, o4t=o4t, d4t=d4t, init=init, queue=queue,
+                         sc_bounds=sc_bounds, bounds=bounds, mu=mu, mv=mv,
+                         mw=mw)
+    if queue.shape[0] == 0 or queue.shape[0] % (n // BN):
+        raise ValueError(f"queue has {queue.shape[0]} entries, not a "
+                         f"positive multiple of the {n // BN} blocks")
+    if o4t.device.type == "cpu":
+        return march_step_sc_plain(o4t, d4t, init, queue, sc_bounds, bounds,
+                                   mu, mv, mw, scc)
+    out = torch.empty((LITE_R, n), dtype=torch.float32, device=o4t.device)
+    _launch("march_step_sc", (o4t, d4t, init, queue, sc_bounds, bounds, mu,
+                              mv, mw, out), n, e, scc,
+            queue.shape[0] // (n // BN))
+    march_step_sc.launches += 1
+    return out
+
+
+march_step_sc.launches = 0
+
+
+def march_sweep(prep: TracePrep, ray: Ray, active, b_t, b_e, queue):
+    """One march round over a wavefront of N rays, N % 256 == 0 (port of
+    ``march_sweep``): parks the dead rays, packs the carried best (``b_t``,
+    ``b_e``) and runs :func:`march_step_sc`. Returns (b_t, b_e, triangles
+    swept), the last two int64."""
+    n = ray.o.x.shape[0]
+    if n % BN:
+        raise ValueError(f"the march takes whole 256-ray blocks, not {n}")
+    o4t, d4t = pack_rays(ray, active)
+    init = torch.stack([b_t, b_e.to(torch.float32)])
+    out = march_step_sc(o4t, d4t, init, queue, prep.sc_bounds,
+                        prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
+                        prep.mw_pad, prep.scc)
+    return out[0], out[1].to(torch.int64), out[2].to(torch.int64)
+
+
+@torch.no_grad()
+def march_next_candidates(prep: TracePrep, o, d, alive, m_t, m_sc, b_t,
+                          k: int = 3):
+    """The march's candidate scan (port of ``march_next_candidates``; torch
+    ops, no kernel): each ray's next ``k`` unprocessed superchunks, near to
+    far. Superchunk s is a candidate for a live ray when its slab test
+    against the inflated box passes with slack (tmax + 1e-5·|tmax| + 1e-6
+    >= tmin, tmax > -1e-6), its entry max(tmin, 0) is at most the running
+    best ``b_t`` and (entry, s) comes after the march cursor (``m_t``,
+    ``m_sc``). The reference inserts candidates one superchunk at a time
+    into a sorted k-list, an earlier s first on a tie: that is the k
+    smallest (entry, s) pairs, which a stable sort of the entries (a
+    non-candidate at +inf) gives over all superchunks at once. Returns
+    (es, ss): two k-lists of (N,) tensors (f32 entries, int64 superchunk
+    ids), s == nsc where there is none."""
+    sc = prep.sc_bounds
+    nsc = sc.shape[1]
+
+    def col(x):
+        return x[:, None]
+
+    # (N, nsc): ray i against superchunk s, with the reference's terms.
+    tmin, tmax = _slab(sc, col(o.x), col(o.y), col(o.z), col(_rcp(d.x)),
+                       col(_rcp(d.y)), col(_rcp(d.z)))
+    slack = 1e-5 * torch.abs(tmax) + 1e-6
+    entry = torch.clamp(tmin, min=0.0)
+    s_id = torch.arange(nsc, device=sc.device)
+    ok = (tmax + slack >= tmin) & (tmax > -1e-6) & col(alive) \
+        & (entry <= col(b_t)) \
+        & ((entry > col(m_t)) | ((entry == col(m_t)) & (s_id > col(m_sc))))
+    key, order = torch.sort(torch.where(ok, entry, torch.inf), dim=1,
+                            stable=True)
+    es, ss = [], []
+    for i in range(k):
+        if i < nsc:
+            es.append(key[:, i])
+            ss.append(torch.where(key[:, i] < torch.inf, order[:, i], nsc))
+        else:
+            es.append(torch.full_like(b_t, torch.inf))
+            ss.append(torch.full_like(order[:, 0], nsc))
+    return es, ss
+
+
+def march_block_queue(ns_cols, nsc: int, ql: int):
+    """Each 256-lane block's superchunk queue (port of
+    ``march_block_queue``; torch ops, no kernel) from the lanes' candidate
+    columns ``ns_cols`` (near to far): the first ``ql`` distinct wanted
+    superchunks of the block, filled level by level (every run head of the
+    first column, then of the second, ...; a run of equal ids takes one
+    slot, a repeat across levels takes another, which the sweep's
+    idempotence makes harmless). Returns (queue (N/256 · ql,) int32, with
+    ``nsc`` in the slots left empty; (N,) bool, the lanes whose first
+    column got a slot). The reference's dropped scatter writes go to one
+    sink slot past the end: ranks are distinct within a level and the
+    offsets keep the levels apart, so no two kept writes meet."""
+    nb = ns_cols[0].shape[0] // BN
+    dev = ns_cols[0].device
+    base = (torch.arange(nb, device=dev) * ql)[:, None]
+    sink = nb * ql
+    queue = torch.full((sink + 1,), nsc, dtype=torch.int32, device=dev)
+    off = 0
+    for i, col in enumerate(ns_cols):
+        k = col.reshape(nb, BN)
+        head = torch.ones_like(k, dtype=torch.bool)
+        head[:, 1:] = k[:, 1:] != k[:, :-1]
+        valid = head & (k < nsc)
+        rank = torch.cumsum(valid, dim=1) - 1
+        slot = off + rank
+        idx = torch.where(valid & (slot < ql), base + slot, sink)
+        queue[idx.reshape(-1)] = k.reshape(-1).to(torch.int32)
+        if i == 0:
+            q_ok = (rank >= 0) & (rank < ql) & (k < nsc)
+        off = off + valid.sum(dim=1, keepdim=True)
+    return queue[:sink], q_ok.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -859,6 +1066,113 @@ soft_occluded.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernels 8 and 9: the classic flat closest hit, (t, idx)
+# ---------------------------------------------------------------------------
+
+def _classic_plain(o4t, d4t, bounds, mu, mv, mw, block_gate: bool,
+                   counts: dict | None = None):
+    """The walk of csrc/closest_hit_classic.cu: chunks in index order, each
+    ray gated by its slab test against the raw chunk box with a strict
+    tmin < its best t; the rays that pass sweep the chunk or, with
+    ``block_gate``, every ray of a 256-ray block in which any passes. The
+    chunk's lowest t (ties to the lowest index) replaces the best where it
+    is strictly lower. Returns (t (N,) f32, idx (N,) int32); ``counts``,
+    when given, receives the ray-triangle tests swept (``"tests"``)."""
+    n = o4t.shape[1]
+    o, d = o4t.unbind(0), d4t.unbind(0)
+    rd = tuple(_rcp(x) for x in d[:3])
+    best_t = torch.full((n,), _MISS, dtype=torch.float32, device=o4t.device)
+    best_i = torch.zeros(n, dtype=torch.int64, device=o4t.device)
+    lane = torch.arange(BT, device=o4t.device)
+    tests = 0
+    for c in range(mu.shape[1] // BT):
+        tmin, tmax = _slab(bounds[:, c], *o[:3], *rd)
+        may = (tmax >= tmin) & (tmax > 0.0) & (tmin < best_t)
+        if block_gate:
+            may = _block_any(may) > 0.0
+        idx = torch.nonzero(may).squeeze(1)
+        if idx.numel() == 0:
+            continue
+        tests += idx.numel() * BT
+        u, v, t, _, wd_ok = _uvt(slice(c * BT, (c + 1) * BT), mu, mv, mw,
+                                 tuple(x[idx] for x in o),
+                                 tuple(x[idx] for x in d))
+        valid = wd_ok & (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        t = torch.where(valid, t, _MISS)
+        tk = torch.amin(t, dim=1)
+        k = torch.where(t == tk[:, None], lane, BT).amin(dim=1)
+        better = tk < best_t[idx]
+        sel = idx[better]
+        best_t[sel] = tk[better]
+        best_i[sel] = k[better] + c * BT
+    if counts is not None:
+        counts["tests"] = float(tests)
+    return best_t, best_i.to(torch.int32)
+
+
+def closest_hit_classic_plain(o4t, d4t, bounds, mu, mv, mw, counts=None):
+    """Plain version of csrc/closest_hit_classic.cu ``closest_hit_classic``
+    (kernel 8): only the rays whose own gate passes sweep a chunk."""
+    return _classic_plain(o4t, d4t, bounds, mu, mv, mw, False, counts)
+
+
+def closest_hit_loop_plain(o4t, d4t, bounds, mu, mv, mw, counts=None):
+    """Plain version of csrc/closest_hit_classic.cu ``closest_hit_loop``
+    (kernel 9): every ray of a 256-ray block sweeps a chunk once any ray of
+    the block passes its gate, so the answer depends on the packing."""
+    return _classic_plain(o4t, d4t, bounds, mu, mv, mw, True, counts)
+
+
+def _classic(wrapper, plain, o4t, d4t, bounds, mu, mv, mw):
+    """Kernel 8 or 9 (``wrapper``, whose name is its entry point in
+    csrc/closest_hit_classic.cu) on CUDA tensors, ``plain`` on CPU ones."""
+    n, e = _check_inputs(o4t=o4t, d4t=d4t, bounds=bounds, mu=mu, mv=mv,
+                         mw=mw)
+    if o4t.device.type == "cpu":
+        return plain(o4t, d4t, bounds, mu, mv, mw)
+    t = torch.empty(n, dtype=torch.float32, device=o4t.device)
+    idx = torch.empty(n, dtype=torch.int32, device=o4t.device)
+    _launch(wrapper.__name__, (o4t, d4t, bounds, mu, mv, mw, t, idx), n, e,
+            source="closest_hit_classic")
+    wrapper.launches += 1
+    return t, idx
+
+
+@torch.no_grad()
+def closest_hit_classic(o4t, d4t, bounds, mu, mv, mw):
+    """((N,) f32 t, (N,) int32 idx): the closest hit of rays ``o4t``/
+    ``d4t`` (4, N) over the chunked triangles ``mu``/``mv``/``mw`` (4, E)
+    with the RAW chunk ``bounds`` (8, E/256) (port of ``_closest_hit``,
+    kernel 8): a ray sweeps a chunk when its own slab test passes with
+    tmin < its best t. t 1e9 and idx 0 on a miss.
+
+    CUDA tensors launch the kernel (counted in
+    ``closest_hit_classic.launches``); CPU tensors run the plain version.
+    Anything else raises."""
+    return _classic(closest_hit_classic, closest_hit_classic_plain, o4t,
+                    d4t, bounds, mu, mv, mw)
+
+
+closest_hit_classic.launches = 0
+
+
+@torch.no_grad()
+def closest_hit_loop(o4t, d4t, bounds, mu, mv, mw):
+    """The contract of :func:`closest_hit_classic` with kernel 9's block
+    gate (port of ``_closest_hit_loop``): every ray of a 256-ray block
+    sweeps a chunk once any ray of it passes its gate.
+
+    CUDA tensors launch the kernel (counted in
+    ``closest_hit_loop.launches``); CPU tensors run the plain version.
+    Anything else raises."""
+    return _classic(closest_hit_loop, closest_hit_loop_plain, o4t, d4t,
+                    bounds, mu, mv, mw)
+
+
+closest_hit_loop.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Wavefront wrappers
 # ---------------------------------------------------------------------------
 
@@ -960,8 +1274,7 @@ def trace_pallas(scene: Scene, ray: Ray, active=None,
     o4t, d4t = pack_rays(ray, active)
     if prep is None:
         prep = prepare_trace_inputs(scene)
-    if prep.superchunks and _SC_LITE \
-            and prep.m3_bytes <= _SC_RESIDENT_BYTES:
+    if _sc_lite_fits(prep):
         lite = closest_hit_sc_lite(o4t, d4t, prep.sc_bounds,
                                    prep.chunk_bounds, prep.mu_pad,
                                    prep.mv_pad, prep.mw_pad, prep.scc)[:, :n]
@@ -977,6 +1290,25 @@ def trace_pallas(scene: Scene, ray: Ray, active=None,
         rows = closest_hit_rows(o4t, d4t, prep.bounds, prep.mu, prep.mv,
                                 prep.mw, prep.tab)[:, :n]
     return _hit_from_rows(rows, active)
+
+
+def trace_pallas_classic(scene: Scene, ray: Ray, active=None,
+                         prep: TracePrep | None = None) -> HitInfo:
+    """Closest hit for a wavefront through kernel 8 (port of
+    ``trace_pallas_classic``, the reference's original wrapper, which no
+    frame loop calls): parks dead rays, pads to a multiple of 256, runs
+    :func:`closest_hit_classic` over the raw chunk boxes and takes u, v and
+    front from the winner's ``isect_cols`` row (:func:`lite_epilogue`).
+    ``steps`` is E on every ray."""
+    n = ray.o.x.shape[0]
+    if prep is None:
+        prep = prepare_trace_inputs(scene)
+    o4t, d4t = pack_rays(ray.detach(), active)
+    t, idx = closest_hit_classic(
+        o4t, d4t, scene.isect_chunk_bounds.detach().contiguous(), prep.mu,
+        prep.mv, prep.mw)
+    hit = lite_epilogue(scene, prep, ray, active, t[:n], idx[:n])
+    return hit._replace(steps=torch.full_like(hit.eidx, prep.mu.shape[1]))
 
 
 def occluded_pallas(scene: Scene, ray: Ray, t_max, active=None,

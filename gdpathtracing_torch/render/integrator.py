@@ -100,7 +100,7 @@ def check_supported(scene: Scene, config: RenderConfig) -> None:
     if config.traversal != Traversal.PALLAS:
         oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
         not_ported(f"Traversal.{config.traversal.name}",
-                   3 if oracle else 13)
+                   3 if oracle else 4)
     if config.rr_start > 0:
         not_ported("Russian roulette (rr_start > 0)", 3)
     if scene.has_transmission:

@@ -12,12 +12,19 @@ standard loop (render/integrator.py), and the frame equals that loop's.
 One iteration traces one segment of every live lane (kernel 1, or on a
 scene of more than 16 chunks a superchunk kernel; with NEE also one shadow
 query per lane, kernel 2), shades it and samples the next
-direction. Then the lanes are permuted: live lanes sorted by the Morton
-cell of their origin and the octant of their direction (blocks of similar
-rays sweep fewer chunks), then this iteration's dead, then the lanes that
-were dead before. Finished paths are retired by one contiguous append to
-a column-major log (or, ``regen_retire="scatter"``, written to their
-pixel at once), and the dead tail is refilled from the pool. When the pool
+direction. With ``regen_march=True`` on a superchunk scene that kernel 3
+takes, an iteration is one round of the frontier march instead (kernel 7,
+:func:`ops.intersect.march_sweep`): each 256-lane block sweeps the <= QL
+superchunks its lanes want next, from each lane's carried best, and only
+the lanes whose segment resolved shade; the others keep their state, RNG
+stream position included, for the next round. Then the lanes are
+permuted: live lanes sorted by the Morton cell of their origin and the
+octant of their direction (blocks of similar rays sweep fewer chunks; the
+march sorts by the next two superchunks instead), then this iteration's
+dead, then the lanes that were dead before. Finished paths are retired by
+one contiguous append to a column-major log (or,
+``regen_retire="scatter"``, written to their pixel at once), and the dead
+tail is refilled from the pool. When the pool
 is empty and the live lanes fit, the sorted live prefix moves on at a
 smaller wavefront (the drain), and the log is indexed by path id at the
 end.
@@ -26,8 +33,10 @@ end.
 the log append and the loop condition need with one small ``.tolist()``.
 Lane state is carried as an (17, nw) float32 and a (6, nw) int64 stack, so
 the permute is two gathers; the PCG2D seeds ride the int64 stack as they
-are. Regen's fused NEE, its frontier march, the first-chunk sort key and
-the TPU package's timing hooks are not ported (see check_regen_supported).
+are, and the march adds its cursor and running best (2 rows to each).
+Regen's fused NEE (on flat scenes), the first-chunk sort key (where lanes
+are sorted without the march) and the TPU package's timing hooks are not
+ported (see check_regen_supported).
 """
 
 from __future__ import annotations
@@ -37,7 +46,12 @@ import torch
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
-from gdpathtracing_torch.ops.intersect import (BN, occluded_pallas,
+from gdpathtracing_torch.ops.intersect import (BIG_E, BN, TracePrep,
+                                               lite_epilogue,
+                                               march_block_queue,
+                                               march_next_candidates,
+                                               march_supported, march_sweep,
+                                               occluded_pallas,
                                                prepare_trace_inputs,
                                                trace_pallas)
 from gdpathtracing_torch.render import brdf
@@ -49,15 +63,17 @@ from gdpathtracing_torch.render.integrator import (check_supported,
                                                    not_ported, sample_direct)
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
-from gdpathtracing_torch.render.types import Ray
+from gdpathtracing_torch.render.types import MISS_T, Ray
 from gdpathtracing_torch.scene.scene import Scene
 
 # Rows of the float lane stack ...
 _O, _D, _TP, _RAD = 0, 3, 6, 9          # Vec3 rows start here
 _PREV_PDF, _DEPTH, _NRM = 12, 13, 14
 _LOG_F = [9, 10, 11, 13, 14, 15, 16]    # radiance, depth, normal
+_MT, _BT = 17, 18                       # the march's (m_t, b_t)
 # ... and of the int64 lane stack.
 _SEED, _PID, _BOUNCE, _STEPS, _SEGS = 0, 2, 3, 4, 5
+_MSC, _BE = 6, 7                        # the march's (m_sc, b_e)
 _STEPS_MAX = (1 << 19) - 1  # the log path clamps steps (as the reference)
 
 
@@ -76,17 +92,31 @@ def regen_auto(scene: Scene, config: RenderConfig) -> bool:
             and regen_supported(scene, config))
 
 
-def check_regen_supported(scene: Scene, config: RenderConfig) -> None:
+def use_march(config: RenderConfig, prep: TracePrep) -> bool:
+    """Whether regen marches (the reference's rule): ``regen_march=True``
+    on a scene :func:`ops.intersect.march_supported` takes. Elsewhere the
+    flag is ignored and the frame is the one without it."""
+    return config.regen_march is True and march_supported(prep)
+
+
+def check_regen_supported(scene: Scene, config: RenderConfig,
+                          prep: TracePrep) -> None:
     """Raise NotImplementedError, naming its ROADMAP item (queue 1), for a
-    regen configuration outside the ported slice."""
+    regen option outside the ported slice, where the reference would use
+    it: fused NEE on a flat scene (it renders unfused NEE on a superchunk
+    one), and the first-chunk sort key where lanes are sorted without the
+    march (compaction on, ``sort_rays`` not False; the march's key takes
+    precedence)."""
     check_supported(scene, config)
-    if config.regen_march:
-        not_ported("regen's frontier march (regen_march=True)", 13)
-    if config.regen_sort_key == "chunk":
+    if config.nee and scene.n_lights > 0 and config.regen_fuse_nee \
+            and not prep.superchunks:
+        not_ported("regen's fused NEE (regen_fuse_nee=True)", 5)
+    compact = config.compact_rays is not False
+    if config.regen_sort_key == "chunk" and compact \
+            and config.sort_rays is not False \
+            and not use_march(config, prep):
         not_ported("regen's first-chunk lane sort key "
-                   "(regen_sort_key='chunk')", 14)
-    if config.nee and config.regen_fuse_nee:
-        not_ported("regen's fused NEE (regen_fuse_nee=True)", 14)
+                   "(regen_sort_key='chunk')", 5)
 
 
 def _drain_sizes(config: RenderConfig, nw: int, n_paths: int,
@@ -104,6 +134,16 @@ def _drain_sizes(config: RenderConfig, nw: int, n_paths: int,
     return [dn, dn2] if dn2 < dn else [dn]
 
 
+def march_lane_key(d: Vec3, s0, s1, nsc: int) -> torch.Tensor:
+    """The march's lane key: (next superchunk ``s0``, the one after it
+    ``s1``, each clamped to [0, ``nsc``]) * 8 + the octant of direction
+    ``d``, so the lanes of a block want the same sweeps. int64."""
+    octant = (d.x > 0.0).to(torch.int64) * 4 \
+        + (d.y > 0.0).to(torch.int64) * 2 + (d.z > 0.0).to(torch.int64)
+    return (torch.clamp(s0, 0, nsc) * (nsc + 1)
+            + torch.clamp(s1, 0, nsc)) * 8 + octant
+
+
 def render_radiance_regen(scene: Scene, camera: Camera,
                           config: RenderConfig, frame_index: int = 0,
                           return_stats: bool = False):
@@ -115,8 +155,12 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     ``render_radiance_regen.iterations``."""
     from gdpathtracing_torch.render.renderer import FrameAOVs
 
-    check_regen_supported(scene, config)
     prep = prepare_trace_inputs(scene)
+    check_regen_supported(scene, config, prep)
+    march = use_march(config, prep)
+    if march:
+        QL, MK = int(config.regen_march_ql), int(config.regen_march_k)
+        nsc = prep.sc_bounds.shape[1]
     dev = scene.device
     camera = camera.to(dev)
     w, h = camera.width, camera.height
@@ -147,21 +191,49 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                            morton_octant_key(o, d, cell_lo, cell_span),
                            torch.where(fresh, 1 << 14, 1 << 15))
 
+    def march_candidates(fs, ints, active):
+        """The next MK superchunks of every lane after its march cursor,
+        and the block queues they give."""
+        es, ss = march_next_candidates(prep, Vec3(*fs[_O:_O + 3]),
+                                       Vec3(*fs[_D:_D + 3]), active,
+                                       fs[_MT], ints[_MSC], fs[_BT], k=MK)
+        return es, ss, march_block_queue(ss, nsc, QL)[0]
+
+    def march_sort_key(d: Vec3, alive, fresh, rem_s, ss, advs):
+        """The march's two-level key (:func:`march_lane_key`) for live
+        lanes; then this iteration's dead, then the lanes that were dead
+        before. A freshly resolved lane keeps its stale candidates, a
+        locality proxy until the next scan."""
+        rem2 = ss[1] if MK > 1 else ss[0]
+        for i in range(MK - 2):
+            rem2 = torch.where(advs[i], ss[i + 2], rem2)
+        if MK > 1:
+            rem2 = torch.where(advs[MK - 2], rem_s, rem2)
+        key = march_lane_key(d, rem_s, rem2, nsc)
+        return torch.where(alive, key,
+                           torch.where(fresh, 1 << 22, 1 << 23))
+
     # Lane state: float rows [o3 d3 throughput3 radiance3 prev_pdf depth
-    # normal3], int64 rows [seed2 pid bounce steps segs].
+    # normal3 (m_t b_t)], int64 rows [seed2 pid bounce steps segs (m_sc
+    # b_e)]; the march's cursor (m_t, m_sc) and running best (b_t, b_e)
+    # start at (-inf, -1) and (MISS_T, BIG_E).
     lane = torch.arange(nw, device=dev)
     ray0, seed0 = spawn(lane)
     zero = torch.zeros(nw, dtype=torch.float32, device=dev)
     fs = torch.stack([*ray0.o, *ray0.d, zero + 1.0, zero + 1.0, zero + 1.0,
                       zero, zero, zero, zero - 1.0, zero + camera.far,
-                      zero, zero, zero])
+                      zero, zero, zero]
+                     + ([zero - torch.inf, zero + MISS_T] if march else []))
     izero = torch.zeros(nw, dtype=torch.int64, device=dev)
-    ints = torch.stack([seed0[0], seed0[1], lane, izero, izero, izero])
+    ints = torch.stack([seed0[0], seed0[1], lane, izero, izero, izero]
+                       + ([izero - 1, izero + BIG_E] if march else []))
     # What a fresh path starts with besides its ray and seed.
     spawn_f = fs[_TP:]
     spawn_i = ints[_BOUNCE:]
     active = lane < n_paths
     next_path = nact = min(nw, n_paths)
+    if march:
+        es, ss, queue = march_candidates(fs, ints, active)
 
     if use_log:
         log_f = torch.zeros((len(_LOG_F), n_paths + nw), dtype=torch.float32,
@@ -178,6 +250,9 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     for k, size in enumerate(stages):
         # A drain stage takes over the live prefix of the sorted lanes.
         fs, ints, active = fs[:, :size], ints[:, :size], active[:size]
+        if march and k > 0:  # ... and re-queues from its candidates
+            es, ss = [x[:size] for x in es], [x[:size] for x in ss]
+            queue = march_block_queue(ss, nsc, QL)[0]
         threshold = stages[k + 1] if k + 1 < len(stages) else 0
         lane = torch.arange(size, device=dev)
         while next_path < n_paths or nact > threshold:
@@ -193,10 +268,47 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
             # ---- one path segment: the standard loop's body ----
             r = Ray(ray_o, ray_d)
-            hit = trace_pallas(scene, r, active, prep)
-            steps = steps + torch.where(active, hit.steps, 0)
-            is_hit = hit.hit & active
-            segs = segs + active.to(torch.int64)
+            if march:
+                # One march round: sweep each block's queued superchunks
+                # into the carried best, advance each lane's cursor
+                # through every candidate its block's queue swept, and
+                # resolve the segment where no candidate left can beat the
+                # running best (rem_e > b_t: an exact-entry tie still
+                # sweeps, which keeps the lexicographic winner).
+                m_t, b_t = fs[_MT], fs[_BT]
+                m_sc, b_e = ints[_MSC], ints[_BE]
+                b_t, b_e, tsteps = march_sweep(prep, r, active, b_t, b_e,
+                                               queue)
+                qr = queue.view(-1, 1, QL).expand(-1, BN, QL).reshape(
+                    size, QL)
+                advs, prev = [], active
+                for i in range(MK):
+                    prev = prev & (ss[i] < nsc) \
+                        & (qr == ss[i][:, None]).any(dim=1)
+                    advs.append(prev)
+                for i in range(MK):
+                    m_t = torch.where(advs[i], es[i], m_t)
+                    m_sc = torch.where(advs[i], ss[i], m_sc)
+                rem_e, rem_s = es[0], ss[0]
+                for i in range(MK - 1):
+                    rem_e = torch.where(advs[i], es[i + 1], rem_e)
+                    rem_s = torch.where(advs[i], ss[i + 1], rem_s)
+                # A lane that advanced through all MK cannot prove it is
+                # done: the next scan finds its frontier.
+                shade = active & ~advs[MK - 1] \
+                    & ((rem_s >= nsc) | (rem_e > b_t))
+                hit = lite_epilogue(scene, prep, r, shade, b_t,
+                                    b_e.to(torch.int32))
+            else:
+                hit = trace_pallas(scene, r, active, prep)
+                shade, tsteps = active, hit.steps
+            # `shade`: the lanes whose segment resolved this iteration
+            # (all active lanes without the march). Only they shade, draw
+            # random numbers and count a segment.
+            steps = steps + torch.where(active, tsteps, 0)
+            seed_before = seed
+            is_hit = hit.hit & shade
+            segs = segs + shade.to(torch.int64)
 
             s = get_shading_data(scene, hit, r)
             sky = sample_sky(ray_d, config, scene)
@@ -204,7 +316,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             if use_nee:
                 emission = mis_emission(scene, prep.lights, hit, r.d,
                                         emission, is_hit, prev_pdf)
-            rad = vwhere(active, rad + tp * emission, rad)
+            rad = vwhere(shade, rad + tp * emission, rad)
 
             if use_nee:
                 dl, seed = sample_direct(s, tp, is_hit, seed, prep.lights,
@@ -228,20 +340,37 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             scale = torch.where(pdf > 1e-12,
                                 lambert_in / torch.clamp(pdf, min=1e-12), 0.0)
             survive = is_hit & (lambert_in > 0.0) & (pdf > 1e-12)
+            if march:
+                # A pending lane keeps its stream position.
+                seed = (torch.where(shade, seed[0], seed_before[0]),
+                        torch.where(shade, seed[1], seed_before[1]))
             ray_o = vwhere(survive, s.position + s.normal * config.ray_eps,
                            ray_o)
             ray_d = vwhere(survive, new_dir, ray_d)
             tp = vwhere(survive, tp * (f * scale), tp)
-            prev_pdf = torch.where(survive, pdf, -1.0)
-            bounce = bounce + active.to(torch.int64)
-            alive = active & survive & (bounce < config.bounces)
+            if march:
+                prev_pdf = torch.where(survive, pdf,
+                                       torch.where(shade, -1.0, prev_pdf))
+                bounce = bounce + shade.to(torch.int64)
+                alive = (active & ~shade) \
+                    | (survive & (bounce < config.bounces))
+                # A resolved lane starts a new march (or retires).
+                b_t = torch.where(shade, MISS_T, b_t)
+                b_e = torch.where(shade, BIG_E, b_e)
+                m_t = torch.where(shade, -torch.inf, m_t)
+                m_sc = torch.where(shade, -1, m_sc)
+            else:
+                prev_pdf = torch.where(survive, pdf, -1.0)
+                bounce = bounce + active.to(torch.int64)
+                alive = active & survive & (bounce < config.bounces)
             dead_now = active & ~alive
             n_alive, n_fresh = torch.stack(
                 [alive.sum(), dead_now.sum()]).tolist()
 
             fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
-                              *normal1])
-            ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs])
+                              *normal1] + ([m_t, b_t] if march else []))
+            ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
+                               + ([m_sc, b_e] if march else []))
             if not use_log:  # retire finished paths to their slot at once
                 slot = torch.where(dead_now, pid, n_paths)
                 out_f[:, slot] = fs[_LOG_F]
@@ -249,7 +378,11 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
             # ---- permute: live | freshly dead | dead before ----
             if compact:
-                if sort_lanes:
+                if sort_lanes and march:
+                    perm = torch.argsort(march_sort_key(
+                        ray_d, alive, dead_now, rem_s, ss, advs),
+                        stable=True)
+                elif sort_lanes:
                     perm = torch.argsort(
                         lane_sort_key(ray_o, ray_d, alive, dead_now),
                         stable=True)
@@ -287,6 +420,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             fs = torch.where(can, fresh_f, fs)
             ints = torch.where(can, fresh_i, ints)
             active = alive | can
+            if march:  # the next round's candidates and queues
+                es, ss, queue = march_candidates(fs, ints, active)
             nact = n_alive + min(size - n_alive, n_paths - next_path)
             next_path = min(next_path + size - n_alive, n_paths)
             iters += 1

@@ -207,6 +207,100 @@ def test_superchunk_render_cuda_matches_cpu(grid, regen, nee):
     assert same.float().mean() >= (0.99 if nee else 1.0)
 
 
+def _march_args(grid, n, carried):
+    """Kernel 7's operands on the mid grid: the random rays of _sc_rays,
+    queues from the march's own candidate scan (sentinels and repeats
+    among them) and, with ``carried``, the best of a first round."""
+    from gdpathtracing_torch.core.vec import Vec3
+    o4, d4 = _sc_rays(n)
+    nsc = grid.sc_bounds.shape[1]
+    live = o4[0] < 1e8
+    _, ss = ti.march_next_candidates(
+        grid, Vec3(*o4[:3]), Vec3(*d4[:3]), live,
+        torch.full((n,), -torch.inf, device="cuda"),
+        torch.full((n,), -1, dtype=torch.int64, device="cuda"),
+        torch.full((n,), 1e9, device="cuda"), k=6)
+    queue = ti.march_block_queue(ss, nsc, 8)[0]
+    init = torch.stack([torch.full((n,), 1e9, device="cuda"),
+                        torch.full((n,), float(ti.BIG_E), device="cuda")])
+    geo = (grid.sc_bounds, grid.chunk_bounds, grid.mu_pad, grid.mv_pad,
+           grid.mw_pad, grid.scc)
+    if carried:
+        init = ti.march_step_sc_plain(o4, d4, init, queue, *geo)[:2]
+        queue = ti.march_block_queue(ss[1:], nsc, 8)[0]
+    return (o4, d4, init.contiguous(), queue) + geo
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["spawn", "carried"])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_march_step_kernel_matches_plain(grid, n, carried):
+    args = _march_args(grid, n, carried)
+    before = ti.march_step_sc.launches
+    got = ti.march_step_sc(*args)
+    torch.cuda.synchronize()
+    assert ti.march_step_sc.launches == before + 1
+    want = ti.march_step_sc_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[0] < ti._MISS).any()
+    # A queue of every superchunk from no winner is kernel 3.
+    nsc = grid.sc_bounds.shape[1]
+    full = torch.arange(nsc, dtype=torch.int32, device="cuda").repeat(
+        n // ti.BN)
+    init = torch.stack([torch.full((n,), 1e9, device="cuda"),
+                        torch.full((n,), float(ti.BIG_E), device="cuda")])
+    one = ti.march_step_sc(*args[:2], init, full, *args[4:])
+    lite = ti.closest_hit_sc_lite(*args[:2], *args[4:])
+    assert torch.equal(one[[0, 2, 3]], lite[[0, 2, 3]])
+
+
+@pytest.mark.parametrize("kernel", ["classic", "loop"])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_classic_kernels_match_plain(scene, n, kernel):
+    """Kernels 8 and 9 against their plain versions on the demo's raw chunk
+    boxes: t bit for bit, idx equal."""
+    s = scene.to("cuda")
+    prep = ti.prepare_trace_inputs(s)
+    o4, d4 = _rays(n, 0)
+    args = (o4.cuda(), d4.cuda(), s.isect_chunk_bounds.contiguous(),
+            prep.mu, prep.mv, prep.mw)
+    fn = ti.closest_hit_classic if kernel == "classic" \
+        else ti.closest_hit_loop
+    plain = ti.closest_hit_classic_plain if kernel == "classic" \
+        else ti.closest_hit_loop_plain
+    before = fn.launches
+    t, idx = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want_t, want_i = plain(*args)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(idx, want_i) and (t < ti._MISS).any()
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
+def test_march_render_cuda_matches_cpu(grid, nee):
+    """Regen with the march (kernel 7) on the mid grid: the card's frame
+    equals the card's no-march frame bit for bit, and the CPU's within the
+    image tolerance (segments on >= 99% of the agreeing pixels with NEE,
+    as test_superchunk_render_cuda_matches_cpu allows)."""
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    scene = build_sphere_grid(n=4, sphere_detail=12, device="cpu")
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen=True, nee=nee,
+                       bounces=4, regen_march=True)
+    cam = grid_camera(48, 32, n=4)
+    before = ti.march_step_sc.launches
+    a = render_radiance(scene.to("cuda"), cam, cfg, 3)
+    assert ti.march_step_sc.launches > before
+    b = render_radiance(scene, cam, cfg, 3)
+    c = render_radiance(scene.to("cuda"), cam, cfg.replace(regen_march=False),
+                        3)
+    for k in ("radiance", "depth", "segments", "normal"):
+        assert torch.equal(getattr(a, k), getattr(c, k)), k
+    ok = (torch.abs(a.radiance.cpu() - b.radiance) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= 0.99
+    same = a.segments.cpu()[ok] == b.segments[ok]
+    assert same.float().mean() >= (0.99 if nee else 1.0)
+
+
 def _soft_args(scene, n, device):
     """Kernel 5's operands: random shadow rays with limits in (0, 6), a
     quarter of them parked (limit 0), over the soft-inflated chunk boxes

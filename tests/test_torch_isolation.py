@@ -4,7 +4,8 @@ gdpathtracing_torch (diff/ and scene/dynamic.py among them) and renders
 16x16 frames: the standard loop, the default regeneration loop with NEE,
 a differentiable render with soft shadows through diff/'s re-posed
 instances, whose transform gradient it takes, and the path kernels'
-traversals (MEGA with NEE, FUSED)."""
+traversals (MEGA with NEE, FUSED); and a 16x12 frame of the mid grid
+through regen's frontier march (kernel 7's plain version)."""
 
 from __future__ import annotations
 
@@ -55,6 +56,16 @@ for cfg in (RenderConfig(traversal=Traversal.MEGA, nee=True, bounces=2),
     assert k.radiance.shape == (16, 16, 3)
     assert bool(torch.isfinite(k.radiance).all())
     assert int(k.segments.sum()) >= 16 * 16
+from gdpathtracing_torch.ops import intersect as ti
+from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+mid = build_sphere_grid(n=4, sphere_detail=12, device="cpu")
+march = RenderConfig(traversal=Traversal.PALLAS, bounces=2, regen_march=True)
+plain = ti.march_step_sc_plain
+rounds = []
+ti.march_step_sc_plain = lambda *a: rounds.append(1) or plain(*a)
+m = render_radiance(mid, grid_camera(16, 12, n=4), march)
+assert rounds and bool(torch.isfinite(m.radiance).all())
+assert int(m.segments.sum()) >= 16 * 12
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
           or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
 assert not leaked, leaked

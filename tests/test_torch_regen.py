@@ -157,6 +157,12 @@ def test_golden_nee_16(scene):
 
 
 def test_regen_gate(scene):
+    """What regen refuses, and where it ignores an option as the reference
+    does: ``regen_march=True`` on the flat demo renders the frame without
+    it (march_supported is false); fused NEE on a flat scene and the
+    first-chunk key on sorted lanes raise, naming ROADMAP queue 1, item
+    5; a BVH render names item 4 (tests/test_torch_march.py renders the
+    march and the options' fallbacks)."""
     cam = demo_camera(8, 8)
     with pytest.raises(ValueError, match="regen"):
         render_radiance(scene, cam, BASE.replace(regen=True,
@@ -164,3 +170,14 @@ def test_regen_gate(scene):
     with pytest.raises(NotImplementedError, match="item 3"):
         render_radiance(scene, cam, BASE.replace(
             regen=True, traversal=Traversal.BRUTE))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        render_radiance(scene, cam, BASE.replace(
+            regen=False, traversal=Traversal.BVH))
+    for change in (dict(nee=True, regen_fuse_nee=True),
+                   dict(regen_sort_key="chunk"),
+                   dict(regen_march=True, regen_sort_key="chunk")):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            render_radiance(scene, cam, BASE.replace(regen=True, **change))
+    march = render_radiance(scene, cam, BASE.replace(regen_march=True), 1)
+    for a, b in zip(march, render_radiance(scene, cam, BASE, 1)):
+        assert torch.equal(a, b)

@@ -21,8 +21,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bench (n=10, 96256 triangles), and kernel 6 (two-level closest hit
      with rows) on the n=14 grid (188416 triangles, over the reference's
      8 MiB lite threshold): each on the middle 1080p tile's primary rays,
-     then one bounce from their hits; and on the grid tile, kernel 3 with
-     the lite epilogue against kernel 6 (``_SC_LITE`` off);
+     then one bounce from their hits, with the thread-slots their
+     block-cooperative walk spends against one thread per ray's; and on
+     the grid tile, kernel 3 with the lite epilogue against kernel 6
+     (``_SC_LITE`` off);
    - kernel 7 (one round of regen's frontier march) on the grid's middle
      tile, its lanes in the march's sort order and queued by the march's
      own candidate scan: primary rays from the spawn state, a second round
@@ -78,7 +80,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    and without NEE and FUSED among them) and for grid regen with and
    without NEE and with and without the march, and compares each pair;
    the same for the differentiable demo's albedo gradient and its
-   soft-shadow transform gradient.
+   soft-shadow transform gradient;
+5. runs the GPU-only tests (``pytest -m cuda tests/test_torch_cuda.py``),
+   among them kernels 3 and 6 against their plain versions on adversarial
+   ray sets of the bench grid and at exact ties.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -520,12 +525,19 @@ def main() -> None:
             work = ti.walk_two_level_plain(*geo, gprep.scc)
             needed = float(work.walk.steps.sum())
             slabs = float(work.slab_tests.sum())
-            spent = float(work.chunk_sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+            # Thread-slots: the kernel's block-cooperative mapping (a warp
+            # per needing ray, or its own thread where the needing warps
+            # are nearly full: ti.two_level_slots), beside a thread per
+            # ray with every lane of the block on each staged chunk.
+            spent = float(work.slots[::ti.BN].sum())
+            spent_1 = float(work.chunk_sweeps[::ti.BN].sum()) * ti.BN * ti.BT
             k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
             p = cuda_ms(lambda: pfn(*args), GRID_PLAIN_ITERS, torch)
             log(f"  {needed:.4g} ray-triangle tests and {slabs:.4g} slab "
                 f"tests needed, {spent:.4g} thread-slots swept "
-                f"({needed / max(spent, 1.0):.3f} useful)")
+                f"({needed / max(spent, 1.0):.3f} useful; a thread per "
+                f"ray: {spent_1:.4g}, {needed / max(spent_1, 1.0):.3f} "
+                f"useful)")
             record(kname, err, k, p, *bound(
                 needed, slabs, two_level_bytes(gprep, n, 8 if lite else
                                                ti.OUT_R, not lite)))
@@ -1172,6 +1184,23 @@ def main() -> None:
             f"component")
         check(bool(torch.isfinite(ga).all()) and rel <= 0.05,
               f"{what}: the {param} gradients differ by {rel:.3g}")
+
+    # -- 5. the GPU-only tests -----------------------------------------------
+    # Among them kernels 3 and 6 on adversarial ray sets of the bench grid
+    # (one needing ray a block, a block's 256 rays on one chunk, winners at
+    # either end of a chunk, parked rays, exact ties), with the kernels
+    # this run built (the same sources, so the same build directory).
+    phase("5. the GPU-only tests")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    summary = (tests.stdout.strip().splitlines() or [""])[-1]
+    log(f"pytest -m cuda tests/test_torch_cuda.py: {summary}")
+    check(tests.returncode == 0 and "passed" in summary
+          and "skipped" not in summary,
+          f"the GPU-only tests failed (rc {tests.returncode}):\n"
+          f"{tests.stdout[-4000:]}{tests.stderr[-2000:]}")
 
     phase("done")
     check(not any(m == "gdpathtracing_tpu" or m.startswith(

@@ -26,7 +26,14 @@
 // `_SC_RESIDENT_BYTES`).
 //
 // What bounds it on the H100: arithmetic, as kernel 3; bytes add the 40
-// table rows of each winner and 48 floats a ray out.
+// table rows of each winner and 48 floats a ray out (the n=14 grid's 8.63
+// MiB of rows stay in the 50 MB L2). As in kernel 3, one thread per ray
+// would spend most thread-slots on lanes whose ray does not need the
+// staged chunk (on n=14 grid bounce rays, 92%). The design is kernel 3's
+// block-cooperative walk: a warp per needing ray (a thread per ray where
+// the needing warps are nearly full) and the rows double-buffered by
+// cp.async; the winner's u, v and w_d stay in the lane that found it,
+// which merges them into the ray's best.
 
 #include "trace_common.cuh"
 
@@ -34,7 +41,7 @@ namespace {
 
 using namespace gdpt;
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 closest_hit_rows_sc_kernel(const float* __restrict__ o4,
                            const float* __restrict__ d4,
                            const float* __restrict__ sc_bounds,
@@ -44,19 +51,18 @@ closest_hit_rows_sc_kernel(const float* __restrict__ o4,
                            const float* __restrict__ mw,
                            const float* __restrict__ tab,
                            float* __restrict__ out, int n, int e, int scc) {
-  __shared__ ChunkRows s_m;
+  __shared__ TwoLevelShared sh;
 
   const int nsc = e / (kBT * scc);
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, (size_t)n, ray);
 
-  Best best = no_hit();
   WalkCounts cnt{0.f, 0.f, 0.f};
-  walk_two_level(s_m, r, sc_bounds, nsc, bounds, scc, mu, mv, mw, (size_t)e,
-                 tid, best, cnt);
-  write_rows(out, tab, (size_t)n, (size_t)e, ray, best, cnt.steps,
-             cnt.sc_entries, cnt.chunk_sweeps);
+  walk_two_level(sh, r, sc_bounds, nsc, bounds, scc, mu, mv, mw, (size_t)e,
+                 tid, cnt);
+  write_rows(out, tab, (size_t)n, (size_t)e, ray, two_level_best(sh, tid),
+             cnt.steps, cnt.sc_entries, cnt.chunk_sweeps);
 }
 
 }  // namespace

@@ -26,12 +26,22 @@
 // is six 4-term dot products, one IEEE division and the edge tests; each
 // ray also slab-tests every superchunk and the chunks of those it enters.
 // Device memory carries the rays in, the 12 KB rows of each chunk a block
-// stages, and 8 floats a ray out.
-// The design, kept simple: one thread per ray, 256-ray blocks, superchunks
-// and their chunks in index order. `__syncthreads_or` skips a superchunk
-// no ray of the block enters, then a chunk no ray of it needs; a needed
-// chunk is staged in shared memory (every thread reads the same triangle
-// at once, a broadcast) and swept with the closest-hit sweep of kernel 1.
+// stages (the grid's 4.41 MiB stay in the 50 MB L2), and 8 floats a ray
+// out. What keeps a walk with one thread per ray far from that bound is
+// the mapping: a warp with one needing lane runs all 256 triangles while
+// its other lanes idle (on grid bounce rays a tenth of the thread-slots
+// do a needed test), and each staged chunk is a synchronous copy between
+// two barriers.
+// The design: the block-cooperative walk of trace_common.cuh
+// (walk_two_level). The visit order, the gates and the counts are those
+// of one thread per ray; for each chunk the block lists the rays that
+// need it, and a warp sweeps each listed ray, a lane per 8 of the 256
+// triangles, with a shuffle reduction to the lowest (t, eidx); where the
+// needing warps are nearly full the ray's own thread sweeps instead. The
+// rows arrive by cp.async into a double buffer, the next candidate chunk
+// while the current one is swept. A lane's 8 tests are unrolled, which
+// takes more than 64 registers: 3 blocks of 256 an SM, 38 KB of shared
+// memory each.
 // What the TPU kernel needed only on the TPU is left out: the per-block
 // near-to-far superchunk queue, its sentinel decode, the static unroll and
 // the VMEM-resident triangle rows.
@@ -44,7 +54,7 @@ using namespace gdpt;
 
 constexpr int kLiteR = 8;  // output rows
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 closest_hit_sc_lite_kernel(const float* __restrict__ o4,
                            const float* __restrict__ d4,
                            const float* __restrict__ sc_bounds,
@@ -53,17 +63,17 @@ closest_hit_sc_lite_kernel(const float* __restrict__ o4,
                            const float* __restrict__ mv,
                            const float* __restrict__ mw,
                            float* __restrict__ out, int n, int e, int scc) {
-  __shared__ ChunkRows s_m;
+  __shared__ TwoLevelShared sh;
 
   const int nsc = e / (kBT * scc);
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, (size_t)n, ray);
 
-  Best best = no_hit();
   WalkCounts cnt{0.f, 0.f, 0.f};
-  walk_two_level(s_m, r, sc_bounds, nsc, bounds, scc, mu, mv, mw, (size_t)e,
-                 tid, best, cnt);
+  walk_two_level(sh, r, sc_bounds, nsc, bounds, scc, mu, mv, mw, (size_t)e,
+                 tid, cnt);
+  const Best best = two_level_best(sh, tid);
 
   const size_t nn = (size_t)n;
   out[ray] = best.t;

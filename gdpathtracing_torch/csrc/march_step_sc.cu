@@ -20,12 +20,13 @@
 //
 // Winner: the lowest (t, eidx) pair over the carried best and the
 // triangles of the queued superchunks whose superchunk and chunk both pass
-// the ray's OWN slab test (trace_common.cuh walk_superchunk, kernel 3's
-// walk of one superchunk). The march visits superchunks near to far, not
-// in index order, so a carried best can hold a larger eidx at the same t
-// than a triangle swept now: sweep_closest's tie clause (equal t, lower
-// eidx) keeps the winner the one the one-shot walk finds. Sweeps are
-// idempotent, so a duplicate queue entry changes nothing but row 2.
+// the ray's OWN slab test (trace_common.cuh walk_superchunk: kernel 3's
+// gates over one superchunk, one thread per ray). The march visits
+// superchunks near to far, not in index order, so a carried best can hold
+// a larger eidx at the same t than a triangle swept now: sweep_closest's
+// tie clause (equal t, lower eidx) keeps the winner the one the one-shot
+// walk finds. Sweeps are idempotent, so a duplicate queue entry changes
+// nothing but row 2.
 //
 // What bounds it on the H100: arithmetic, as kernel 3: each needed
 // (ray, triangle) test is six 4-term dot products, one IEEE division and

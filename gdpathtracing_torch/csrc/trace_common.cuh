@@ -2,8 +2,9 @@
 // occlusion.cu, closest_hit_rows_nee.cu, closest_hit_sc_lite.cu,
 // closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
-// and fused_paths.cu): one thread per ray, 256-ray blocks, chunks of 256
-// triangles staged in shared memory.
+// and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
+// shared memory, one thread per ray; in the two-level walk of kernels 3
+// and 6 (walk_two_level) also a warp per ray that needs a chunk.
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -184,7 +185,9 @@ struct WalkCounts {
   float steps, sc_entries, chunk_sweeps;
 };
 
-// Superchunk `s` of the two-level closest-hit walk (kernels 3, 6 and 7):
+// Superchunk `s` of the two-level closest-hit walk, one thread per ray
+// (kernel 7; kernels 3 and 6 walk the same way block-cooperatively,
+// walk_two_level):
 // s holds the `scc` consecutive chunks s*scc .. s*scc + scc - 1. A ray
 // sweeps chunk c when its own slab tests against the inflated box of s
 // and of c itself both pass (tmax >= tmin, tmax > 0, tmin <= its best t
@@ -219,19 +222,245 @@ __device__ __forceinline__ void walk_superchunk(
   }
 }
 
-// Two-level closest-hit walk (closest_hit_sc_lite.cu, closest_hit_rows_sc.cu)
-// over the nsc superchunks in index order (walk_superchunk each). The
-// winner depends on neither the visit order nor the block.
+// ---------------------------------------------------------------------------
+// The block-cooperative two-level walk (kernels 3 and 6)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kBN / 32;       // warps per block
+constexpr int kPerLane = kBT / 32;     // triangles a lane tests for one ray
+constexpr unsigned kFull = 0xffffffffu;
+
+// Asynchronous 4-byte copy from device to shared memory (cp.async; no
+// register holds the value, and any float pointer is aligned for it).
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Waits for this thread's cp.async copies; a barrier then makes every
+// thread's copies visible to the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts the copy of chunk c's 12 rows into `dst`: each thread its column,
+// as stage_chunk, without waiting.
+__device__ __forceinline__ void stage_chunk_async(
+    ChunkRows& dst, const float* __restrict__ mu,
+    const float* __restrict__ mv, const float* __restrict__ mw, size_t e,
+    int c, int tid) {
+  const size_t col = (size_t)c * kBT + tid;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    cp_async4(&dst[k][tid], mu + k * e + col);
+    cp_async4(&dst[4 + k][tid], mv + k * e + col);
+    cp_async4(&dst[8 + k][tid], mw + k * e + col);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// What the block shares during the walk (38 KB): the staged rows, double
+// buffered; every ray's o and d and its best so far; and two slots of
+// per-warp vote words (a vote writes slot v & 1, so the next vote never
+// overwrites a slot a slow thread still reads: the two are a barrier
+// apart).
+struct TwoLevelShared {
+  ChunkRows rows[2];
+  float4 o[kBN], d[kBN];
+  float bt[kBN], bu[kBN], bv[kBN], bwd[kBN];
+  int be[kBN];
+  unsigned vote[2][kWarps];
+};
+
+// Closest hit of ray `ray` (o, d in `sh`) against the staged chunk `rows`
+// whose first triangle is `base`, by one warp: lane l tests triangles l,
+// l + 32, ..., l + 224 and keeps its lowest (t, j); five xor shuffles find
+// the warp's lowest; the lane that holds it merges it into the ray's best.
+// A candidate counts when it is valid and t < 1e9, ties on t go to the
+// lower index, and the merge takes t < best t or an equal t with a lower
+// eidx: the minimum of a total order, the winner sweep_closest finds in
+// any grouping, so t, eidx, u, v and w_d come out bit-equal.
+__device__ __forceinline__ void sweep_closest_warp(TwoLevelShared& sh,
+                                                   const ChunkRows& rows,
+                                                   int ray, int base,
+                                                   int lane) {
+  const float4 o = sh.o[ray], d = sh.d[ray];
+  const Ray r{o.x, o.y, o.z, o.w, d.x, d.y, d.z, d.w, 0.f, 0.f, 0.f};
+  float bt = kMiss, bu = 0.f, bv = 0.f, bwd = 0.f;
+  int bj = kBT;
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    const int j = lane + 32 * q;
+    const Uvt h = intersect(rows, r, j);
+    const bool valid = h.wd_ok && (h.t > 0.f) && (h.u >= 0.f) &&
+                       (h.v >= 0.f) && (h.u + h.v <= 1.f);
+    if (valid && h.t < bt) {  // j rises: an equal t keeps the lower j
+      bt = h.t;
+      bu = h.u;
+      bv = h.v;
+      bwd = h.wd;
+      bj = j;
+    }
+  }
+  float t = bt;
+  int j = bj;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, t, m);
+    const int oj = __shfl_xor_sync(kFull, j, m);
+    if (ot < t || (ot == t && oj < j)) {
+      t = ot;
+      j = oj;
+    }
+  }
+  // Every lane holds the warp's lowest (t, j) now; lane j % 32 found it.
+  if (t < kMiss && lane == (j & 31)) {
+    const int e = base + j;
+    if (t < sh.bt[ray] || (t == sh.bt[ray] && e < sh.be[ray])) {
+      sh.bt[ray] = t;
+      sh.bu[ray] = bu;
+      sh.bv[ray] = bv;
+      sh.bwd[ray] = bwd;
+      sh.be[ray] = e;
+    }
+  }
+}
+
+// The ray of entry i of a chunk's list of needing rays: the i-th set bit
+// over the block's eight warp ballots `need`, in ray order. Every lane of
+// the warp calls it with the same i and gets the same ray.
+__device__ __forceinline__ int needing_ray(const unsigned* need, int i,
+                                           int lane) {
+  int w = 0;
+  for (int c = __popc(need[0]); i >= c; c = __popc(need[++w])) i -= c;
+  const unsigned m = need[w];
+  const bool mine =
+      ((m >> lane) & 1u) && __popc(m & ((1u << lane) - 1u)) == i;
+  return w * 32 + __ffs(__ballot_sync(kFull, mine)) - 1;
+}
+
+// Two-level closest-hit walk of kernels 3 and 6, block-cooperative. The
+// visit order, the gates and the counts are walk_superchunk's, superchunk
+// by superchunk in index order: a ray needs chunk c of superchunk s when
+// its own slab tests against the inflated boxes of s and c both pass
+// (tmax >= tmin, tmax > 0, tmin <= its best t so far); the block enters s
+// when one of its rays passes s's test, and stages c when one of them
+// needs it. What differs is who sweeps a staged chunk:
+//   - the block lists the k rays that need the chunk (a ballot per warp;
+//     entry i is the i-th needing ray in ray order);
+//   - warp w sweeps entries w, w + 8, ... a ray at a time
+//     (sweep_closest_warp), so a lane tests a triangle for a ray that
+//     needs it; but where the warps with a needing ray are more than 7/8
+//     full (8k > 7 * 32 * those warps), the ray's own thread sweeps all
+//     256 triangles (sweep_closest), which then spends fewer instructions
+//     than k warp sweeps and their reductions. The two give the same bits;
+//   - the rows arrive by cp.async into one of two buffers: the first
+//     candidate chunk of s is requested when the block enters s, and each
+//     next candidate while the current chunk is swept. A candidate is a
+//     chunk of s that some ray of the block enters under the test without
+//     the best-t cut (its needing rays are a subset of those), so a chunk
+//     no ray can need costs nothing, and a candidate the cut removes costs
+//     one read of its rows from L2.
+// Every thread calls it with its own ray `r` (stored in `sh` with its best
+// by the walk); the winner is read from `sh` after it returns.
 __device__ __forceinline__ void walk_two_level(
-    ChunkRows& s_m, const Ray& r, const float* __restrict__ sc_bounds,
+    TwoLevelShared& sh, const Ray& r, const float* __restrict__ sc_bounds,
     int nsc, const float* __restrict__ chunk_bounds, int scc,
     const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid, Best& best,
-    WalkCounts& cnt) {
+    const float* __restrict__ mw, size_t e, int tid, WalkCounts& cnt) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nc = nsc * scc;
+  sh.o[tid] = make_float4(r.ox, r.oy, r.oz, r.ow);
+  sh.d[tid] = make_float4(r.dx, r.dy, r.dz, r.dw);
+  sh.bt[tid] = kMiss;
+  sh.bu[tid] = sh.bv[tid] = sh.bwd[tid] = 0.f;
+  sh.be[tid] = 0;
+  int v = 0;    // votes taken
+  int buf = 0;  // the buffer the next chunk's rows go to
   for (int s = 0; s < nsc; ++s) {
-    walk_superchunk(s_m, r, s, sc_bounds, nsc, chunk_bounds, scc, mu, mv,
-                    mw, e, tid, best, cnt);
+    float tmin, tmax;
+    slab(r, sc_bounds, nsc, s, tmin, tmax);
+    const bool sc_may =
+        (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+    // Also the barrier after which every best of the last sweep is seen.
+    if (!__syncthreads_or(sc_may)) continue;
+    cnt.sc_entries += 1.f;
+    // The chunks of s in groups of 32, one bit each.
+    for (int c0 = s * scc; c0 < (s + 1) * scc; c0 += 32) {
+      const int gn = min(32, (s + 1) * scc - c0);
+      unsigned bits = 0;
+      if (sc_may) {
+        for (int j = 0; j < gn; ++j) {
+          slab(r, chunk_bounds, nc, c0 + j, tmin, tmax);
+          if ((tmax >= tmin) && (tmax > 0.f)) bits |= 1u << j;
+        }
+      }
+      bits = __reduce_or_sync(kFull, bits);
+      if (lane == 0) sh.vote[v & 1][warp] = bits;
+      __syncthreads();
+      unsigned cand = 0;
+      for (int w = 0; w < kWarps; ++w) cand |= sh.vote[v & 1][w];
+      ++v;
+      if (cand == 0) continue;
+      stage_chunk_async(sh.rows[buf], mu, mv, mw, e, c0 + __ffs(cand) - 1,
+                        tid);
+      while (cand != 0) {
+        const int c = c0 + __ffs(cand) - 1;
+        cand &= cand - 1;
+        bool may = false;
+        if (sc_may) {
+          slab(r, chunk_bounds, nc, c, tmin, tmax);
+          may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+        }
+        const unsigned ballot = __ballot_sync(kFull, may);
+        if (lane == 0) sh.vote[v & 1][warp] = ballot;
+        cp_async_wait_all();
+        __syncthreads();  // the ballots, and chunk c's rows in sh.rows[buf]
+        const unsigned* need = sh.vote[v & 1];
+        ++v;
+        int k = 0, nw = 0;
+        for (int w = 0; w < kWarps; ++w) {
+          k += __popc(need[w]);
+          nw += need[w] != 0u;
+        }
+        const ChunkRows& rows = sh.rows[buf];
+        buf ^= 1;
+        // The next candidate's rows, into the buffer the last sweep read.
+        if (cand != 0) {
+          stage_chunk_async(sh.rows[buf], mu, mv, mw, e,
+                            c0 + __ffs(cand) - 1, tid);
+        }
+        if (k == 0) continue;
+        cnt.chunk_sweeps += 1.f;
+        if (may) cnt.steps += (float)kBT;
+        if (8 * k > 7 * 32 * nw) {
+          if (may) {
+            Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid],
+                   sh.be[tid]};
+            sweep_closest(rows, r, c * kBT, b);
+            sh.bt[tid] = b.t;
+            sh.bu[tid] = b.u;
+            sh.bv[tid] = b.v;
+            sh.bwd[tid] = b.wd;
+            sh.be[tid] = b.e;
+          }
+        } else {
+          for (int i = warp; i < k; i += kWarps) {
+            sweep_closest_warp(sh, rows, needing_ray(need, i, lane),
+                               c * kBT, lane);
+          }
+        }
+        __syncthreads();  // the merged bests; rows and ballots are free
+      }
+    }
   }
+}
+
+// The ray's winner after walk_two_level.
+__device__ __forceinline__ Best two_level_best(const TwoLevelShared& sh,
+                                               int tid) {
+  return Best{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
 }
 
 // Any-hit of shadow ray `r` against the staged chunk c: each 128-triangle

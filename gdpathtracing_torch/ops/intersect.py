@@ -646,6 +646,25 @@ closest_hit_rows_nee.launches = 0
 # Kernels 3 and 6: the two-level (superchunk) closest hit
 # ---------------------------------------------------------------------------
 
+WARPS = BN // 32  # warps per kernel block
+
+
+def two_level_slots(may: torch.Tensor) -> torch.Tensor:
+    """(N/256,) f32: the thread-slots each 256-ray block spends sweeping
+    one staged chunk in csrc/trace_common.cuh ``walk_two_level``, from the
+    rays' gates ``may`` (N,) bool. With k needing rays in the nw warps
+    that hold one: where 8k > 7·32·nw their own threads sweep all 256
+    triangles (nw × 32 lanes × 256), else a warp per ray (⌈k/8⌉ rounds ×
+    8 warps × 32 lanes × 8 triangles); 0 where k = 0."""
+    m = may.view(-1, WARPS, 32)
+    k = m.sum(dim=(1, 2))
+    nw = m.any(dim=2).sum(dim=1)
+    thread = 8 * k > 7 * 32 * nw
+    return torch.where(thread, nw * 32 * BT,
+                       (k + WARPS - 1) // WARPS * BN * (BT // 32)
+                       ).to(torch.float32)
+
+
 class TwoLevelWalk(NamedTuple):
     """What :func:`walk_two_level_plain` finds for N rays."""
     walk: _ClosestWalk          # each ray's winner and triangles swept
@@ -654,11 +673,13 @@ class TwoLevelWalk(NamedTuple):
     slab_tests: torch.Tensor    # (N,) slab tests the ray itself needed:
     #                             every walked superchunk's, and the
     #                             chunks' of each one its own test passed
+    slots: torch.Tensor         # (N,) thread-slots its block spent in
+    #                             kernels 3 and 6 (:func:`two_level_slots`)
 
     @classmethod
     def start(cls, walk: _ClosestWalk) -> "TwoLevelWalk":
         z = torch.zeros_like(walk.best_t)
-        return cls(walk, z, z.clone(), z.clone())
+        return cls(walk, z, z.clone(), z.clone(), z.clone())
 
 
 def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
@@ -681,6 +702,7 @@ def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
     for c in range(s * scc, (s + 1) * scc):
         may = sc_may & walk.passes(bounds[:, c])
         acc.chunk_sweeps.add_(_block_any(may))
+        acc.slots.add_(two_level_slots(may).repeat_interleave(BN))
         walk.sweep(c, may, mu, mv, mw)
 
 
@@ -699,8 +721,8 @@ def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
                               scc) -> torch.Tensor:
     """Plain version of csrc/closest_hit_sc_lite.cu: (8, N) rows t, eidx,
     triangles swept by the ray, superchunks its block entered, 4 zeros."""
-    walk, sc_entries, _, _ = walk_two_level_plain(o4t, d4t, sc_bounds,
-                                                  bounds, mu, mv, mw, scc)
+    walk, sc_entries = walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu,
+                                            mv, mw, scc)[:2]
     out = torch.zeros((LITE_R, o4t.shape[1]), dtype=torch.float32,
                       device=o4t.device)
     out[0], out[1] = walk.best_t, walk.best_e.to(torch.float32)
@@ -740,8 +762,8 @@ def closest_hit_rows_sc_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab,
     """Plain version of csrc/closest_hit_rows_sc.cu: kernel 1's rows for
     the two-level walk, with row 46 the superchunks each block entered and
     row 47 the chunks it swept."""
-    walk, sc_entries, chunk_sweeps, _ = walk_two_level_plain(
-        o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc)
+    walk, sc_entries, chunk_sweeps = walk_two_level_plain(
+        o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc)[:3]
     return walk.rows(tab, sc_entries, chunk_sweeps)
 
 

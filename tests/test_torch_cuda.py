@@ -186,6 +186,156 @@ def test_rows_sc_kernel_matches_plain(grid, n):
     assert torch.equal(lite[:4], got[[40, 44, 45, 46]])
 
 
+@pytest.fixture(scope="module")
+def bench_grid():
+    """The bench's sphere grid (n=10: 96256 triangles, 376 chunks in 47
+    superchunks of 8), kernel 3's scene in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from gdpathtracing_torch.scene.demo import build_sphere_grid
+    return ti.prepare_trace_inputs(build_sphere_grid(n=10, sphere_detail=16,
+                                                     device="cuda"))
+
+
+# (source eidx, destination eidx) of the triangles copied for exact ties on
+# the bench grid: within chunk 3, from chunk 3 into chunk 100 (another
+# superchunk), from chunk 300 into chunk 50 (before its source).
+GRID_COPIES = ((3 * 256 + 17, 3 * 256 + 200), (3 * 256 + 40, 100 * 256 + 5),
+               (300 * 256 + 100, 50 * 256 + 250))
+
+
+def _aim_at(rows, eidx, dist, g):
+    """(3, n) origins and directions of rays at points inside triangles
+    ``eidx`` (n,) (barycentric u, v drawn in [0.2, 0.4]) from ``dist`` off
+    their planes along the normal, ``rows`` the numpy (mu, mv, mw)."""
+    mu, mv, mw = (x[:, eidx].astype(np.float64) for x in rows)
+    a = np.stack([mu[:3].T, mv[:3].T, mw[:3].T], axis=1)
+    u, v = g.uniform(0.2, 0.4, (2, eidx.size))
+    p = np.linalg.solve(a, np.stack([u - mu[3], v - mv[3], -mw[3]],
+                                    axis=1)[..., None])[..., 0].T
+    nrm = mw[:3] / np.linalg.norm(mw[:3], axis=0)
+    return p + dist * nrm, -nrm
+
+
+def _well_formed(rows):
+    """(E,) bool: triangles whose (mu, mv, mw) frame is invertible (not a
+    pad column)."""
+    a = np.stack([x[:3].T for x in rows], axis=1).astype(np.float64)
+    return np.abs(np.linalg.det(a)) > 1e-9
+
+
+def _two_level_set(prep, kind, n):
+    """Operands of kernels 3 and 6 (geometry, rays on the card, each ray's
+    aimed eidx or -1) for an adversarial ray set on ``prep`` (the bench
+    grid), from a numpy seed:
+    - one_per_block: one random ray in each 256-ray block, the rest parked
+      (origin 1e9): k = 1 on every chunk a block stages;
+    - same_chunk: the 256 rays of a block aimed at one triangle of a
+      sphere's upper half from 0.25 off its plane: k = 256 on that chunk,
+      where the rays' own threads sweep;
+    - edges: rays at triangle 255 of a chunk and at triangle 0 of the next
+      from 1e-2 off (the winner at either end of a chunk), a tenth parked;
+    - ties: rays at the triangles of GRID_COPIES, copied into the
+      destination columns (boxes grown to hold them), random rays and a
+      tenth parked: two triangles at the same t, the lower eidx wins."""
+    g = np.random.default_rng({"one_per_block": 21, "same_chunk": 22,
+                               "edges": 23, "ties": 24}[kind])
+    rows = [x.cpu().numpy().copy() for x in (prep.mu_pad, prep.mv_pad,
+                                            prep.mw_pad)]
+    cb = prep.chunk_bounds.cpu().numpy().copy()
+    sb = prep.sc_bounds.cpu().numpy().copy()
+    ok = _well_formed(rows)
+    aimed = np.full(n, -1)
+    o = np.stack([g.uniform(-14, 14, n), g.uniform(-0.5, 3.0, n),
+                  g.uniform(-14, 14, n)])
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    park = g.uniform(size=n) < 0.1
+    if kind == "one_per_block":
+        park = np.ones(n, bool)
+        park[np.arange(0, n, ti.BN) + g.integers(0, ti.BN, n // ti.BN)] = False
+    elif kind == "same_chunk":
+        # Centroids 0.2-0.9 above the sphere centres' plane: off the floor
+        # and the light, and 0.25 off them nothing lies between.
+        mu, mv, mw = (x[:, ok].astype(np.float64) for x in rows)
+        a = np.stack([mu[:3].T, mv[:3].T, mw[:3].T], axis=1)
+        cy = np.linalg.solve(a, np.stack([1 / 3 - mu[3], 1 / 3 - mv[3],
+                                          -mw[3]], axis=1)[..., None])[:, 1, 0]
+        tri = g.choice(np.flatnonzero(ok)[(cy > 0.2) & (cy < 0.9)],
+                       n // ti.BN)
+        aimed = np.repeat(tri, ti.BN)
+        o, d = _aim_at(rows, aimed, 0.25, g)
+        park[:] = False
+    elif kind == "edges":
+        c = g.choice(np.flatnonzero(ok[255:-1:ti.BT] & ok[256::ti.BT]), n)
+        aimed = c * ti.BT + np.where(g.uniform(size=n) < 0.5, 255, 256)
+        o, d = _aim_at(rows, aimed, 1e-2, g)
+    else:
+        for src, dst in GRID_COPIES:
+            assert ok[src]
+            for x in rows:
+                x[:, dst] = x[:, src]
+            for boxes, col in ((cb, dst // ti.BT),
+                               (sb, dst // ti.BT // prep.scc)):
+                boxes[0:3, col] = np.minimum(boxes[0:3, col],
+                                             cb[0:3, src // ti.BT])
+                boxes[3:6, col] = np.maximum(boxes[3:6, col],
+                                             cb[3:6, src // ti.BT])
+        pick = g.uniform(size=n) < 0.6
+        aimed[pick] = np.array([min(s, t) for s, t in GRID_COPIES])[
+            g.integers(0, len(GRID_COPIES), int(pick.sum()))]
+        o[:, pick], d[:, pick] = _aim_at(rows, aimed[pick], 1e-2, g)
+        park &= ~pick
+    o[:, park], d[:, park] = 1e9, 0.5773503
+    aimed[park] = -1
+    o4 = np.concatenate([o, np.ones((1, n))]).astype(np.float32)
+    d4 = np.concatenate([d, np.zeros((1, n))]).astype(np.float32)
+    dev = prep.mu_pad.device
+    geo = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (sb, cb, *rows))
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (o4, d4))
+    tab = prep.tab
+    if kind == "ties":  # the copies' table columns too
+        tab = tab.clone()
+        for src, dst in GRID_COPIES:
+            tab[:, dst] = tab[:, src]
+    return rays, geo, tab, aimed
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["one_per_block", "same_chunk", "edges",
+                                  "ties"])
+@pytest.mark.parametrize("kernel", ["lite", "rows"])
+def test_two_level_kernels_adversarial(bench_grid, kernel, kind, n):
+    """Kernels 3 and 6 (the block-cooperative walk) against their plain
+    versions bit for bit in every row, on the adversarial sets of
+    _two_level_set; the aimed rays find the triangle they were aimed at
+    (for ties: the lower eidx of the two)."""
+    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    if kernel == "lite":
+        fn, plain = ti.closest_hit_sc_lite, ti.closest_hit_sc_lite_plain
+        args = rays + geo + (bench_grid.scc,)
+        t_row, e_row = 0, 1
+    else:
+        fn, plain = ti.closest_hit_rows_sc, ti.closest_hit_rows_sc_plain
+        args = rays + geo + (tab, bench_grid.scc)
+        t_row, e_row = 40, 44
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    on = torch.from_numpy(aimed >= 0).cuda()
+    if kind == "one_per_block":
+        assert int((rays[0][0] < 1e8).sum()) == n // ti.BN
+    else:
+        assert torch.equal(got[e_row][on].long(),
+                           torch.from_numpy(aimed).cuda()[on])
+    assert (got[t_row] < ti._MISS).any()
+
+
 @pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
 @pytest.mark.parametrize("regen", [True, False], ids=["regen", "standard"])
 def test_superchunk_render_cuda_matches_cpu(grid, regen, nee):

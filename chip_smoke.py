@@ -13,8 +13,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the middle of a 1080p demo frame, then one bounce of BRDF-sampled
      rays from their hits;
    - kernel 2 (occlusion): 393216 shadow rays (the regen wavefront) from
-     the hits around the middle of the demo frame toward sampled light
-     points;
+     the hits around the middle of the frame toward sampled light points,
+     on the demo and on the grid (its 376 flat chunks), with the
+     thread-slots its block-cooperative walk spends against one thread
+     per ray's;
    - kernel 4 (both in one pass): the middle tile's bounce-1 rays with the
      shadow rays of its primary hits;
    - kernel 3 (two-level closest hit, lite) on the sphere grid of the JAX
@@ -28,8 +30,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    - kernel 7 (one round of regen's frontier march) on the grid's middle
      tile, its lanes in the march's sort order and queued by the march's
      own candidate scan: primary rays from the spawn state, a second round
-     from the first's carried best, bounce-1 rays; and a round whose queue
-     lists every superchunk, which must give kernel 3's winners;
+     from the first's carried best, bounce-1 rays, each with the
+     thread-slots of its block-cooperative walk against one thread per
+     ray's; and a round whose queue lists every superchunk, which must
+     give kernel 3's winners, timed beside kernel 3 on the same rays;
    - kernel 5 (the soft-shadow top-1 blocker): the shadow rays of the
      middle tile's primary hits toward sampled light points, on the demo
      and on the grid, with soft shadows' edge_eps of phase 3b;
@@ -82,8 +86,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the same for the differentiable demo's albedo gradient and its
    soft-shadow transform gradient;
 5. runs the GPU-only tests (``pytest -m cuda tests/test_torch_cuda.py``),
-   among them kernels 3 and 6 against their plain versions on adversarial
-   ray sets of the bench grid and at exact ties.
+   among them kernels 3, 6 and 7 against their plain versions on
+   adversarial ray sets and queues of the bench grid and at exact ties,
+   and kernel 2 on adversarial shadow rays of the demo and the grid.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -285,14 +290,10 @@ def main() -> None:
     from gdpathtracing_torch.ops import fused as fu
     from gdpathtracing_torch.ops import intersect as ti
     from gdpathtracing_torch.ops import megakernel as mk
+    from gdpathtracing_torch.ops import tiles as kt
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
-    from gdpathtracing_torch.render import brdf
-    from gdpathtracing_torch.render.integrator import sample_direct
-    from gdpathtracing_torch.render.regen import (march_lane_key,
-                                                  render_radiance_regen)
+    from gdpathtracing_torch.render.regen import render_radiance_regen
     from gdpathtracing_torch.render.renderer import render_radiance
-    from gdpathtracing_torch.render.shading import get_shading_data
-    from gdpathtracing_torch.render.types import Ray
     from gdpathtracing_torch.scene.demo import (build_demo_scene,
                                                 build_sphere_grid,
                                                 demo_camera, grid_camera)
@@ -327,6 +328,8 @@ def main() -> None:
     # -- 2. each kernel against its plain version ---------------------------
     phase("2. kernels against their plain versions")
     cfg = RenderConfig(traversal=Traversal.PALLAS)
+    check((kt.W, kt.H) == (W, H), "ops/tiles.py cuts its tiles from another "
+          "frame size")
     scene = build_demo_scene()
     check(scene.device.type == "cuda", "the scene is not on the card")
     dev = scene.device
@@ -336,23 +339,6 @@ def main() -> None:
     nc = e // ti.BT
     scene_bytes = (3 * 4 * e + 8 * nc + 8 * ti.SUB * nc) * 4
     tab_bytes = ti.TAB_R * e * 4
-
-    def middle_rays(n, first, scene=scene, cam=cam, prep=prep):
-        """Primary rays of pixels [first, first + n) (the top rows see no
-        geometry), their hits, shading and RNG streams."""
-        pids = torch.arange(n, device=dev) + first
-        seed = rng.prng_seed(pids % W,
-                             torch.div(pids, W, rounding_mode="floor"), 0)
-        ray, seed = cam.to(dev).generate_rays(pids, seed, cfg)
-        hit = ti.trace_pallas(scene, ray, None, prep)
-        return ray, hit, get_shading_data(scene, hit, ray), seed
-
-    def bounce_rays(s, hit, seed):
-        """One BRDF-sampled bounce from the hits ``hit`` with shading
-        ``s``: (rays, active)."""
-        (r1, r2), _ = rng.pcg2d(seed)
-        return Ray(s.position + s.normal * cfg.ray_eps,
-                   brdf.sample_brdf(s, r1, r2)), hit.hit
 
     report = {}
 
@@ -369,9 +355,10 @@ def main() -> None:
     # Kernel 1 at the standard loop's tile through the middle of the frame:
     # primary and bounce-1 rays.
     tile = cfg.tile_rays
-    mid_tile = (W * H // 2) // tile * tile
-    primary, hit, s, seed = middle_rays(tile, mid_tile)
-    bounce, _ = bounce_rays(s, hit, seed)
+    mid_tile = kt.middle_tile(cfg)
+    primary, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile,
+                                           mid_tile)
+    bounce, _ = kt.bounce_rays(s, hit, seed, cfg)
     for name, (ray, active) in {"primary": (primary, None),
                                 "bounce 1": (bounce, hit.hit)}.items():
         o4t, d4t = ti.pack_rays(ray, active)
@@ -406,14 +393,9 @@ def main() -> None:
 
     # Kernel 4 at the same tile: its bounce-1 launch, which resolves the
     # shadow queries posted from the primary hits.
-    pend, _ = sample_direct(s, s.position * 0.0 + 1.0, hit.hit, seed,
-                            prep.lights, cfg)
-    o4t, d4t = ti.pack_rays(bounce, hit.hit)
-    so4t, sd4t, stmax = ti.pack_shadow_rays(pend.shadow, pend.active,
-                                             pend.tmax)
-    args = (o4t, d4t, so4t, sd4t, stmax, prep.bounds, prep.sub_bounds,
-            prep.mu, prep.mv, prep.mw, prep.tab)
-    n = o4t.shape[1]
+    pend = kt.shadow_queries(s, hit, seed, prep, cfg)
+    args = kt.rows_nee_operands(prep, bounce, hit.hit, pend)
+    n = args[0].shape[1]
     rows, occ = ti.closest_hit_rows_nee(*args)
     rows_p, occ_p = ti.closest_hit_rows_nee_plain(*args)
     torch.cuda.synchronize()
@@ -425,44 +407,60 @@ def main() -> None:
         f"{flips} occlusion mismatches")
     check(torch.equal(rows, rows_p) and flips == 0,
           "kernel 4 differs from its plain version")
-    shadow = ti.occluded_plain(so4t, sd4t, stmax, prep.bounds,
-                               prep.sub_bounds, prep.mu, prep.mv, prep.mw)
+    shadow_counts = {}
+    shadow = ti.occluded_plain(*args[2:10], counts=shadow_counts)
     needed = float(rows_p[45].sum()) + float(shadow.tests.sum())
     k = cuda_ms(lambda: ti.closest_hit_rows_nee(*args), KERNEL_ITERS, torch)
     p = cuda_ms(lambda: ti.closest_hit_rows_nee_plain(*args), PLAIN_ITERS,
                 torch)
     log(f"  {needed:.4g} ray-triangle tests needed (both phases)")
+    # Slab tests: every chunk box of every bounce ray, and what the shadow
+    # rays need in index order (ti.occluded_plain).
     record("closest_hit_rows_nee", err, k, p, *bound(
-        needed, 2 * n * nc, 17 * 4 * n + scene_bytes + tab_bytes
-        + (ti.OUT_R + 1) * 4 * n))
+        needed, n * nc + shadow_counts["slab_tests"],
+        17 * 4 * n + scene_bytes + tab_bytes + (ti.OUT_R + 1) * 4 * n))
 
-    # Kernel 2 at the regen wavefront.
-    _, hit2, s2, seed2 = middle_rays(cfg.regen_wavefront,
-                                     (W * H - cfg.regen_wavefront) // 2)
-    pend2, _ = sample_direct(s2, s2.position * 0.0 + 1.0, hit2.hit, seed2,
-                             prep.lights, cfg)
-    o4t, d4t, tlim = ti.pack_shadow_rays(pend2.shadow, pend2.active,
-                                           pend2.tmax)
-    args = (o4t, d4t, tlim, prep.bounds, prep.sub_bounds, prep.mu, prep.mv,
-            prep.mw)
-    n = o4t.shape[1]
-    got = ti.occluded(*args)
-    want = ti.occluded_plain(*args)
-    torch.cuda.synchronize()
-    flips = int((got != want.occ).sum())
-    n_q = int(pend2.active.sum())
-    log(f"kernel 2 vs plain, {n} shadow rays ({n_q} queries, "
-        f"{int(want.occ.sum())} occluded, share "
-        f"{int(want.occ.sum()) / max(n_q, 1):.3f}): {flips} mismatches")
-    check(flips == 0, "kernel 2 differs from its plain version")
-    check(0 < int(want.occ.sum()) < n_q, "kernel 2: a one-sided answer")
-    needed = float(want.tests.sum())
-    k = cuda_ms(lambda: ti.occluded(*args), KERNEL_ITERS, torch)
-    p = cuda_ms(lambda: ti.occluded_plain(*args), PLAIN_ITERS, torch)
-    log(f"  {needed:.4g} ray-triangle tests needed "
-        f"({needed / max(n_q, 1):.1f} per query)")
-    record("occluded", float(flips), k, p, *bound(
-        needed, n * nc, 10 * 4 * n + scene_bytes))
+    def occlusion_check(label, oscene, ocam, oprep):
+        """Kernel 2 on the 393216 shadow rays (the regen wavefront) from the
+        hits around the middle of the frame toward sampled light points."""
+        args, n_q = kt.wavefront_shadow_rays(oscene, ocam, oprep, cfg)
+        n, onc = args[0].shape[1], oprep.mu.shape[1] // ti.BT
+        got = ti.occluded(*args)
+        counts = {}
+        want = ti.occluded_plain(*args, counts=counts)
+        torch.cuda.synchronize()
+        flips = int((got != want.occ).sum())
+        log(f"kernel 2 vs plain, {label}, {n} shadow rays ({n_q} queries, "
+            f"{int(want.occ.sum())} occluded, share "
+            f"{int(want.occ.sum()) / max(n_q, 1):.3f}, {onc} chunks): "
+            f"{flips} mismatches")
+        check(flips == 0, f"kernel 2, {label}: differs from its plain "
+              f"version")
+        check(0 < int(want.occ.sum()) < n_q,
+              f"kernel 2, {label}: a one-sided answer")
+        needed = float(want.tests.sum())
+        # Thread-slots: the block-cooperative walk's (ti.any_hit_slots),
+        # beside a thread per ray with every lane of the block on each
+        # chunk a ray of it needs.
+        spent_1 = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+        k = cuda_ms(lambda: ti.occluded(*args), KERNEL_ITERS, torch)
+        p = cuda_ms(lambda: ti.occluded_plain(*args),
+                    PLAIN_ITERS if onc <= 16 else GRID_PLAIN_ITERS, torch)
+        slabs = counts["slab_tests"]
+        n_bytes = 10 * 4 * n + (3 * 4 * oprep.mu.shape[1] + 8 * onc
+                                + 8 * ti.SUB * onc) * 4
+        log(f"  {needed:.4g} ray-triangle tests and {slabs:.4g} slab tests "
+            f"needed ({needed / max(n_q, 1):.1f} tests per query), "
+            f"{counts['slots']:.4g} thread-slots swept "
+            f"({needed / max(counts['slots'], 1.0):.3f} useful; a thread per "
+            f"ray: {spent_1:.4g}, {needed / max(spent_1, 1.0):.3f} useful); "
+            f"the bound with all {n * onc} ray-chunk slab tests (the "
+            f"earlier count): {bound(needed, n * onc, n_bytes)[0]:.4f} ms")
+        record("occluded", float(flips), k, p, *bound(needed, slabs,
+                                                      n_bytes))
+
+    # Kernel 2 at the regen wavefront, on the demo (and on the grid below).
+    occlusion_check("demo", scene, cam, prep)
 
     # Kernels 3 and 6 on the sphere grids of the JAX bench: the middle
     # 1080p tile's primary rays, then one bounce from their hits.
@@ -476,6 +474,9 @@ def main() -> None:
           <= ti._SC_RESIDENT_BYTES, "the grid does not take kernel 3")
     check(big_prep.m3_bytes > ti._SC_RESIDENT_BYTES,
           "the n=14 grid does not take kernel 6")
+    # Kernel 2 on the grid's shadow rays: grid regen + NEE's query, over
+    # the 376 flat chunks.
+    occlusion_check("grid", grid, grid_cam, grid_prep)
 
     def two_level_bytes(p, n, out_rows, tab):
         """Rays in and rows out once, the triangle rows, both box sets and
@@ -489,9 +490,9 @@ def main() -> None:
                                        ("n=14 grid", big, big_cam,
                                         big_prep)):
         lite = gprep is grid_prep
-        primary, ghit, gs, gseed = middle_rays(tile, mid_tile, gscene, gcam,
-                                               gprep)
-        bounce, bactive = bounce_rays(gs, ghit, gseed)
+        primary, ghit, gs, gseed = kt.middle_rays(gscene, gcam, gprep, cfg,
+                                                  tile, mid_tile)
+        bounce, bactive = kt.bounce_rays(gs, ghit, gseed, cfg)
         for name, (ray, active) in {"primary": (primary, None),
                                     "bounce 1": (bounce, bactive)}.items():
             o4t, d4t = ti.pack_rays(ray, active)
@@ -573,35 +574,9 @@ def main() -> None:
     nsc = grid_prep.sc_bounds.shape[1]
     mgeo = (grid_prep.sc_bounds, grid_prep.chunk_bounds, grid_prep.mu_pad,
             grid_prep.mv_pad, grid_prep.mw_pad, grid_prep.scc)
-    primary, ghit, gs, gseed = middle_rays(tile, mid_tile, grid, grid_cam,
-                                           grid_prep)
-    bounce, bactive = bounce_rays(gs, ghit, gseed)
-    ones = torch.ones(tile, dtype=torch.bool, device=dev)
-
-    def no_winner(n):
-        return torch.stack([torch.full((n,), ti._MISS, device=dev),
-                            torch.full((n,), float(ti.BIG_E), device=dev)])
-
-    def candidates(ray, active, m_t=None, m_sc=None, b_t=None):
-        n = active.shape[0]
-        return ti.march_next_candidates(
-            grid_prep, ray.o, ray.d, active,
-            torch.full((n,), -torch.inf, device=dev) if m_t is None else m_t,
-            torch.full((n,), -1, dtype=torch.int64, device=dev)
-            if m_sc is None else m_sc,
-            torch.full((n,), ti._MISS, device=dev) if b_t is None else b_t,
-            k=cfg.regen_march_k)
-
-    def march_lanes(ray, active):
-        """The lanes sorted by regen's march key (next superchunk, the one
-        after it, octant), and their candidates."""
-        es, ss = candidates(ray, active)
-        key = torch.where(active, march_lane_key(ray.d, ss[0], ss[1], nsc),
-                          1 << 22)
-        perm = torch.argsort(key, stable=True)
-        ray = Ray(type(ray.o)(*(x[perm] for x in ray.o)),
-                  type(ray.d)(*(x[perm] for x in ray.d)))
-        return ray, active[perm], [x[perm] for x in es], [x[perm] for x in ss]
+    primary, ghit, gs, gseed = kt.middle_rays(grid, grid_cam, grid_prep, cfg,
+                                              tile, mid_tile)
+    bounce, bactive = kt.bounce_rays(gs, ghit, gseed, cfg)
 
     def first_visits(queue, n):
         """``queue`` with each block's repeats of an entry after its first
@@ -615,12 +590,14 @@ def main() -> None:
 
     def march_check(what, o4t, d4t, init, queue):
         """Kernel 7 against its plain version on one round; the plain
-        version's rows. The bound counts the tests of the same round
-        without the queue's repeats, which change no winner."""
+        version's rows and the kernel's time. The bound counts the tests of
+        the same round without the queue's repeats, which change no
+        winner."""
         args = (o4t, d4t, init, queue) + mgeo
         n = o4t.shape[1]
         got = ti.march_step_sc(*args)
-        want = ti.march_step_sc_plain(*args)
+        spent = {}
+        want = ti.march_step_sc_plain(*args, counts=spent)
         counts = {}
         once = ti.march_step_sc_plain(o4t, d4t, init,
                                       first_visits(queue, n), *mgeo,
@@ -645,49 +622,46 @@ def main() -> None:
                     torch)
         log(f"  {needed:.4g} ray-triangle tests and "
             f"{counts['slab_tests']:.4g} slab tests needed (the round "
-            f"swept {float(want[2].sum()):.4g} with the repeats)")
+            f"swept {float(want[2].sum()):.4g} with the repeats); "
+            f"{spent['slots']:.4g} thread-slots swept "
+            f"({needed / max(spent['slots'], 1.0):.3f} useful; a thread per "
+            f"ray: {spent['thread_slots']:.4g}, "
+            f"{needed / max(spent['thread_slots'], 1.0):.3f} useful)")
         record("march_step_sc", err, k, p, *bound(
             needed, counts["slab_tests"], two_level_bytes(grid_prep, n, 8,
                                                           False)
             + 2 * 4 * n + 4 * queue.numel()))
-        return want
+        return want, k
 
-    ray, act, es, ss = march_lanes(primary, ones)
-    o4t, d4t = ti.pack_rays(ray)
-    first = march_check("primary rays, spawn", o4t, d4t, no_winner(tile),
-                        ti.march_block_queue(ss, nsc,
-                                             cfg.regen_march_ql)[0])
-    check(int((first[0] < ti._MISS).sum()) > tile // 10,
-          "kernel 7: few primary rays found a best in the first round")
-    moved = ss[0] < nsc
-    _, ss2 = candidates(ray, act, torch.where(moved, es[0], -torch.inf),
-                        torch.where(moved, ss[0], -1), first[0])
-    march_check("primary rays, carried", o4t, d4t, first[:2].contiguous(),
-                ti.march_block_queue(ss2, nsc, cfg.regen_march_ql)[0])
-    bray, bact, _, bss = march_lanes(bounce, bactive)
-    bo4t, bd4t = ti.pack_rays(bray, bact)
-    march_check("bounce-1 rays, spawn", bo4t, bd4t, no_winner(tile),
-                ti.march_block_queue(bss, nsc, cfg.regen_march_ql)[0])
-    every = torch.arange(nsc, dtype=torch.int32, device=dev).repeat(
-        tile // ti.BN)
-    full = march_check("primary rays, every superchunk queued", o4t, d4t,
-                       no_winner(tile), every)
+    rounds = kt.march_rounds(grid_prep, primary, bounce, bactive, cfg)
+    for rd in rounds:
+        want, k7 = march_check(rd.what, rd.o4t, rd.d4t, rd.init, rd.queue)
+        if rd is rounds[0]:
+            check(int((want[0] < ti._MISS).sum()) > tile // 10,
+                  "kernel 7: few primary rays found a best in the first "
+                  "round")
+    # The last round lists every superchunk: kernel 3's walk.
+    full, o4t, d4t = want, rd.o4t, rd.d4t
     lite = ti.closest_hit_sc_lite(o4t, d4t, *mgeo)
     torch.cuda.synchronize()
     hit = lite[0] < ti._MISS
     check(torch.equal(full[[0, 2, 3]], lite[[0, 2, 3]])
           and torch.equal(full[1][hit], lite[1][hit]),
           "kernel 7 with every superchunk queued differs from kernel 3")
-    log("  kernel 7 with every superchunk queued: kernel 3's t, eidx, "
-        "steps and entries on every ray")
+    # The same walk: kernel 3 timed on the same rays (not recorded: kernel
+    # 3's own tiles are the unsorted ones above).
+    k3 = cuda_ms(lambda: ti.closest_hit_sc_lite(o4t, d4t, *mgeo),
+                 KERNEL_ITERS, torch)
+    log(f"  kernel 7 with every superchunk queued: kernel 3's t, eidx, "
+        f"steps and entries on every ray; kernel 7 {k7:.4f} ms, kernel 3 "
+        f"{k3:.4f} ms on the same rays ({k7 / k3:.3f}) on {card}")
 
     # Kernel 5 on the soft-shadow rays of the middle tile's primary hits,
     # on the demo (the NEE shadow rays of kernel 4's check) and on the grid,
     # over each scene's unpadded chunks.
-    _, ghit, gs, gseed = middle_rays(tile, mid_tile, grid, grid_cam,
-                                     grid_prep)
-    gpend, _ = sample_direct(gs, gs.position * 0.0 + 1.0, ghit.hit, gseed,
-                             grid_prep.lights, cfg)
+    _, ghit, gs, gseed = kt.middle_rays(grid, grid_cam, grid_prep, cfg, tile,
+                                        mid_tile)
+    gpend = kt.shadow_queries(gs, ghit, gseed, grid_prep, cfg)
     for label, pscene, pprep, dl, iters in (
             ("demo", scene, prep, pend, PLAIN_ITERS),
             ("grid", grid, grid_prep, gpend, GRID_PLAIN_ITERS)):
@@ -734,13 +708,7 @@ def main() -> None:
     mid_cam = grid_camera(W, H, n=4)
     mid_prep = ti.prepare_trace_inputs(mid)
 
-    def camera_paths(pcam, n, first):
-        pids = torch.arange(n, device=dev) + first
-        seed = rng.prng_seed(pids % W,
-                             torch.div(pids, W, rounding_mode="floor"), 0)
-        return pcam.to(dev).generate_rays(pids, seed, cfg)
-
-    ray, pseed = camera_paths(cam, tile, mid_tile)
+    ray, pseed = kt.camera_rays(cam, cfg, tile, mid_tile, dev)
     for nee in (False, True):
         mcfg = cfg.replace(traversal=Traversal.MEGA, nee=nee)
         lt = mk._build_light_block(prep.lights if nee else None, dev)
@@ -780,7 +748,7 @@ def main() -> None:
     for label, fscene, fcam, fprep, iters in (
             ("demo", scene, cam, prep, PLAIN_ITERS),
             ("mid grid", mid, mid_cam, mid_prep, GRID_PLAIN_ITERS)):
-        ray, pseed = camera_paths(fcam, tile, mid_tile)
+        ray, pseed = kt.camera_rays(fcam, cfg, tile, mid_tile, dev)
         args = (*fu.pack_paths(ray, pseed), fprep.bounds, fprep.mu, fprep.mv,
                 fprep.mw, fu._build_table(fscene), fu._build_mats(fscene))
         got = fu.fused_paths(*args, fcfg)
@@ -812,9 +780,11 @@ def main() -> None:
     # and bounce-1 rays, and on the mid grid's (34 chunks, flat), against
     # their plain versions and against the default traversal's winners
     # (kernel 1 on the demo, kernel 3 on the mid grid).
-    primary, dhit, ds, dseed = middle_rays(tile, mid_tile)
-    dbounce, dactive = bounce_rays(ds, dhit, dseed)
-    mprimary = middle_rays(tile, mid_tile, mid, mid_cam, mid_prep)[0]
+    primary, dhit, ds, dseed = kt.middle_rays(scene, cam, prep, cfg, tile,
+                                              mid_tile)
+    dbounce, dactive = kt.bounce_rays(ds, dhit, dseed, cfg)
+    mprimary = kt.middle_rays(mid, mid_cam, mid_prep, cfg, tile,
+                              mid_tile)[0]
     for label, cscene, cprep, ray, active in (
             ("demo, primary", scene, prep, primary, None),
             ("demo, bounce 1", scene, prep, dbounce, dactive),
@@ -1186,10 +1156,15 @@ def main() -> None:
               f"{what}: the {param} gradients differ by {rel:.3g}")
 
     # -- 5. the GPU-only tests -----------------------------------------------
-    # Among them kernels 3 and 6 on adversarial ray sets of the bench grid
-    # (one needing ray a block, a block's 256 rays on one chunk, winners at
-    # either end of a chunk, parked rays, exact ties), with the kernels
-    # this run built (the same sources, so the same build directory).
+    # Among them kernels 3, 6 and 7 on adversarial ray sets of the bench
+    # grid (one needing ray a block, a block's 256 rays on one chunk,
+    # winners at either end of a chunk, parked rays, exact ties; for kernel
+    # 7 also a tie against a carried best, repeated and all-sentinel
+    # queues, 1 and 16 slots) and kernel 2 on adversarial shadow rays
+    # (blockers at either end of a half, a limit at a blocker's own t,
+    # parked rays, one live ray a block, every ray toward one chunk), with
+    # the kernels this run built (the same sources, so the same build
+    # directory).
     phase("5. the GPU-only tests")
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",

@@ -33,7 +33,11 @@
 // block-cooperative walk: a warp per needing ray (a thread per ray where
 // the needing warps are nearly full) and the rows double-buffered by
 // cp.async; the winner's u, v and w_d stay in the lane that found it,
-// which merges them into the ray's best.
+// which merges them into the ray's best. Launch bounds (256, 2): ptxas
+// then allocates 80 registers, and 3 blocks of 256 still fit an SM (80 x
+// 256 x 3 <= 65536 registers, 3 x 38 KB of shared memory); asked for 3
+// blocks it allocates 72 and the kernel runs 1-2% slower (in turns on the
+// H100, tools/two_level_turns.py).
 
 #include "trace_common.cuh"
 
@@ -41,7 +45,7 @@ namespace {
 
 using namespace gdpt;
 
-__global__ void __launch_bounds__(kBN, 3)
+__global__ void __launch_bounds__(kBN, 2)
 closest_hit_rows_sc_kernel(const float* __restrict__ o4,
                            const float* __restrict__ d4,
                            const float* __restrict__ sc_bounds,

@@ -20,13 +20,13 @@
 //
 // Winner: the lowest (t, eidx) pair over the carried best and the
 // triangles of the queued superchunks whose superchunk and chunk both pass
-// the ray's OWN slab test (trace_common.cuh walk_superchunk: kernel 3's
-// gates over one superchunk, one thread per ray). The march visits
-// superchunks near to far, not in index order, so a carried best can hold
-// a larger eidx at the same t than a triangle swept now: sweep_closest's
-// tie clause (equal t, lower eidx) keeps the winner the one the one-shot
-// walk finds. Sweeps are idempotent, so a duplicate queue entry changes
-// nothing but row 2.
+// the ray's OWN slab test (kernel 3's gates over one superchunk,
+// trace_common.cuh walk_superchunk_coop). The march visits superchunks
+// near to far, not in index order, so a carried best can hold a larger
+// eidx at the same t than a triangle swept now: the merge's tie clause
+// (equal t, lower eidx) keeps the winner the one the one-shot walk finds.
+// Sweeps are idempotent, so a duplicate queue entry changes nothing but
+// row 2.
 //
 // What bounds it on the H100: arithmetic, as kernel 3: each needed
 // (ray, triangle) test is six 4-term dot products, one IEEE division and
@@ -34,12 +34,16 @@
 // each one the ray enters. Device memory carries the rays, the carried
 // best and the queue in, the 12 KB rows of each chunk a block stages, and
 // 8 floats a ray out.
-// The design, kept simple: one thread per ray, 256-ray blocks. A block
-// walks its own QL queue entries in queue order; an entry is the same for
-// every thread of the block, so a sentinel is skipped without divergence
-// and each real entry is one walk_superchunk: the superchunk vote
-// (`__syncthreads_or`), then its chunks, each staged in shared memory and
-// swept with the closest-hit sweep of kernel 1.
+// The design: kernel 3's block-cooperative walk, entry by entry. A block
+// seeds each ray's best in shared memory from `init`, then walks its own
+// QL queue entries in queue order; an entry is the same for every thread
+// of the block, so a sentinel is skipped without divergence, and each real
+// entry is one walk_superchunk_coop: the superchunk vote, its candidate
+// chunks from the per-warp votes, for each a ballot list of the rays that
+// need it swept a warp per ray (or by the rays' own threads where the
+// needing warps are nearly full), the rows double-buffered by cp.async.
+// A lane's 8 tests are unrolled as in kernel 3: 3 blocks of 256 an SM,
+// 38 KB of shared memory each.
 
 #include "trace_common.cuh"
 
@@ -49,7 +53,7 @@ using namespace gdpt;
 
 constexpr int kLiteR = 8;  // output rows
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 march_step_sc_kernel(const float* __restrict__ o4,
                      const float* __restrict__ d4,
                      const float* __restrict__ init,
@@ -61,7 +65,7 @@ march_step_sc_kernel(const float* __restrict__ o4,
                      const float* __restrict__ mw,
                      float* __restrict__ out, int n, int e, int scc,
                      int ql) {
-  __shared__ ChunkRows s_m;
+  __shared__ TwoLevelShared sh;
 
   const int nsc = e / (kBT * scc);
   const int tid = threadIdx.x;
@@ -69,20 +73,21 @@ march_step_sc_kernel(const float* __restrict__ o4,
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, nn, ray);
 
-  Best best = no_hit();
-  best.t = init[ray];
-  best.e = (int)init[nn + ray];
+  two_level_start(sh, r, tid, init[ray], (int)init[nn + ray]);
   WalkCounts cnt{0.f, 0.f, 0.f};
+  CoopCursor cur{0, 0};
   const int* q = queue + (size_t)blockIdx.x * ql;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nc = nsc * scc;
   for (int j = 0; j < ql; ++j) {
     const int s = q[j];
     if (s < 0 || s >= nsc) continue;  // a sentinel: the same on every thread
-    walk_superchunk(s_m, r, s, sc_bounds, nsc, bounds, scc, mu, mv, mw,
-                    (size_t)e, tid, best, cnt);
+    walk_superchunk_coop(sh, r, s, sc_bounds, nsc, bounds, scc, mu, mv, mw,
+                         (size_t)e, tid, lane, warp, nc, cur, cnt);
   }
 
-  out[ray] = best.t;
-  out[nn + ray] = (float)best.e;
+  out[ray] = sh.bt[tid];
+  out[nn + ray] = (float)sh.be[tid];
   out[2 * nn + ray] = cnt.steps;
   out[3 * nn + ray] = cnt.sc_entries;
   for (int k = 4; k < kLiteR; ++k) out[k * nn + ray] = 0.f;

@@ -20,14 +20,21 @@
 // What bounds it on the H100: arithmetic, as for kernel 1 (six 4-term dot
 // products and one IEEE division per ray-triangle test, ~55 flops); the
 // bytes are the rays in, one int out and 12 KB of chunk rows per swept
-// chunk. What the design does about it is to test fewer triangles: a ray
-// tests a chunk only when its slab test against the chunk box passes with
-// tmin < tlim, then each half only when the half's own box passes, and it
-// stops at its first blocking triangle. The block walks the chunks in
-// index order, one thread per ray; `__syncthreads_or` skips a chunk no ray
-// of the block needs and ends the walk once every ray of the block is
-// occluded or has nothing left to test (tlim <= 0). A needed chunk's
-// mu/mv/mw (12 KB) is staged in shared memory as in kernel 1.
+// chunk. A ray tests a chunk only when its slab test against the chunk box
+// passes with tmin < tlim, then each half only when the half's own box
+// passes, and it stops at its first blocking half. What kept a walk with
+// one thread per ray far from that bound is the mapping: a staged chunk
+// is swept by the few threads whose ray needs it while their warps' other
+// lanes idle, and each chunk is a synchronous copy between barriers.
+// The design: the block-cooperative any-hit walk of trace_common.cuh
+// (walk_any_coop), chunks in index order. The block votes on groups of 32
+// chunks, lists for each candidate the rays that need one of its halves,
+// and a warp tests each listed ray, a lane per 4 of a half's 128
+// triangles, `__any_sync` ending the query at the first half that blocks;
+// the rows arrive by cp.async into a double buffer, the next candidate's
+// while the current one is swept, and the block stops once no ray of it is
+// unresolved. 35 KB of shared memory a block, at most 64 registers: 4
+// blocks an SM (3 measured no faster).
 
 #include "trace_common.cuh"
 
@@ -35,7 +42,7 @@ namespace {
 
 using namespace gdpt;
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 4)
 occlusion_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
                  const float* __restrict__ tlim,
                  const float* __restrict__ bounds,
@@ -43,14 +50,14 @@ occlusion_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
                  const float* __restrict__ mu, const float* __restrict__ mv,
                  const float* __restrict__ mw, int* __restrict__ occ_out,
                  int n, int e) {
-  __shared__ ChunkRows s_m;
+  __shared__ AnyHitShared sh;
 
   const int nc = e / kBT;
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, (size_t)n, ray);
   const float lim = tlim[ray];
-  const bool occ = walk_flat_any(s_m, r, lim, bounds, sub_bounds, nc, mu, mv,
+  const bool occ = walk_any_coop(sh, r, lim, bounds, sub_bounds, nc, mu, mv,
                                  mw, (size_t)e, tid);
   occ_out[ray] = occ ? 1 : 0;
 }

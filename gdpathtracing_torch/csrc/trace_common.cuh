@@ -3,8 +3,10 @@
 // closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
 // and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
-// shared memory, one thread per ray; in the two-level walk of kernels 3
-// and 6 (walk_two_level) also a warp per ray that needs a chunk.
+// shared memory, one thread per ray; in the block-cooperative walks also
+// a warp per ray that needs a chunk: the two-level closest hit of kernels
+// 3, 6 and 7 (walk_superchunk_coop) and the any-hit of kernel 2
+// (walk_any_coop).
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -185,45 +187,8 @@ struct WalkCounts {
   float steps, sc_entries, chunk_sweeps;
 };
 
-// Superchunk `s` of the two-level closest-hit walk, one thread per ray
-// (kernel 7; kernels 3 and 6 walk the same way block-cooperatively,
-// walk_two_level):
-// s holds the `scc` consecutive chunks s*scc .. s*scc + scc - 1. A ray
-// sweeps chunk c when its own slab tests against the inflated box of s
-// and of c itself both pass (tmax >= tmin, tmax > 0, tmin <= its best t
-// so far). The block skips the superchunk when none of its rays enters
-// it, and a chunk none of them needs; otherwise it stages the chunk and
-// every ray that needs it sweeps it. Every thread of the block calls it
-// with the same s.
-__device__ __forceinline__ void walk_superchunk(
-    ChunkRows& s_m, const Ray& r, int s, const float* __restrict__ sc_bounds,
-    int nsc, const float* __restrict__ chunk_bounds, int scc,
-    const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid, Best& best,
-    WalkCounts& cnt) {
-  const int nc = nsc * scc;
-  float tmin, tmax;
-  slab(r, sc_bounds, nsc, s, tmin, tmax);
-  const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
-  // Also the barrier that ends every read of the previous chunk's rows.
-  if (!__syncthreads_or(sc_may)) return;
-  cnt.sc_entries += 1.f;
-  for (int c = s * scc; c < (s + 1) * scc; ++c) {
-    slab(r, chunk_bounds, nc, c, tmin, tmax);
-    const bool may = sc_may && (tmax >= tmin) && (tmax > 0.f) &&
-                     (tmin <= best.t);
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, e, c, tid);
-    __syncthreads();
-    cnt.chunk_sweeps += 1.f;
-    if (!may) continue;
-    cnt.steps += (float)kBT;
-    sweep_closest(s_m, r, c * kBT, best);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The block-cooperative two-level walk (kernels 3 and 6)
+// The block-cooperative two-level walk (kernels 3, 6 and 7)
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = kBN / 32;       // warps per block
@@ -340,13 +305,101 @@ __device__ __forceinline__ int needing_ray(const unsigned* need, int i,
   return w * 32 + __ffs(__ballot_sync(kFull, mine)) - 1;
 }
 
-// Two-level closest-hit walk of kernels 3 and 6, block-cooperative. The
-// visit order, the gates and the counts are walk_superchunk's, superchunk
-// by superchunk in index order: a ray needs chunk c of superchunk s when
-// its own slab tests against the inflated boxes of s and c both pass
-// (tmax >= tmin, tmax > 0, tmin <= its best t so far); the block enters s
-// when one of its rays passes s's test, and stages c when one of them
-// needs it. What differs is who sweeps a staged chunk:
+// The staging and the votes both block-cooperative walks share (the
+// two-level closest hit, walk_superchunk_coop, and the any-hit,
+// walk_any_coop). A walk's shared memory holds the staged rows, double
+// buffered, and two slots of per-warp vote words: a vote writes slot v & 1,
+// so the next vote never overwrites a slot a slow thread still reads (the
+// two are a barrier apart). Every thread of the block makes the same calls
+// in the same order; for each group of up to 32 chunks
+//   coop_vote(the ray's gate bits over the group)  <barrier>
+//   cand = coop_candidates(); coop_first(cand)
+// and for each candidate chunk, the lowest bit of cand first,
+//   coop_ballot(whether the ray needs it)  <barrier>
+//   need = coop_list(k, nw); rows = coop_rows(cand without it)
+// then the sweeps of the k listed rays, and a barrier. The cursor carries
+// the votes taken and the buffer the next chunk's rows go to.
+struct CoopCursor {
+  int v, buf;
+};
+
+// This warp's word of a group vote: the OR of its lanes' gate bits.
+__device__ __forceinline__ void coop_vote(unsigned (&vote)[2][kWarps],
+                                          const CoopCursor& cur,
+                                          unsigned bits, int lane, int warp) {
+  bits = __reduce_or_sync(kFull, bits);
+  if (lane == 0) vote[cur.v & 1][warp] = bits;
+}
+
+// After the barrier: the group's candidate chunks, a bit each (the OR of
+// the block's eight words).
+__device__ __forceinline__ unsigned coop_candidates(
+    const unsigned (&vote)[2][kWarps], CoopCursor& cur) {
+  unsigned cand = 0;
+  for (int w = 0; w < kWarps; ++w) cand |= vote[cur.v & 1][w];
+  ++cur.v;
+  return cand;
+}
+
+// Starts the copy of the group's first candidate, chunk c0 + (the lowest
+// bit of cand), into the cursor's buffer.
+__device__ __forceinline__ void coop_first(
+    ChunkRows (&rows)[2], const CoopCursor& cur, unsigned cand, int c0,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid) {
+  stage_chunk_async(rows[cur.buf], mu, mv, mw, e, c0 + __ffs(cand) - 1, tid);
+}
+
+// This warp's ballot of the rays that need the current candidate; then
+// waits for this thread's copies of its rows (the barrier after it makes
+// both the ballots and the rows the block's).
+__device__ __forceinline__ void coop_ballot(unsigned (&vote)[2][kWarps],
+                                            const CoopCursor& cur,
+                                            bool needs, int lane, int warp) {
+  const unsigned ballot = __ballot_sync(kFull, needs);
+  if (lane == 0) vote[cur.v & 1][warp] = ballot;
+  cp_async_wait_all();
+}
+
+// After the barrier: the eight ballots of the candidate (the list of its
+// needing rays, needing_ray), with k the rays listed and nw the warps that
+// hold one.
+__device__ __forceinline__ const unsigned* coop_list(
+    const unsigned (&vote)[2][kWarps], CoopCursor& cur, int& k, int& nw) {
+  const unsigned* need = vote[cur.v & 1];
+  ++cur.v;
+  k = 0;
+  nw = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    k += __popc(need[w]);
+    nw += need[w] != 0u;
+  }
+  return need;
+}
+
+// The current candidate's staged rows; starts the copy of the next one
+// (chunk c0 + the lowest bit of `rest`, the candidates after it, if any)
+// into the other buffer, which the last sweep read.
+__device__ __forceinline__ const ChunkRows& coop_rows(
+    ChunkRows (&rows)[2], CoopCursor& cur, unsigned rest, int c0,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid) {
+  const ChunkRows& now = rows[cur.buf];
+  cur.buf ^= 1;
+  if (rest != 0) {
+    stage_chunk_async(rows[cur.buf], mu, mv, mw, e, c0 + __ffs(rest) - 1,
+                      tid);
+  }
+  return now;
+}
+
+// Superchunk `s` of the two-level closest-hit walk, block-cooperative
+// (kernels 3 and 6 for every s in index order, walk_two_level; kernel 7
+// for each entry of its block's queue). A ray needs chunk c of s when its
+// own slab tests against the inflated boxes of s and c both pass (tmax >=
+// tmin, tmax > 0, tmin <= its best t so far); the block enters s when one
+// of its rays passes s's test, and stages c when one of them needs it.
+// Who sweeps a staged chunk:
 //   - the block lists the k rays that need the chunk (a ballot per warp;
 //     entry i is the i-th needing ray in ray order);
 //   - warp w sweeps entries w, w + 8, ... a ray at a time
@@ -362,8 +415,96 @@ __device__ __forceinline__ int needing_ray(const unsigned* need, int i,
 //     the best-t cut (its needing rays are a subset of those), so a chunk
 //     no ray can need costs nothing, and a candidate the cut removes costs
 //     one read of its rows from L2.
-// Every thread calls it with its own ray `r` (stored in `sh` with its best
-// by the walk); the winner is read from `sh` after it returns.
+// Every thread of the block calls it with the same s and its own ray `r`,
+// whose o, d and best so far are in `sh` (two_level_start); the best is
+// merged there. `lane`, `warp` and `nc` (nsc * scc) are the caller's,
+// taken once for the walk, and so is the cursor `cur` (CoopCursor), which
+// it advances. `steps` counts the triangles the ray swept,
+// `sc_entries` the superchunks its block entered, `chunk_sweeps` the chunks
+// it swept. A sweep is idempotent: visiting s again sweeps only the chunks
+// whose gate still passes, and changes no best.
+__device__ __forceinline__ void walk_superchunk_coop(
+    TwoLevelShared& sh, const Ray& r, int s,
+    const float* __restrict__ sc_bounds, int nsc,
+    const float* __restrict__ chunk_bounds, int scc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid, int lane, int warp,
+    int nc, CoopCursor& cur, WalkCounts& cnt) {
+  float tmin, tmax;
+  slab(r, sc_bounds, nsc, s, tmin, tmax);
+  const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+  // Also the barrier after which every best of the last sweep is seen.
+  if (!__syncthreads_or(sc_may)) return;
+  cnt.sc_entries += 1.f;
+  // The chunks of s in groups of 32, one bit each.
+  for (int c0 = s * scc; c0 < (s + 1) * scc; c0 += 32) {
+    const int gn = min(32, (s + 1) * scc - c0);
+    unsigned bits = 0;
+    if (sc_may) {
+      for (int j = 0; j < gn; ++j) {
+        slab(r, chunk_bounds, nc, c0 + j, tmin, tmax);
+        if ((tmax >= tmin) && (tmax > 0.f)) bits |= 1u << j;
+      }
+    }
+    coop_vote(sh.vote, cur, bits, lane, warp);
+    __syncthreads();
+    unsigned cand = coop_candidates(sh.vote, cur);
+    if (cand == 0) continue;
+    coop_first(sh.rows, cur, cand, c0, mu, mv, mw, e, tid);
+    while (cand != 0) {
+      const int c = c0 + __ffs(cand) - 1;
+      cand &= cand - 1;
+      bool may = false;
+      if (sc_may) {
+        slab(r, chunk_bounds, nc, c, tmin, tmax);
+        may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+      }
+      coop_ballot(sh.vote, cur, may, lane, warp);
+      __syncthreads();  // the ballots, and chunk c's rows
+      int k, nw;
+      const unsigned* need = coop_list(sh.vote, cur, k, nw);
+      const ChunkRows& rows = coop_rows(sh.rows, cur, cand, c0, mu, mv, mw,
+                                        e, tid);
+      if (k == 0) continue;
+      cnt.chunk_sweeps += 1.f;
+      if (may) cnt.steps += (float)kBT;
+      if (8 * k > 7 * 32 * nw) {
+        if (may) {
+          Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid],
+                 sh.be[tid]};
+          sweep_closest(rows, r, c * kBT, b);
+          sh.bt[tid] = b.t;
+          sh.bu[tid] = b.u;
+          sh.bv[tid] = b.v;
+          sh.bwd[tid] = b.wd;
+          sh.be[tid] = b.e;
+        }
+      } else {
+        for (int i = warp; i < k; i += kWarps) {
+          sweep_closest_warp(sh, rows, needing_ray(need, i, lane), c * kBT,
+                             lane);
+        }
+      }
+      __syncthreads();  // the merged bests; rows and ballots are free
+    }
+  }
+}
+
+// Stores the ray's o and d in `sh`, and (t0, e0) as its best so far: no
+// hit (1e9, 0), or a march round's carried best.
+__device__ __forceinline__ void two_level_start(TwoLevelShared& sh,
+                                                const Ray& r, int tid,
+                                                float t0, int e0) {
+  sh.o[tid] = make_float4(r.ox, r.oy, r.oz, r.ow);
+  sh.d[tid] = make_float4(r.dx, r.dy, r.dz, r.dw);
+  sh.bt[tid] = t0;
+  sh.bu[tid] = sh.bv[tid] = sh.bwd[tid] = 0.f;
+  sh.be[tid] = e0;
+}
+
+// Two-level closest-hit walk of kernels 3 and 6: every superchunk in index
+// order (walk_superchunk_coop) from no hit. Every thread calls it with its
+// own ray `r`; the winner is read from `sh` after it returns.
 __device__ __forceinline__ void walk_two_level(
     TwoLevelShared& sh, const Ray& r, const float* __restrict__ sc_bounds,
     int nsc, const float* __restrict__ chunk_bounds, int scc,
@@ -371,89 +512,11 @@ __device__ __forceinline__ void walk_two_level(
     const float* __restrict__ mw, size_t e, int tid, WalkCounts& cnt) {
   const int lane = tid & 31, warp = tid >> 5;
   const int nc = nsc * scc;
-  sh.o[tid] = make_float4(r.ox, r.oy, r.oz, r.ow);
-  sh.d[tid] = make_float4(r.dx, r.dy, r.dz, r.dw);
-  sh.bt[tid] = kMiss;
-  sh.bu[tid] = sh.bv[tid] = sh.bwd[tid] = 0.f;
-  sh.be[tid] = 0;
-  int v = 0;    // votes taken
-  int buf = 0;  // the buffer the next chunk's rows go to
+  two_level_start(sh, r, tid, kMiss, 0);
+  CoopCursor cur{0, 0};
   for (int s = 0; s < nsc; ++s) {
-    float tmin, tmax;
-    slab(r, sc_bounds, nsc, s, tmin, tmax);
-    const bool sc_may =
-        (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
-    // Also the barrier after which every best of the last sweep is seen.
-    if (!__syncthreads_or(sc_may)) continue;
-    cnt.sc_entries += 1.f;
-    // The chunks of s in groups of 32, one bit each.
-    for (int c0 = s * scc; c0 < (s + 1) * scc; c0 += 32) {
-      const int gn = min(32, (s + 1) * scc - c0);
-      unsigned bits = 0;
-      if (sc_may) {
-        for (int j = 0; j < gn; ++j) {
-          slab(r, chunk_bounds, nc, c0 + j, tmin, tmax);
-          if ((tmax >= tmin) && (tmax > 0.f)) bits |= 1u << j;
-        }
-      }
-      bits = __reduce_or_sync(kFull, bits);
-      if (lane == 0) sh.vote[v & 1][warp] = bits;
-      __syncthreads();
-      unsigned cand = 0;
-      for (int w = 0; w < kWarps; ++w) cand |= sh.vote[v & 1][w];
-      ++v;
-      if (cand == 0) continue;
-      stage_chunk_async(sh.rows[buf], mu, mv, mw, e, c0 + __ffs(cand) - 1,
-                        tid);
-      while (cand != 0) {
-        const int c = c0 + __ffs(cand) - 1;
-        cand &= cand - 1;
-        bool may = false;
-        if (sc_may) {
-          slab(r, chunk_bounds, nc, c, tmin, tmax);
-          may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
-        }
-        const unsigned ballot = __ballot_sync(kFull, may);
-        if (lane == 0) sh.vote[v & 1][warp] = ballot;
-        cp_async_wait_all();
-        __syncthreads();  // the ballots, and chunk c's rows in sh.rows[buf]
-        const unsigned* need = sh.vote[v & 1];
-        ++v;
-        int k = 0, nw = 0;
-        for (int w = 0; w < kWarps; ++w) {
-          k += __popc(need[w]);
-          nw += need[w] != 0u;
-        }
-        const ChunkRows& rows = sh.rows[buf];
-        buf ^= 1;
-        // The next candidate's rows, into the buffer the last sweep read.
-        if (cand != 0) {
-          stage_chunk_async(sh.rows[buf], mu, mv, mw, e,
-                            c0 + __ffs(cand) - 1, tid);
-        }
-        if (k == 0) continue;
-        cnt.chunk_sweeps += 1.f;
-        if (may) cnt.steps += (float)kBT;
-        if (8 * k > 7 * 32 * nw) {
-          if (may) {
-            Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid],
-                   sh.be[tid]};
-            sweep_closest(rows, r, c * kBT, b);
-            sh.bt[tid] = b.t;
-            sh.bu[tid] = b.u;
-            sh.bv[tid] = b.v;
-            sh.bwd[tid] = b.wd;
-            sh.be[tid] = b.e;
-          }
-        } else {
-          for (int i = warp; i < k; i += kWarps) {
-            sweep_closest_warp(sh, rows, needing_ray(need, i, lane),
-                               c * kBT, lane);
-          }
-        }
-        __syncthreads();  // the merged bests; rows and ballots are free
-      }
-    }
+    walk_superchunk_coop(sh, r, s, sc_bounds, nsc, chunk_bounds, scc, mu, mv,
+                         mw, e, tid, lane, warp, nc, cur, cnt);
   }
 }
 
@@ -486,7 +549,9 @@ __device__ __forceinline__ bool occlude_chunk(
   return false;
 }
 
-// Flat any-hit walk (kernels 2 and 10) of shadow ray `r` in (0, lim)
+// Flat any-hit walk (kernel 10; kernel 4 sweeps with occlude_chunk, and
+// kernel 2 walks the same chunks block-cooperatively, walk_any_coop) of
+// shadow ray `r` in (0, lim)
 // over the nc chunks in index order: a ray tests chunk c when its slab
 // test against the inflated box passes with tmin < lim (then each half
 // by its own box, occlude_chunk), and stops at its first blocker; the
@@ -511,6 +576,135 @@ __device__ __forceinline__ bool walk_flat_any(
     if (!__syncthreads_or(!occ && lim > 0.f)) break;
   }
   return occ;
+}
+
+// ---------------------------------------------------------------------------
+// The block-cooperative any-hit walk (kernel 2)
+// ---------------------------------------------------------------------------
+
+// What the block shares during the any-hit walk (35 KB): the staged rows,
+// double buffered; every ray's o, d and limit, the halves of the staged
+// chunk it needs, whether it is occluded; and two slots of per-warp vote
+// words, as in TwoLevelShared.
+struct AnyHitShared {
+  ChunkRows rows[2];
+  float4 o[kBN], d[kBN];
+  float lim[kBN];
+  int halves[kBN];  // bit s: the ray sweeps half s of the staged chunk
+  int occ[kBN];
+  unsigned vote[2][kWarps];
+};
+
+// Any-hit of ray `ray` (o, d, limit and halves in `sh`) against the staged
+// chunk `rows`, by one warp: for each half it needs, lane l tests
+// triangles l, l + 32, l + 64, l + 96 of the half (occlude_chunk's test),
+// and the first half in which a lane finds a blocker marks the ray
+// occluded and ends its query.
+__device__ __forceinline__ void occlude_warp(AnyHitShared& sh,
+                                             const ChunkRows& rows, int ray,
+                                             int lane) {
+  const float4 o = sh.o[ray], d = sh.d[ray];
+  const Ray r{o.x, o.y, o.z, o.w, d.x, d.y, d.z, d.w, 0.f, 0.f, 0.f};
+  const float lim = sh.lim[ray];
+  const int halves = sh.halves[ray];
+  for (int s = 0; s < kSub; ++s) {
+    if (!((halves >> s) & 1)) continue;
+    bool hit = false;
+#pragma unroll
+    for (int q = 0; q < kSW / 32; ++q) {
+      const Uvt h = intersect(rows, r, s * kSW + lane + 32 * q);
+      hit |= h.wd_ok && h.t > 0.f && h.t < lim && h.u >= 0.f && h.v >= 0.f &&
+             h.u + h.v <= 1.f;
+    }
+    if (__any_sync(kFull, hit)) {
+      if (lane == 0) sh.occ[ray] = 1;
+      return;
+    }
+  }
+}
+
+// Any-hit walk of kernel 2, block-cooperative: shadow ray `r` in (0, lim)
+// over the nc chunks in index order. The answer is walk_flat_any's: a ray
+// tests half h of chunk c when its slab test against the chunk's inflated
+// box passes with tmin < lim, the half's own box passes too, and it is not
+// yet occluded; `occ` is an OR over those tests, so neither the visit order
+// nor the grouping changes it. A ray with lim <= 0 (parked) is never
+// occluded (no t is in (0, lim)) and tests nothing. What differs is who
+// tests:
+//   - the chunks in groups of 32: each unresolved ray keeps the bits of
+//     the group's chunks its gate passes, and a vote word per warp names
+//     the candidates (chunks some unresolved ray of the block enters);
+//   - per candidate, each ray that needs it finds the halves it needs,
+//     and the block lists the k rays with one (a ballot per warp);
+//   - warp w tests entries w, w + 8, ... a ray at a time (occlude_warp),
+//     however full the needing warps are: unlike the closest hit, a ray's
+//     own thread would stop at its first blocker while its warp's other
+//     lanes wait for the slowest; measured in turns on the H100, a thread
+//     path where the needing warps are more than 7/8 full (as
+//     walk_superchunk_coop has) cost 1% (grid) to 24% (demo) more than
+//     warp sweeps alone;
+//   - the rows arrive by cp.async into one of two buffers, the next
+//     candidate's while the current one is swept;
+//   - the block ends the walk at the first barrier where no ray is
+//     unresolved (lim > 0 and not occluded).
+// Every thread calls it with its own ray; returns whether it is occluded.
+__device__ __forceinline__ bool walk_any_coop(
+    AnyHitShared& sh, const Ray& r, float lim,
+    const float* __restrict__ bounds, const float* __restrict__ sub_bounds,
+    int nc, const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  sh.o[tid] = make_float4(r.ox, r.oy, r.oz, r.ow);
+  sh.d[tid] = make_float4(r.dx, r.dy, r.dz, r.dw);
+  sh.lim[tid] = lim;
+  sh.occ[tid] = 0;
+  bool live = lim > 0.f;  // unresolved: not parked, not yet occluded
+  CoopCursor cur{0, 0};
+  for (int c0 = 0; c0 < nc; c0 += 32) {
+    const int gn = min(32, nc - c0);
+    unsigned bits = 0;  // this ray's gates over the group
+    if (live) {
+      for (int j = 0; j < gn; ++j) {
+        float tmin, tmax;
+        slab(r, bounds, nc, c0 + j, tmin, tmax);
+        if ((tmax >= tmin) && (tmax > 0.f) && (tmin < lim)) bits |= 1u << j;
+      }
+    }
+    coop_vote(sh.vote, cur, bits, lane, warp);
+    if (!__syncthreads_or(live)) break;  // every ray resolved
+    unsigned cand = coop_candidates(sh.vote, cur);
+    if (cand == 0) continue;
+    coop_first(sh.rows, cur, cand, c0, mu, mv, mw, e, tid);
+    while (cand != 0) {
+      const int j = __ffs(cand) - 1;
+      const int c = c0 + j;
+      cand &= cand - 1;
+      int halves = 0;
+      if (live && ((bits >> j) & 1u)) {
+        for (int s = 0; s < kSub; ++s) {
+          float tmin, tmax;
+          slab(r, sub_bounds, kSub * nc, c * kSub + s, tmin, tmax);
+          if (tmax >= tmin && tmax > 0.f && tmin < lim) halves |= 1 << s;
+        }
+      }
+      sh.halves[tid] = halves;
+      coop_ballot(sh.vote, cur, halves != 0, lane, warp);
+      // The ballots, the halves and chunk c's rows; no copy is in flight
+      // here, so the walk may end.
+      if (!__syncthreads_or(live)) return sh.occ[tid] != 0;
+      int k, nw;
+      const unsigned* need = coop_list(sh.vote, cur, k, nw);
+      const ChunkRows& rows = coop_rows(sh.rows, cur, cand, c0, mu, mv, mw,
+                                        e, tid);
+      if (k == 0) continue;
+      for (int i = warp; i < k; i += kWarps) {
+        occlude_warp(sh, rows, needing_ray(need, i, lane), lane);
+      }
+      __syncthreads();  // the occlusions; rows, halves and ballots are free
+      live = live && sh.occ[tid] == 0;
+    }
+  }
+  return sh.occ[tid] != 0;
 }
 
 // Rows 0-39 the winner's table row (0 on a miss), 40 t, 41 u, 42 v,

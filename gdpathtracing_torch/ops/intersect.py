@@ -69,6 +69,7 @@ from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
 
 BN = 256     # rays per kernel block
+WARPS = BN // 32  # warps per kernel block
 BT = 256     # triangles per chunk
 TAB_R = 40   # winner-table rows
 OUT_R = 48   # output rows: 0:40 table | 40 t | 41 u | 42 v | 43 w_d |
@@ -529,8 +530,26 @@ class Occlusion(NamedTuple):
     sweeps: torch.Tensor  # (N,) f32 chunks its 256-ray block swept
 
 
-def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
-                   ) -> Occlusion:
+def any_hit_slots(tests: torch.Tensor) -> torch.Tensor:
+    """(N/256,) f32: the thread-slots each 256-ray block spends testing one
+    staged chunk in csrc/trace_common.cuh ``walk_any_coop``, from each
+    ray's tests of that chunk ``tests`` (N,): 128 for each half it tests,
+    up to the first that blocks; 0 where it needs none. Entry i of the
+    list of needing rays (the i-th in ray order) goes to warp i mod 8,
+    which spends a slot a test (4 a lane per half), and the block waits for
+    its busiest warp: 8 × that warp's sum; 0 where no ray needs the
+    chunk."""
+    need = (tests > 0).view(-1, BN)
+    entry = torch.cumsum(need, dim=1) - 1
+    per_warp = torch.zeros((need.shape[0], WARPS), dtype=tests.dtype,
+                           device=tests.device).scatter_add_(
+        1, torch.where(need, entry % WARPS, 0),
+        torch.where(need, tests.view(-1, BN), 0.0))
+    return (WARPS * per_warp.amax(dim=1)).to(torch.float32)
+
+
+def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
+                   counts: dict | None = None) -> Occlusion:
     """Plain PyTorch version of csrc/occlusion.cu: chunks in index order;
     a ray sweeps a chunk's 128-triangle half when its own slab tests
     against the inflated chunk box and the half's box pass with
@@ -539,7 +558,13 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
 
     Also counts, per ray, the triangle tests these inputs need in that
     order (128 per half swept) and, per 256-ray block, the chunks that
-    some ray of the block needed (the fused kernel's row 47)."""
+    some ray of the block needed (the fused kernel's row 47). ``counts``,
+    when given, receives the thread-slots kernel 2's block-cooperative
+    walk spends on these tests (``"slots"``, :func:`any_hit_slots` summed
+    over blocks and chunks) and the slab tests the rays need in that order
+    (``"slab_tests"``): chunk c's box for each ray with tlim > 0 that no
+    earlier chunk blocked, and half s's box for each such ray that passes
+    the chunk's gate and that no earlier half blocked."""
     n, e = o4t.shape[1], mu.shape[1]
     nc = e // BT
     ox, oy, oz, ow = o4t.unbind(0)
@@ -549,11 +574,19 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
     tests = torch.zeros(n, dtype=torch.float32, device=o4t.device)
     sweeps = torch.zeros_like(tests)
 
+    slots = torch.zeros((), dtype=torch.float32, device=o4t.device)
+    slabs = torch.zeros((), dtype=torch.float32, device=o4t.device)
+    live = tlim > 0.0
     for c in range(nc):
         tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
         may = (tmax >= tmin) & (tmax > 0.0) & (tmin < tlim) & ~occ
         sweeps += _block_any(may)
+        before = tests.clone() if counts is not None else None
+        if counts is not None:
+            slabs += (live & ~occ).sum()
         for s in range(SUB):
+            if counts is not None:
+                slabs += (live & may & ~occ).sum()
             smin, smax = _slab(sub_bounds[:, c * SUB + s], ox, oy, oz,
                                rdx, rdy, rdz)
             idx = torch.nonzero(may & (smax >= smin) & (smax > 0.0)
@@ -569,6 +602,11 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw
             blocked = wd_ok & (t > 0.0) & (t < tlim[idx, None]) & \
                 (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
             occ[idx] = blocked.any(dim=1)
+        if counts is not None:
+            slots += any_hit_slots(tests - before).sum()
+    if counts is not None:
+        counts["slots"] = float(slots)
+        counts["slab_tests"] = float(slabs)
     return Occlusion(occ.to(torch.int32), tests, sweeps)
 
 
@@ -646,14 +684,11 @@ closest_hit_rows_nee.launches = 0
 # Kernels 3 and 6: the two-level (superchunk) closest hit
 # ---------------------------------------------------------------------------
 
-WARPS = BN // 32  # warps per kernel block
-
-
 def two_level_slots(may: torch.Tensor) -> torch.Tensor:
     """(N/256,) f32: the thread-slots each 256-ray block spends sweeping
-    one staged chunk in csrc/trace_common.cuh ``walk_two_level``, from the
-    rays' gates ``may`` (N,) bool. With k needing rays in the nw warps
-    that hold one: where 8k > 7·32·nw their own threads sweep all 256
+    one staged chunk in csrc/trace_common.cuh ``walk_superchunk_coop``,
+    from the rays' gates ``may`` (N,) bool. With k needing rays in the nw
+    warps that hold one: where 8k > 7·32·nw their own threads sweep all 256
     triangles (nw × 32 lanes × 256), else a warp per ray (⌈k/8⌉ rounds ×
     8 warps × 32 lanes × 8 triangles); 0 where k = 0."""
     m = may.view(-1, WARPS, 32)
@@ -684,7 +719,7 @@ class TwoLevelWalk(NamedTuple):
 
 def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
                           mu, mv, mw, scc) -> None:
-    """Plain version of csrc/trace_common.cuh ``walk_superchunk``:
+    """Plain version of csrc/trace_common.cuh ``walk_superchunk_coop``:
     superchunk ``s`` for the rays where ``sel`` (N,) is set (a union of
     whole 256-ray blocks; None: every ray), into ``acc`` in place. A ray
     sweeps a chunk of ``s`` when its own slab tests against the
@@ -820,7 +855,10 @@ def march_step_sc_plain(o4t, d4t, init, queue, sc_bounds, bounds, mu, mv,
     order (:func:`walk_superchunk_plain` per real entry; an entry outside
     [0, nsc) sweeps nothing). (8, N) rows: t, eidx, triangles swept by the
     ray, superchunks its block entered, 4 zeros. ``counts``, when given,
-    receives the slab tests the rays needed (``"slab_tests"``)."""
+    receives the slab tests the rays needed (``"slab_tests"``), the
+    thread-slots of the block-cooperative walk (``"slots"``,
+    :func:`two_level_slots`) and of one thread per ray, every lane of a
+    block on each chunk it swept (``"thread_slots"``)."""
     n, nsc = o4t.shape[1], sc_bounds.shape[1]
     acc = TwoLevelWalk.start(_ClosestWalk(o4t, d4t, init[0],
                                           init[1].to(torch.int64)))
@@ -833,6 +871,8 @@ def march_step_sc_plain(o4t, d4t, init, queue, sc_bounds, bounds, mu, mv,
                                       mu, mv, mw, scc)
     if counts is not None:
         counts["slab_tests"] = float(acc.slab_tests.sum())
+        counts["slots"] = float(acc.slots[::BN].sum())
+        counts["thread_slots"] = float(acc.chunk_sweeps[::BN].sum()) * BN * BT
     out = torch.zeros((LITE_R, n), dtype=torch.float32, device=o4t.device)
     out[0], out[1] = acc.walk.best_t, acc.walk.best_e.to(torch.float32)
     out[2], out[3] = acc.walk.steps, acc.sc_entries

@@ -1,0 +1,173 @@
+"""The traversal kernels' check and timing tiles, built in one place:
+chip_smoke.py phase 2 holds each kernel against its plain version on them,
+and tools/two_level_turns.py times builds of the kernels in turns on the
+same operands.
+
+Every tile is cut from a 1920x1080 frame, 1 spp, around its middle (the
+top rows see no geometry): the standard loop's tile of ``cfg.tile_rays``
+rays (:func:`middle_tile`), or regen's wavefront of ``cfg.regen_wavefront``
+shadow rays (:func:`wavefront_shadow_rays`). The rays are the camera's,
+their hits those of the default traversal, a bounce is one BRDF sample
+from a hit, and a shadow ray goes from a hit toward a sampled light point
+(NEE's query), as in a frame. The march rounds (:func:`march_rounds`) are
+those of regen's frontier march: the lanes in its sort order, queued by
+its own candidate scan and block queues.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gdpathtracing_torch.config import RenderConfig
+from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.ops import intersect as ti
+from gdpathtracing_torch.render import brdf
+from gdpathtracing_torch.render.integrator import sample_direct
+from gdpathtracing_torch.render.regen import march_lane_key
+from gdpathtracing_torch.render.shading import get_shading_data
+from gdpathtracing_torch.render.types import Ray
+
+W, H = 1920, 1080
+
+
+def middle_tile(cfg: RenderConfig) -> int:
+    """The first pixel of the standard loop's tile through the middle of
+    the frame."""
+    return (W * H // 2) // cfg.tile_rays * cfg.tile_rays
+
+
+def camera_rays(cam, cfg: RenderConfig, n: int, first: int, device):
+    """The camera rays of pixels [first, first + n) and their RNG streams
+    after the pixel jitter: (Ray, seed)."""
+    pids = torch.arange(n, device=device) + first
+    seed = rng.prng_seed(pids % W, torch.div(pids, W, rounding_mode="floor"),
+                         0)
+    return cam.to(device).generate_rays(pids, seed, cfg)
+
+
+def middle_rays(scene, cam, prep: ti.TracePrep, cfg: RenderConfig, n: int,
+                first: int):
+    """Primary rays of pixels [first, first + n), their hits (the default
+    traversal), shading and RNG streams: (Ray, HitInfo, ShadingInfo,
+    seed)."""
+    ray, seed = camera_rays(cam, cfg, n, first, prep.mu.device)
+    hit = ti.trace_pallas(scene, ray, None, prep)
+    return ray, hit, get_shading_data(scene, hit, ray), seed
+
+
+def bounce_rays(s, hit, seed, cfg: RenderConfig):
+    """One BRDF-sampled bounce from the hits ``hit`` with shading ``s``:
+    (Ray, active)."""
+    (r1, r2), _ = rng.pcg2d(seed)
+    return Ray(s.position + s.normal * cfg.ray_eps,
+               brdf.sample_brdf(s, r1, r2)), hit.hit
+
+
+def shadow_queries(s, hit, seed, prep: ti.TracePrep, cfg: RenderConfig):
+    """NEE's shadow queries from the hits toward sampled light points, at a
+    throughput of 1: the pending record of ``sample_direct`` (``shadow``,
+    ``active``, ``tmax``)."""
+    pend, _ = sample_direct(s, s.position * 0.0 + 1.0, hit.hit, seed,
+                            prep.lights, cfg)
+    return pend
+
+
+def wavefront_shadow_rays(scene, cam, prep: ti.TracePrep, cfg: RenderConfig,
+                          n: int | None = None):
+    """Kernel 2's tile: the shadow rays of regen's wavefront (``n`` rays,
+    ``cfg.regen_wavefront`` by default) from the hits of the pixels around
+    the middle of the frame: (the operands of ``ti.occluded``, the number
+    of queries)."""
+    n = cfg.regen_wavefront if n is None else n
+    _, hit, s, seed = middle_rays(scene, cam, prep, cfg, n, (W * H - n) // 2)
+    pend = shadow_queries(s, hit, seed, prep, cfg)
+    o4t, d4t, tlim = ti.pack_shadow_rays(pend.shadow, pend.active, pend.tmax)
+    return ((o4t, d4t, tlim, prep.bounds, prep.sub_bounds, prep.mu, prep.mv,
+             prep.mw), int(pend.active.sum()))
+
+
+def rows_nee_operands(prep: ti.TracePrep, bounce: Ray, active, pend):
+    """Kernel 4's operands: the bounce rays with the shadow queries ``pend``
+    of the hits they leave (``ti.closest_hit_rows_nee``)."""
+    o4t, d4t = ti.pack_rays(bounce, active)
+    so4t, sd4t, stmax = ti.pack_shadow_rays(pend.shadow, pend.active,
+                                             pend.tmax)
+    return (o4t, d4t, so4t, sd4t, stmax, prep.bounds, prep.sub_bounds,
+            prep.mu, prep.mv, prep.mw, prep.tab)
+
+
+class MarchRound(NamedTuple):
+    """One round of kernel 7: its name and the operands of
+    ``ti.march_step_sc`` before the scene's."""
+    what: str
+    o4t: torch.Tensor
+    d4t: torch.Tensor
+    init: torch.Tensor   # (2, N): the carried best t and eidx
+    queue: torch.Tensor  # (N/256 · QL,) int32
+
+
+def march_rounds(prep: ti.TracePrep, primary: Ray, bounce: Ray, active,
+                 cfg: RenderConfig) -> list[MarchRound]:
+    """Kernel 7's rounds on a tile of a superchunk scene, the lanes sorted
+    by regen's march key (next superchunk, the one after it, octant) and
+    queued by the march's candidate scan and block queues (QL =
+    ``cfg.regen_march_ql``; sentinels and repeats among the entries):
+    primary rays from the spawn state (no winner, BIG_E); a second round
+    from the first's carried best (its plain version's), the cursors past
+    the first candidate; bounce-1 rays from the spawn state; and primary
+    rays from no winner with every superchunk queued, kernel 3's walk
+    entry by entry."""
+    nsc = prep.sc_bounds.shape[1]
+    dev = prep.mu_pad.device
+    n = active.shape[0]
+    ql = cfg.regen_march_ql
+
+    def no_winner():
+        return torch.stack([torch.full((n,), ti._MISS, device=dev),
+                            torch.full((n,), float(ti.BIG_E), device=dev)])
+
+    def candidates(ray, act, m_t=None, m_sc=None, b_t=None):
+        return ti.march_next_candidates(
+            prep, ray.o, ray.d, act,
+            torch.full((n,), -torch.inf, device=dev) if m_t is None else m_t,
+            torch.full((n,), -1, dtype=torch.int64, device=dev)
+            if m_sc is None else m_sc,
+            torch.full((n,), ti._MISS, device=dev) if b_t is None else b_t,
+            k=cfg.regen_march_k)
+
+    def sorted_lanes(ray, act):
+        es, ss = candidates(ray, act)
+        key = torch.where(act, march_lane_key(ray.d, ss[0], ss[1], nsc),
+                          1 << 22)
+        perm = torch.argsort(key, stable=True)
+        ray = Ray(type(ray.o)(*(x[perm] for x in ray.o)),
+                  type(ray.d)(*(x[perm] for x in ray.d)))
+        return ray, act[perm], [x[perm] for x in es], [x[perm] for x in ss]
+
+    def queue(ss):
+        return ti.march_block_queue(ss, nsc, ql)[0]
+
+    ray, act, es, ss = sorted_lanes(primary, torch.ones_like(active))
+    o4t, d4t = ti.pack_rays(ray)
+    spawn = MarchRound("primary rays, spawn", o4t, d4t, no_winner(),
+                       queue(ss))
+    first = ti.march_step_sc_plain(o4t, d4t, spawn.init, spawn.queue,
+                                   prep.sc_bounds, prep.chunk_bounds,
+                                   prep.mu_pad, prep.mv_pad, prep.mw_pad,
+                                   prep.scc)
+    moved = ss[0] < nsc
+    _, ss2 = candidates(ray, act, torch.where(moved, es[0], -torch.inf),
+                        torch.where(moved, ss[0], -1), first[0])
+    bray, bact, _, bss = sorted_lanes(bounce, active)
+    bo4t, bd4t = ti.pack_rays(bray, bact)
+    every = torch.arange(nsc, dtype=torch.int32, device=dev).repeat(
+        n // ti.BN)
+    return [spawn,
+            MarchRound("primary rays, carried", o4t, d4t,
+                       first[:2].contiguous(), queue(ss2)),
+            MarchRound("bounce-1 rays, spawn", bo4t, bd4t, no_winner(),
+                       queue(bss)),
+            MarchRound("primary rays, every superchunk queued", o4t, d4t,
+                       no_winner(), every)]

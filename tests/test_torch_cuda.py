@@ -237,9 +237,10 @@ def _two_level_set(prep, kind, n):
       from 1e-2 off (the winner at either end of a chunk), a tenth parked;
     - ties: rays at the triangles of GRID_COPIES, copied into the
       destination columns (boxes grown to hold them), random rays and a
-      tenth parked: two triangles at the same t, the lower eidx wins."""
+      tenth parked: two triangles at the same t, the lower eidx wins;
+    - random: random rays over the grid, a tenth parked."""
     g = np.random.default_rng({"one_per_block": 21, "same_chunk": 22,
-                               "edges": 23, "ties": 24}[kind])
+                               "edges": 23, "ties": 24, "random": 25}[kind])
     rows = [x.cpu().numpy().copy() for x in (prep.mu_pad, prep.mv_pad,
                                             prep.mw_pad)]
     cb = prep.chunk_bounds.cpu().numpy().copy()
@@ -270,7 +271,7 @@ def _two_level_set(prep, kind, n):
         c = g.choice(np.flatnonzero(ok[255:-1:ti.BT] & ok[256::ti.BT]), n)
         aimed = c * ti.BT + np.where(g.uniform(size=n) < 0.5, 255, 256)
         o, d = _aim_at(rows, aimed, 1e-2, g)
-    else:
+    elif kind == "ties":
         for src, dst in GRID_COPIES:
             assert ok[src]
             for x in rows:
@@ -334,6 +335,220 @@ def test_two_level_kernels_adversarial(bench_grid, kernel, kind, n):
         assert torch.equal(got[e_row][on].long(),
                            torch.from_numpy(aimed).cuda()[on])
     assert (got[t_row] < ti._MISS).any()
+
+
+def _no_winner(n, dev):
+    return torch.stack([torch.full((n,), ti._MISS, device=dev),
+                        torch.full((n,), float(ti.BIG_E), device=dev)])
+
+
+def _march_queue(sc_bounds, o4, d4, ql):
+    """Each block's ``ql`` queue slots from the march's own candidate scan
+    (k = 6) over the superchunk boxes ``sc_bounds``, from the spawn state:
+    sentinels and repeats among them."""
+    from types import SimpleNamespace
+
+    from gdpathtracing_torch.core.vec import Vec3
+    n, dev = o4.shape[1], o4.device
+    _, ss = ti.march_next_candidates(
+        SimpleNamespace(sc_bounds=sc_bounds), Vec3(*o4[:3]), Vec3(*d4[:3]),
+        o4[0] < 1e8, torch.full((n,), -torch.inf, device=dev),
+        torch.full((n,), -1, dtype=torch.int64, device=dev),
+        torch.full((n,), ti._MISS, device=dev), k=6)
+    return ti.march_block_queue(ss, sc_bounds.shape[1], ql)[0]
+
+
+def _block_queue(nb, entries, ql, dev):
+    """The same ``entries`` in every block's ``ql`` slots, sentinels after
+    them (int32, (nb * ql,))."""
+    q = list(entries) + [1 << 20] * (ql - len(entries))
+    return torch.tensor(q, dtype=torch.int32, device=dev).repeat(nb)
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("case", ["one_per_block", "same_chunk", "edges",
+                                  "tie", "repeat", "sentinels", "ql1",
+                                  "ql16"])
+def test_march_step_kernel_adversarial(bench_grid, case, n):
+    """Kernel 7 (kernel 3's walk_superchunk_coop, entry by entry) against
+    its plain version bit for bit in every row, on adversarial rounds of
+    the bench grid:
+    - one_per_block, same_chunk, edges: _two_level_set's rays (one needing
+      ray a block; a block's 256 rays on one chunk; winners at triangle
+      255 / 0 of a chunk), queued by the march's candidate scan, QL 8;
+    - tie: the ties set, first a round over the superchunks that hold the
+      higher eidx of GRID_COPIES' pairs, then, from its carried best, a
+      round over those of the lower eidx: each aimed ray meets its
+      carried (t, larger eidx) again at an equal t and ends with the lower
+      eidx;
+    - repeat: random rays, each block's first queued superchunk in all 8
+      slots;
+    - sentinels: every slot a sentinel (nsc, -1, 2^20) from a carried best:
+      the rows are that best, with no steps and no entries;
+    - ql1, ql16: random rays queued with 1 and 16 slots a block."""
+    kind = {"tie": "ties"}.get(case, case)
+    if case in ("repeat", "sentinels", "ql1", "ql16"):
+        kind = "random"
+    (o4, d4), geo, _, aimed = _two_level_set(bench_grid, kind, n)
+    dev, nb, scc = o4.device, n // ti.BN, bench_grid.scc
+    nsc = geo[0].shape[1]
+    init = _no_winner(n, dev)
+    ql = {"ql1": 1, "ql16": 16}.get(case, 8)
+    queue = _march_queue(geo[0], o4, d4, ql)
+    if case == "repeat":
+        queue = queue.view(nb, ql)[:, :1].repeat(1, ql).reshape(-1)
+    elif case == "sentinels":
+        init = ti.march_step_sc_plain(o4, d4, init, queue, *geo,
+                                      scc)[:2].contiguous()
+        queue = torch.tensor([nsc, -1, 1 << 20] * 3, dtype=torch.int32,
+                             device=dev)[:ql].repeat(nb)
+    elif case == "tie":
+        def sc_of(e):
+            return e // ti.BT // scc
+        hi = sorted({sc_of(max(p)) for p in GRID_COPIES} - {sc_of(min(p))
+                                                             for p in
+                                                             GRID_COPIES})
+        lo = sorted({sc_of(min(p)) for p in GRID_COPIES})
+        init = ti.march_step_sc_plain(o4, d4, init,
+                                      _block_queue(nb, hi, ql, dev), *geo,
+                                      scc)[:2].contiguous()
+        queue = _block_queue(nb, lo, ql, dev)
+    queue = queue.contiguous()
+    before = ti.march_step_sc.launches
+    got = ti.march_step_sc(o4, d4, init, queue, *geo, scc)
+    torch.cuda.synchronize()
+    assert ti.march_step_sc.launches == before + 1
+    want = ti.march_step_sc_plain(o4, d4, init, queue, *geo, scc)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "sentinels":
+        assert torch.equal(got[:2].view(torch.int32),
+                           init.view(torch.int32))
+        assert not got[2:].any()
+        return
+    assert (got[0] < ti._MISS).any()
+    if case == "tie":
+        a = torch.from_numpy(aimed).to(dev)
+        carried = torch.zeros_like(a, dtype=torch.bool)
+        for src, dst in GRID_COPIES:
+            if sc_of(src) != sc_of(dst):
+                carried |= a == min(src, dst)
+        # The carried best held the larger eidx of the pair at the t the
+        # round found again; the lower one won.
+        assert int(carried.sum()) > 0
+        assert torch.equal(got[0][carried], init[0][carried])
+        assert bool((init[1][carried].long() > a[carried]).all())
+        on = a >= 0
+        assert torch.equal(got[1][on].long(), a[on])
+
+
+def _occlusion_set(prep, kind, n, flat_range):
+    """Kernel 2's operands (shadow rays and limits on the card, the flat
+    chunk boxes, half boxes and rows of ``prep``) for an adversarial set,
+    from a numpy seed, and each ray's aimed eidx or -1. Random rays start
+    in the box ``flat_range`` ((lo, hi) of x and z, (lo, hi) of y):
+    - blockers: rays at triangles 0, 127, 128 and 255 of the chunks (the
+      ends of both halves) from 0.05-0.2 off their planes, each limit
+      twice that: the aimed triangle blocks each one;
+    - tlim_at_t: the same rays with the limit equal to the aimed
+      triangle's own t (strict <: it does not block), computed as the
+      kernel does;
+    - parked: random rays with random limits, a tenth parked (origin 1e9,
+      limit 0) and a tenth with a real origin and a limit of 0 or -1;
+    - one_live: one random ray in each 256-ray block, the rest parked;
+    - one_chunk: every ray at a triangle of one chunk, from 0.05-2 off,
+      limits in (0, 2 × that)."""
+    g = np.random.default_rng({"blockers": 31, "tlim_at_t": 31, "parked": 32,
+                               "one_live": 33, "one_chunk": 34}[kind])
+    rows = [x.cpu().numpy() for x in (prep.mu, prep.mv, prep.mw)]
+    ok = _well_formed(rows)
+    (x0, x1), (y0, y1) = flat_range
+    o = np.stack([g.uniform(x0, x1, n), g.uniform(y0, y1, n),
+                  g.uniform(x0, x1, n)])
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    tlim = g.uniform(0.0, 2.0 * (x1 - x0), n)
+    aimed = np.full(n, -1)
+    park = np.zeros(n, bool)
+    if kind in ("blockers", "tlim_at_t"):
+        ends = np.array([0, 127, 128, 255])
+        cand = (np.arange(ok.size // ti.BT)[:, None] * ti.BT + ends).ravel()
+        aimed = g.choice(cand[ok[cand]], n)
+        dist = g.uniform(0.05, 0.2, n)
+        o, d = _aim_at(rows, aimed, dist, g)
+        tlim = 2.0 * dist
+    elif kind == "one_chunk":
+        c = g.choice(np.flatnonzero(ok.reshape(-1, ti.BT).sum(axis=1) > 128))
+        aimed = c * ti.BT + g.choice(np.flatnonzero(ok[c * ti.BT:
+                                                       (c + 1) * ti.BT]), n)
+        dist = g.uniform(0.05, 2.0, n)
+        o, d = _aim_at(rows, aimed, dist, g)
+        tlim = g.uniform(0.0, 2.0, n) * dist
+    elif kind == "parked":
+        park = g.uniform(size=n) < 0.1
+        zero = ~park & (g.uniform(size=n) < 0.1)
+        tlim[zero] = np.where(g.uniform(size=int(zero.sum())) < 0.5, 0.0,
+                              -1.0)
+    else:
+        park = np.ones(n, bool)
+        park[np.arange(0, n, ti.BN) + g.integers(0, ti.BN, n // ti.BN)] = False
+    o[:, park], d[:, park], tlim[park] = 1e9, 0.5773503, 0.0
+    aimed[park] = -1
+    dev = prep.mu.device
+    o4, d4 = (torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [x, np.full((1, n), w)]), dtype=np.float32)).to(dev)
+        for x, w in ((o, 1.0), (d, 0.0)))
+    lim = torch.from_numpy(tlim.astype(np.float32)).to(dev)
+    if kind == "tlim_at_t":
+        # t of the aimed triangle in the kernel's terms (trace_common.cuh
+        # intersect: -w_o / w_d, each 4-term dot left to right).
+        a = torch.from_numpy(aimed).to(dev)
+        mw = prep.mw[:, a]
+        w_d = d4[0] * mw[0] + d4[1] * mw[1] + d4[2] * mw[2] + d4[3] * mw[3]
+        w_o = o4[0] * mw[0] + o4[1] * mw[1] + o4[2] * mw[2] + o4[3] * mw[3]
+        lim = (-w_o / w_d).contiguous()
+    return (o4, d4, lim, prep.bounds, prep.sub_bounds, prep.mu, prep.mv,
+            prep.mw), aimed
+
+
+@pytest.mark.parametrize("n", [256, 393216])
+@pytest.mark.parametrize("kind", ["blockers", "tlim_at_t", "parked",
+                                  "one_live", "one_chunk"])
+@pytest.mark.parametrize("where", ["demo", "grid"])
+def test_occlusion_kernel_adversarial(scene, bench_grid, where, kind, n):
+    """Kernel 2 (the block-cooperative any-hit walk) against its plain
+    version on the adversarial shadow-ray sets of _occlusion_set, on the
+    demo scene and on the bench grid's 376 flat chunks; the aimed blockers
+    block, and a limit at the blocker's own t does not."""
+    if where == "demo":
+        prep = ti.prepare_trace_inputs(scene.to("cuda"))
+        box = ((-2.5, 2.5), (-2.5, 2.5))
+    else:
+        prep = bench_grid
+        box = ((-14.0, 14.0), (-0.5, 3.0))
+    args, aimed = _occlusion_set(prep, kind, n, box)
+    before = ti.occluded.launches
+    got = ti.occluded(*args)
+    torch.cuda.synchronize()
+    assert ti.occluded.launches == before + 1
+    want = ti.occluded_plain(*args)
+    assert torch.equal(got, want.occ)
+    on = torch.from_numpy(aimed >= 0).cuda()
+    if kind == "blockers":
+        assert bool(got[on].all())
+    elif kind == "tlim_at_t":
+        # Mostly open at tlim = t (those aimed up at a sphere's lowest
+        # triangles start under the floor, which blocks them: 12% of the
+        # grid's); just past it, every aimed ray is blocked.
+        assert float(got[on].float().mean()) < 0.25
+        past = list(args)
+        past[2] = torch.nextafter(args[2], torch.full_like(args[2],
+                                                           torch.inf))
+        assert bool(ti.occluded(*past)[on].all())
+    elif kind == "one_live":
+        assert int((args[0][0] < 1e8).sum()) == n // ti.BN
+    else:
+        assert 0 < int(got.sum()) < int((args[2] > 0).sum())
+    assert not bool(got[args[2] <= 0].any())  # parked: never occluded
 
 
 @pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])

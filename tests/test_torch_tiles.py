@@ -1,0 +1,135 @@
+"""The kernel tiles of ops/tiles.py, which chip_smoke.py checks the kernels
+on and tools/two_level_turns.py times them on, cut small on the CPU:
+
+- ``march_rounds`` on the mid-size sphere grid (34 chunks, 5
+  superchunks): four rounds over a permutation of the tile's lanes, the
+  second carrying the first's plain winners, the last with every
+  superchunk queued, which gives kernel 3's winners and counts;
+- ``wavefront_shadow_rays`` on the same grid: the operands kernel 2
+  takes, parked rays with limit 0, both answers among the queries;
+- ``rows_nee_operands`` on the demo: kernel 4's rows equal kernel 1's on
+  its bounce rays (the winners), its occlusion kernel 2's on its shadow
+  rays.
+
+The tiles hold no kernel of their own, so nothing here runs JAX.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from gdpathtracing_torch.config import RenderConfig
+from gdpathtracing_torch.ops import intersect as ti
+from gdpathtracing_torch.ops import tiles as kt
+from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                            build_sphere_grid, demo_camera,
+                                            grid_camera)
+
+torch.set_num_threads(1)
+N = 512
+CFG = RenderConfig(tile_rays=N, regen_wavefront=N)
+
+
+def _columns(o4t, d4t):
+    """The rays of packed (4, N) tensors as a sorted list of 8-tuples."""
+    return sorted(map(tuple, torch.cat([o4t, d4t]).T.tolist()))
+
+
+@pytest.fixture(scope="module")
+def mid():
+    scene = build_sphere_grid(n=4, sphere_detail=12, device="cpu")
+    return scene, grid_camera(kt.W, kt.H, n=4), ti.prepare_trace_inputs(scene)
+
+
+@pytest.fixture(scope="module")
+def mid_rounds(mid):
+    scene, cam, prep = mid
+    primary, hit, s, seed = kt.middle_rays(scene, cam, prep, CFG, N,
+                                           kt.middle_tile(CFG))
+    bounce, active = kt.bounce_rays(s, hit, seed, CFG)
+    return prep, primary, bounce, active, kt.march_rounds(
+        prep, primary, bounce, active, CFG)
+
+
+def test_middle_tile():
+    assert kt.middle_tile(CFG) % N == 0
+    assert kt.middle_tile(CFG) <= kt.W * kt.H // 2 < kt.middle_tile(CFG) + N
+
+
+def test_march_rounds_lanes_and_queues(mid_rounds):
+    prep, primary, bounce, active, rounds = mid_rounds
+    nsc = prep.sc_bounds.shape[1]
+    assert prep.superchunks and nsc == 5
+    assert [r.what for r in rounds] == [
+        "primary rays, spawn", "primary rays, carried", "bounce-1 rays, spawn",
+        "primary rays, every superchunk queued"]
+    # The lanes are the tile's rays in another order.
+    assert _columns(rounds[0].o4t, rounds[0].d4t) == _columns(
+        *ti.pack_rays(primary))
+    assert _columns(rounds[2].o4t, rounds[2].d4t) == _columns(
+        *ti.pack_rays(bounce, active))
+    for r in rounds[:3]:
+        assert r.queue.shape == (N // ti.BN * CFG.regen_march_ql,)
+        assert r.queue.dtype == torch.int32
+        assert int(r.queue.min()) >= 0 and int(r.queue.max()) <= nsc
+        assert bool((r.queue < nsc).any())
+    assert torch.equal(rounds[3].queue, torch.arange(
+        nsc, dtype=torch.int32).repeat(N // ti.BN))
+    for r in (rounds[0], rounds[2], rounds[3]):
+        assert torch.equal(r.init[0], torch.full((N,), ti._MISS))
+        assert torch.equal(r.init[1], torch.full((N,), float(ti.BIG_E)))
+
+
+def test_march_rounds_carry_and_full_queue(mid_rounds):
+    prep, _, _, _, rounds = mid_rounds
+    geo = (prep.sc_bounds, prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
+           prep.mw_pad, prep.scc)
+    spawn, carried, _, full = rounds
+    first = ti.march_step_sc_plain(spawn.o4t, spawn.d4t, spawn.init,
+                                   spawn.queue, *geo)
+    assert torch.equal(carried.init, first[:2])
+    assert torch.equal(carried.o4t, spawn.o4t)
+    assert int((first[0] < ti._MISS).sum()) > N // 10
+    got = ti.march_step_sc_plain(full.o4t, full.d4t, full.init, full.queue,
+                                 *geo)
+    lite = ti.closest_hit_sc_lite_plain(full.o4t, full.d4t, *geo)
+    hit = lite[0] < ti._MISS
+    assert torch.equal(got[[0, 2, 3]], lite[[0, 2, 3]])
+    assert torch.equal(got[1][hit], lite[1][hit])
+
+
+def test_wavefront_shadow_rays(mid):
+    scene, cam, prep = mid
+    args, n_q = kt.wavefront_shadow_rays(scene, cam, prep, CFG)
+    o4t, d4t, tlim = args[:3]
+    assert o4t.shape == d4t.shape == (4, N) and tlim.shape == (N,)
+    assert args[3:] == (prep.bounds, prep.sub_bounds, prep.mu, prep.mv,
+                        prep.mw)
+    assert 0 < n_q == int((tlim > 0).sum())
+    occ = ti.occluded(*args)
+    assert not bool(occ[tlim <= 0].any())
+    assert 0 < int(occ.sum()) < n_q
+
+
+def test_rows_nee_operands_on_demo():
+    scene = build_demo_scene(device="cpu")
+    prep = ti.prepare_trace_inputs(scene)
+    # Pixels of row 300 that see the room (the middle row of a 512-ray
+    # stripe sees none of it).
+    _, hit, s, seed = kt.middle_rays(scene, demo_camera(kt.W, kt.H), prep,
+                                     CFG, N, kt.W * 300 + 700)
+    bounce, active = kt.bounce_rays(s, hit, seed, CFG)
+    pend = kt.shadow_queries(s, hit, seed, prep, CFG)
+    nee = kt.rows_nee_operands(prep, bounce, active, pend)
+    assert len(nee) == 11 and nee[10] is prep.tab
+    assert bool(pend.active.any()) and torch.equal(
+        nee[4] > 0, torch.nn.functional.pad(
+            pend.active, (0, nee[4].shape[0] - pend.active.shape[0])))
+    rows, occ4 = ti.closest_hit_rows_nee(*nee)
+    assert torch.equal(occ4, ti.occluded(*nee[2:10]))
+    assert 0 < int(occ4.sum()) < int(pend.active.sum())
+    # The winners (rows 0-44; 45-47 are the walks' counters).
+    assert torch.equal(rows[:45], ti.closest_hit_rows(
+        nee[0], nee[1], prep.bounds, prep.mu, prep.mv, prep.mw,
+        prep.tab)[:45])

@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
-"""Kernels 3, 6 and 7 of several builds, timed in turns on one GPU.
+"""The traversal kernels of several builds, timed in turns on one GPU.
 
     python3 tools/two_level_turns.py --other parent=DIR [--other NAME=DIR]
+                                     [--only NAME ...]
 
 Builds ``closest_hit_sc_lite.cu`` (kernel 3), ``closest_hit_rows_sc.cu``
-(kernel 6) and ``march_step_sc.cu`` (kernel 7) from this checkout's
-``gdpathtracing_torch/csrc`` ("change") and from each ``DIR`` (another
-``csrc`` directory, for example the parent commit's, unpacked with ``git
-archive`` into a directory that .gitignore lists), with ops/build.py's
-flags, and prints ptxas' registers, shared memory and spills for each.
-Then, on the operands of chip_smoke.py phase 2 (the middle 262144-ray
-tile of a 1080p frame, primary rays and one BRDF bounce from their hits:
-kernel 3 on the bench's sphere grid, n=10; kernel 6 on the n=14 grid;
-kernel 7 on the grid with every superchunk queued), it launches every
-build's kernel on the same tensors, checks that each output equals the
-plain version bit for bit, and times the builds in turns, forward then
-backward (other, change, change, other), each with CUDA events over 20
-launches. Per tile it also prints the ray-triangle and slab tests the rays
-need, the thread-slots of a thread per ray and of the block-cooperative
-walk (``ops.intersect.two_level_slots``), and the bound of chip_smoke.py.
-The last line is one JSON object with every time.
+(kernel 6), ``march_step_sc.cu`` (kernel 7), ``occlusion.cu`` (kernel 2),
+``closest_hit_rows_nee.cu`` (kernel 4) and ``mega_step.cu`` (kernel 10)
+from this checkout's ``gdpathtracing_torch/csrc`` ("change") and from each
+``DIR`` (another ``csrc`` directory, for example the parent commit's,
+unpacked with ``git archive`` into a directory that .gitignore lists), with
+ops/build.py's flags, and prints ptxas' registers, shared memory and
+spills for each. Then, on the operands of chip_smoke.py phase 2 (built by
+gdpathtracing_torch/ops/tiles.py for both), it launches every build's
+kernel on the same tensors, checks that each output equals the plain
+version bit for bit, and times the builds in turns, forward then backward
+(other, change, change, other), each with CUDA events over 20 launches.
+The tiles:
+- kernels 3 and 6: the middle 262144-ray tile of a 1080p frame of the
+  bench's sphere grid (n=10; kernel 6 the n=14 grid), primary rays and one
+  BRDF bounce from their hits;
+- kernel 7: chip_smoke.py's march rounds on the n=10 tile (``tiles.
+  march_rounds``: primary rays from the spawn state and from the first
+  round's carried best, bounce-1 rays, and primary rays with every
+  superchunk queued, kernel 3's walk entry by entry);
+- kernel 2: 393216 shadow rays (the regen wavefront) from the hits around
+  the middle of a 1080p frame toward sampled light points, on the demo
+  and on the grid (its 376 flat chunks);
+- kernel 4: the demo's middle tile, bounce-1 rays with the shadow rays of
+  its primary hits; kernel 10: that tile's camera paths at bounce 1 with
+  NEE (both of its walks).
+Per tile it also prints the tests the rays need, the thread-slots of one
+thread per ray and of the block-cooperative walks (kernels 2, 3, 6, 7:
+``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound of
+chip_smoke.py. ``--only`` keeps the named kernels (C entry names). The
+last line is one JSON object with every time.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -35,29 +50,28 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-W, H = 1920, 1080
 ITERS = 20
-NAMES = ("closest_hit_sc_lite", "closest_hit_rows_sc", "march_step_sc")
-# Pointer operands of each C entry point (then N, E, scc[, ql], stream).
-N_PTRS = {"closest_hit_sc_lite": 8, "closest_hit_rows_sc": 9,
-          "march_step_sc": 10}
-N_INTS = {"closest_hit_sc_lite": 3, "closest_hit_rows_sc": 3,
-          "march_step_sc": 4}
+# Each C entry point: its source and its operands (pointers, ints, floats;
+# then the stream).
+ENTRIES = {"closest_hit_sc_lite": (8, 3, 0), "closest_hit_rows_sc": (9, 3, 0),
+           "march_step_sc": (10, 4, 0), "occlusion": (9, 2, 0),
+           "closest_hit_rows_nee": (13, 2, 0), "mega_step": (11, 6, 8)}
 PEAK_FP32 = 67e12  # float32 outside the tensor cores, H100 SXM at 700 W
 OPS_PER_TEST, OPS_PER_SLAB = 45, 25  # as chip_smoke.py
 
 
-def build(label: str, csrc: Path, out_dir: Path) -> dict:
-    """nvcc every kernel of NAMES from ``csrc`` in parallel; by name, a
+def build(label: str, csrc: Path, out_dir: Path, names) -> dict:
+    """nvcc every kernel of ``names`` from ``csrc`` in parallel; by name, a
     function that launches it on the current stream with the tensors'
-    pointers and the ints, and raises if the launch was refused."""
+    pointers, the ints and the floats, and raises if the launch was
+    refused."""
     import torch
 
     from gdpathtracing_torch.ops.build import NVCC_FLAGS, nvcc_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in NAMES:
+    for name in names:
         so = out_dir / f"{name}-{label}.so"
         procs[name] = (so, subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(so),
@@ -71,13 +85,14 @@ def build(label: str, csrc: Path, out_dir: Path) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {label} {name}: {line.strip()}")
+        n_ptrs, n_ints, n_floats = ENTRIES[name]
         fn = getattr(ctypes.CDLL(str(so)), name)
-        fn.argtypes = [ctypes.c_void_p] * N_PTRS[name] \
-            + [ctypes.c_int] * N_INTS[name] + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
-        def launch(tensors, ints, fn=fn, name=name):
-            err = fn(*(t.data_ptr() for t in tensors), *ints,
+        def launch(tensors, ints, floats, fn=fn, name=name):
+            err = fn(*(t.data_ptr() for t in tensors), *ints, *floats,
                      torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"{label} {name}: cudaError {err}")
@@ -91,6 +106,8 @@ def main() -> None:
     ap.add_argument("--other", action="append", default=[],
                     metavar="NAME=DIR",
                     help="another csrc directory, timed against this one")
+    ap.add_argument("--only", nargs="+", choices=sorted(ENTRIES),
+                    default=sorted(ENTRIES), help="the kernels to time")
     args = ap.parse_args()
     others = [tuple(o.split("=", 1)) for o in args.other]
     if not others:
@@ -102,12 +119,12 @@ def main() -> None:
         sys.exit("torch.cuda.is_available() is false: this needs a GPU")
     sys.path.insert(0, str(ROOT))
     from gdpathtracing_torch.config import RenderConfig, Traversal
-    from gdpathtracing_torch.core import rng
     from gdpathtracing_torch.ops import intersect as ti
-    from gdpathtracing_torch.render import brdf
-    from gdpathtracing_torch.render.shading import get_shading_data
-    from gdpathtracing_torch.render.types import Ray
-    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    from gdpathtracing_torch.ops import megakernel as mk
+    from gdpathtracing_torch.ops import tiles as kt
+    from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                                build_sphere_grid,
+                                                demo_camera, grid_camera)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -115,31 +132,139 @@ def main() -> None:
     print(f"card (nvidia-smi --query-gpu=name,power.limit): {card}")
     out_dir = ROOT / "build" / "turns"
     builds = {"change": build("change", ROOT / "gdpathtracing_torch" / "csrc",
-                              out_dir)}
+                              out_dir, args.only)}
     for label, d in others:
-        builds[label] = build(label, Path(d).resolve(), out_dir)
+        builds[label] = build(label, Path(d).resolve(), out_dir, args.only)
     order = [label for label, _ in others]
     order = order + ["change", "change"] + order[::-1]
 
     cfg = RenderConfig(traversal=Traversal.PALLAS)
     tile = cfg.tile_rays
-    first = (W * H // 2) // tile * tile
+    first = kt.middle_tile(cfg)
+    W, H = kt.W, kt.H
 
-    def tile_rays(scene, cam, prep):
-        """The middle tile's primary rays and one BRDF bounce from their
-        hits, packed (chip_smoke.py's middle_rays and bounce_rays)."""
-        dev = prep.mu_pad.device
-        pids = torch.arange(tile, device=dev) + first
-        seed = rng.prng_seed(pids % W,
-                             torch.div(pids, W, rounding_mode="floor"), 0)
-        ray, seed = cam.to(dev).generate_rays(pids, seed, cfg)
-        hit = ti.trace_pallas(scene, ray, None, prep)
-        s = get_shading_data(scene, hit, ray)
-        (r1, r2), _ = rng.pcg2d(seed)
-        bounce = Ray(s.position + s.normal * cfg.ray_eps,
-                     brdf.sample_brdf(s, r1, r2))
-        return {"primary": ti.pack_rays(ray, None),
-                "bounce 1": ti.pack_rays(bounce, hit.hit)}
+    # (kernel, scene label, rays label, input tensors, outputs (shapes and
+    # dtypes), ints, floats, plain outputs, tests, slab tests, cooperative
+    # slots or None, thread-per-ray slots or None)
+    tiles = []
+
+    def two_level_tiles(name, n_grid):
+        scene = build_sphere_grid(n=n_grid, sphere_detail=16)
+        prep = ti.prepare_trace_inputs(scene)
+        primary, hit, s, seed = kt.middle_rays(
+            scene, grid_camera(W, H, n=n_grid), prep, cfg, tile, first)
+        bounce, active = kt.bounce_rays(s, hit, seed, cfg)
+        if name == "march_step_sc":
+            march_tiles(prep, primary, bounce, active)
+            return
+        geo = (prep.sc_bounds, prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
+               prep.mw_pad)
+        e = prep.mu_pad.shape[1]
+        for what, (o4t, d4t) in {"primary": ti.pack_rays(primary, None),
+                                 "bounce 1": ti.pack_rays(bounce, active)
+                                 }.items():
+            n = o4t.shape[1]
+            if name == "closest_hit_sc_lite":
+                tens, rows = (o4t, d4t, *geo), ti.LITE_R
+                want = ti.closest_hit_sc_lite_plain(o4t, d4t, *geo, prep.scc)
+            else:
+                tens, rows = (o4t, d4t, *geo, prep.tab), ti.OUT_R
+                want = ti.closest_hit_rows_sc_plain(o4t, d4t, *geo, prep.tab,
+                                                    prep.scc)
+            work = ti.walk_two_level_plain(o4t, d4t, *geo, prep.scc)
+            tiles.append((name, f"n={n_grid} grid", what, tens,
+                          [((rows, n), torch.float32)], (n, e, prep.scc), (),
+                          [want], float(work.walk.steps.sum()),
+                          float(work.slab_tests.sum()),
+                          float(work.slots[::ti.BN].sum()),
+                          float(work.chunk_sweeps[::ti.BN].sum())
+                          * ti.BN * ti.BT))
+
+    def march_tiles(prep, primary, bounce, active):
+        """Kernel 7's rounds of chip_smoke.py phase 2 (ops/tiles.py
+        ``march_rounds``); the full queue also with kernel 3 on its rays."""
+        e = prep.mu_pad.shape[1]
+        geo = (prep.sc_bounds, prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
+               prep.mw_pad)
+        for rd in kt.march_rounds(prep, primary, bounce, active, cfg):
+            n = rd.o4t.shape[1]
+            tens = (rd.o4t, rd.d4t, rd.init, rd.queue, *geo)
+            counts = {}
+            want = ti.march_step_sc_plain(*tens, prep.scc, counts=counts)
+            tiles.append(("march_step_sc", "n=10 grid", rd.what, tens,
+                          [((ti.LITE_R, n), torch.float32)],
+                          (n, e, prep.scc, rd.queue.shape[0] // (n // ti.BN)),
+                          (), [want], float(want[2].sum()),
+                          counts["slab_tests"], counts["slots"],
+                          counts["thread_slots"]))
+
+    def occlusion_tiles():
+        for label, scene, cam in (
+                ("demo", build_demo_scene(), demo_camera(W, H)),
+                ("n=10 grid", build_sphere_grid(n=10, sphere_detail=16),
+                 grid_camera(W, H, n=10))):
+            prep = ti.prepare_trace_inputs(scene)
+            tens, _ = kt.wavefront_shadow_rays(scene, cam, prep, cfg)
+            n, e = tens[0].shape[1], prep.mu.shape[1]
+            counts = {}
+            want = ti.occluded_plain(*tens, counts=counts)
+            tiles.append(("occlusion", label, "shadow rays", tens,
+                          [((n,), torch.int32)], (n, e), (), [want.occ],
+                          float(want.tests.sum()), counts["slab_tests"],
+                          counts["slots"],
+                          float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT))
+
+    def flat_tiles(name):
+        scene = build_demo_scene()
+        cam = demo_camera(W, H)
+        prep = ti.prepare_trace_inputs(scene)
+        e, nc = prep.mu.shape[1], prep.mu.shape[1] // ti.BT
+        if name == "closest_hit_rows_nee":
+            _, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile,
+                                             first)
+            bounce, active = kt.bounce_rays(s, hit, seed, cfg)
+            pend = kt.shadow_queries(s, hit, seed, prep, cfg)
+            tens = kt.rows_nee_operands(prep, bounce, active, pend)
+            n = tens[0].shape[1]
+            rows_p, occ_p = ti.closest_hit_rows_nee_plain(*tens)
+            counts = {}
+            shadow = ti.occluded_plain(*tens[2:10], counts=counts)
+            tiles.append((name, "demo", "bounce 1 + shadow rays", tens,
+                          [((ti.OUT_R, n), torch.float32),
+                           ((n,), torch.int32)], (n, e), (), [rows_p, occ_p],
+                          float(rows_p[45].sum()) + float(shadow.tests.sum()),
+                          float(n * nc) + counts["slab_tests"], None,
+                          float(rows_p[46, ::ti.BN].sum()
+                                + rows_p[47, ::ti.BN].sum()) * ti.BN * ti.BT))
+            return
+        mcfg = cfg.replace(traversal=Traversal.MEGA, nee=True)
+        cray, pseed = kt.camera_rays(cam, cfg, tile, first, prep.mu.device)
+        lt = mk._build_light_block(prep.lights, prep.mu.device)
+        geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw,
+               prep.tab, lt)
+        state = mk.mega_step_plain(*mk.pack_state(cray, pseed, cam.far), *geo,
+                                   0, mcfg)
+        counts = {}
+        want = mk.mega_step_plain(*state, *geo, 1, mcfg, counts=counts)
+        n = state[0].shape[1]
+        tiles.append((name, "demo", "camera paths, bounce 1, NEE",
+                      (*state, *geo),
+                      [(tuple(state[0].shape), torch.float32),
+                       (tuple(state[1].shape), torch.int32)],
+                      (n, e, lt.shape[0], 1, 1, mcfg.rr_start),
+                      (mcfg.ray_eps, mcfg.rr_min_p, *mk.sky_constants(mcfg)),
+                      list(want), counts["tests"], float(2 * n * nc), None,
+                      None))
+
+    for name in args.only:
+        if name in ("closest_hit_sc_lite", "march_step_sc"):
+            two_level_tiles(name, 10)
+        elif name == "closest_hit_rows_sc":
+            two_level_tiles(name, 14)
+        elif name == "occlusion":
+            occlusion_tiles()
+        else:
+            flat_tiles(name)
 
     def cuda_ms(fn):
         fn()
@@ -154,71 +279,44 @@ def main() -> None:
         return start.elapsed_time(end) / ITERS
 
     results = []
-    for n_grid, name in ((10, "closest_hit_sc_lite"),
-                         (14, "closest_hit_rows_sc"),
-                         (10, "march_step_sc")):
-        scene = build_sphere_grid(n=n_grid, sphere_detail=16)
-        prep = ti.prepare_trace_inputs(scene)
-        rays = tile_rays(scene, grid_camera(W, H, n=n_grid), prep)
-        geo = (prep.sc_bounds, prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
-               prep.mw_pad)
-        e = prep.mu_pad.shape[1]
-        nsc = prep.sc_bounds.shape[1]
-        for what, (o4t, d4t) in rays.items():
-            n = o4t.shape[1]
-            if name == "closest_hit_sc_lite":
-                rows, tens, ints = ti.LITE_R, (o4t, d4t, *geo), (n, e,
-                                                                 prep.scc)
-                want = ti.closest_hit_sc_lite_plain(o4t, d4t, *geo, prep.scc)
-            elif name == "closest_hit_rows_sc":
-                rows, tens, ints = ti.OUT_R, (o4t, d4t, *geo, prep.tab), (
-                    n, e, prep.scc)
-                want = ti.closest_hit_rows_sc_plain(o4t, d4t, *geo, prep.tab,
-                                                    prep.scc)
-            else:
-                init = torch.stack([torch.full((n,), 1e9, device=o4t.device),
-                                    torch.full((n,), float(ti.BIG_E),
-                                               device=o4t.device)])
-                queue = torch.arange(nsc, dtype=torch.int32,
-                                     device=o4t.device).repeat(n // ti.BN)
-                rows, tens, ints = ti.LITE_R, (o4t, d4t, init, queue, *geo), (
-                    n, e, prep.scc, nsc)
-                want = ti.march_step_sc_plain(o4t, d4t, init, queue, *geo,
-                                              prep.scc)
-            out = torch.empty((rows, n), device=o4t.device)
-            for label, fns in builds.items():
-                out.fill_(float("nan"))
-                fns[name](tens + (out,), ints)
-                torch.cuda.synchronize()
-                if not torch.equal(out.view(torch.int32),
-                                   want.view(torch.int32)):
-                    sys.exit(f"{label} {name}, {what}: differs from the "
-                             f"plain version")
-            ms = {label: [] for label in builds}
-            for label in order:
-                ms[label].append(cuda_ms(
-                    lambda f=builds[label][name]: f(tens + (out,), ints)))
-            work = ti.walk_two_level_plain(o4t, d4t, *geo, prep.scc)
-            needed = float(work.walk.steps.sum())
-            slabs = float(work.slab_tests.sum())
-            coop = float(work.slots[::ti.BN].sum())
-            per_ray = float(work.chunk_sweeps[::ti.BN].sum()) * ti.BN * ti.BT
-            bound_ms = (needed * OPS_PER_TEST + slabs * OPS_PER_SLAB) \
-                / PEAK_FP32 * 1e3
-            row = dict(kernel=name, grid=n_grid, rays=what, n=n,
-                       ms={k: sum(v) / len(v) for k, v in ms.items()},
-                       ms_turns=ms, tests=needed, slab_tests=slabs,
-                       slots_cooperative=coop, slots_thread_per_ray=per_ray,
-                       bound_ms=bound_ms)
-            results.append(row)
-            times = ", ".join(f"{k} {v:.4f}" for k, v in row["ms"].items())
-            share = f"{needed / max(per_ray, 1.0):.3f} thread per ray"
-            if name != "march_step_sc":  # kernel 7 walks a thread per ray
-                share = f"{needed / max(coop, 1.0):.3f} cooperative, {share}"
-            print(f"{name} n={n_grid} grid, {what} ({n} rays) on {card}: "
-                  f"{times} ms (turns {order}); bound {bound_ms:.4f} ms; "
-                  f"{needed:.4g} tests, useful share of thread-slots "
-                  f"{share}")
+    for (name, where, what, tens, out_spec, ints, floats, want, needed,
+         slabs, coop, per_ray) in tiles:
+        dev = tens[0].device
+        outs = [torch.empty(shape, dtype=dt, device=dev)
+                for shape, dt in out_spec]
+        for label, fns in builds.items():
+            for o in outs:
+                o.fill_(-1)
+            fns[name](tens + tuple(outs), ints, floats)
+            torch.cuda.synchronize()
+            for o, w in zip(outs, want):
+                if not torch.equal(o.view(torch.int32), w.view(torch.int32)):
+                    sys.exit(f"{label} {name}, {where} {what}: differs from "
+                             f"the plain version")
+        ms = {label: [] for label in builds}
+        for label in order:
+            ms[label].append(cuda_ms(
+                lambda f=builds[label][name]: f(tens + tuple(outs), ints,
+                                                floats)))
+        n = tens[0].shape[-1]
+        bound_ms = (needed * OPS_PER_TEST + slabs * OPS_PER_SLAB) \
+            / PEAK_FP32 * 1e3
+        row = dict(kernel=name, scene=where, rays=what, n=n,
+                   ms={k: sum(v) / len(v) for k, v in ms.items()},
+                   ms_turns=ms, tests=needed, slab_tests=slabs,
+                   slots_cooperative=coop, slots_thread_per_ray=per_ray,
+                   bound_ms=bound_ms)
+        results.append(row)
+        times = ", ".join(f"{k} {v:.4f}" for k, v in row["ms"].items())
+        shares = []
+        if coop is not None:
+            shares.append(f"{needed / max(coop, 1.0):.3f} cooperative")
+        if per_ray is not None:
+            shares.append(f"{needed / max(per_ray, 1.0):.3f} thread per ray")
+        print(f"{name}, {where}, {what} ({n} rays) on {card}: {times} ms "
+              f"(turns {order}); bound {bound_ms:.4f} ms; {needed:.4g} tests"
+              + (f", useful share of thread-slots {', '.join(shares)}"
+                 if shares else ""))
     print(json.dumps({"card": card, "turns": order, "tiles": results}))
 
 

@@ -11,7 +11,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    shapes, bit for bit, and times both with CUDA events:
    - kernel 1 (closest hit): primary rays of the 262144-ray tile through
      the middle of a 1080p demo frame, then one bounce of BRDF-sampled
-     rays from their hits;
+     rays from their hits, with the thread-slots its block-cooperative
+     flat walk spends against one thread per ray's;
    - kernel 2 (occlusion): 393216 shadow rays (the regen wavefront) from
      the hits around the middle of the frame toward sampled light points,
      on the demo and on the grid (its 376 flat chunks), with the
@@ -40,7 +41,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    - kernel 10 (MEGA's per-bounce megakernel) on the middle demo tile's
      packed path state, bounce 0 and bounce 1, without and with NEE;
      kernel 11 (FUSED's all-bounces kernel) on the middle demo tile and on
-     the middle mid-grid tile, 5 bounces: these two call sqrtf, sinf and
+     the middle mid-grid tile, 5 bounces, with the thread-slots of its
+     block-cooperative flat walk summed over the bounces against one
+     thread per ray's: these two call sqrtf, sinf and
      cosf besides + - * /, and equal their plain versions bit for bit all
      the same (IEEE sqrtf; PyTorch's CUDA sin and cos are CUDA's sinf and
      cosf);
@@ -86,9 +89,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the same for the differentiable demo's albedo gradient and its
    soft-shadow transform gradient;
 5. runs the GPU-only tests (``pytest -m cuda tests/test_torch_cuda.py``),
-   among them kernels 3, 6 and 7 against their plain versions on
+   among them kernels 1, 3, 6 and 7 against their plain versions on
    adversarial ray sets and queues of the bench grid and at exact ties,
-   and kernel 2 on adversarial shadow rays of the demo and the grid.
+   kernel 11 on adversarial camera paths of the mid grid (also paths that
+   all die after bounce 0, and blocks with one live path), and kernel 2
+   on adversarial shadow rays of the demo and the grid.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -353,19 +358,14 @@ def main() -> None:
             f"bound {bnd:.4f} ms ({what}), {bnd / k:.3f} of the bound")
 
     # Kernel 1 at the standard loop's tile through the middle of the frame:
-    # primary and bounce-1 rays.
+    # primary and bounce-1 rays (ops/tiles.py, also the turns tool's).
     tile = cfg.tile_rays
     mid_tile = kt.middle_tile(cfg)
-    primary, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile,
-                                           mid_tile)
-    bounce, _ = kt.bounce_rays(s, hit, seed, cfg)
-    for name, (ray, active) in {"primary": (primary, None),
-                                "bounce 1": (bounce, hit.hit)}.items():
-        o4t, d4t = ti.pack_rays(ray, active)
-        n = o4t.shape[1]
-        args = (o4t, d4t, prep.bounds, prep.mu, prep.mv, prep.mw, prep.tab)
+    for name, args in kt.rows_tiles(scene, cam, prep, cfg).items():
+        n = args[0].shape[1]
         got = ti.closest_hit_rows(*args)
-        want = ti.closest_hit_rows_plain(*args)
+        counts = {}
+        want = ti.closest_hit_rows_plain(*args, counts=counts)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         n_hit = int((want[40] < ti._MISS).sum())
@@ -378,18 +378,28 @@ def main() -> None:
                           want[40].view(torch.int32)),
               f"kernel 1, {name}: t is not bitwise equal")
         # Work: ray-triangle tests the rays needed (row 45) against the
-        # thread-slots the kernel spent (every lane of a block sweeps each
-        # chunk any lane of it needs: row 46 x 256 rays x 256 triangles).
+        # thread-slots the kernel's block-cooperative walk spent (a warp
+        # per needing ray, or the rays' own threads where the needing
+        # warps are nearly full: ti.two_level_slots), beside a thread per
+        # ray's (every lane of a block sweeps each chunk any lane of it
+        # needs: row 46 x 256 rays x 256 triangles).
         needed = float(want[45].sum())
-        spent = float(want[46, ::ti.BN].sum()) * ti.BN * ti.BT
         k = cuda_ms(lambda: ti.closest_hit_rows(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.closest_hit_rows_plain(*args), PLAIN_ITERS,
                     torch)
-        log(f"  {needed:.4g} ray-triangle tests needed, {spent:.4g} "
-            f"thread-slots swept ({needed / max(spent, 1.0):.3f} useful)")
+        log(f"  {needed:.4g} ray-triangle tests needed, "
+            f"{counts['slots']:.4g} thread-slots swept "
+            f"({needed / max(counts['slots'], 1.0):.3f} useful; a thread per "
+            f"ray: {counts['thread_slots']:.4g}, "
+            f"{needed / max(counts['thread_slots'], 1.0):.3f} useful)")
         record("closest_hit_rows", err, k, p, *bound(
             needed, n * nc, 8 * 4 * n + scene_bytes + tab_bytes
             + ti.OUT_R * 4 * n))
+
+    # The middle tile's primary hits, their shading and one bounce: kernel
+    # 4's operands.
+    _, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile, mid_tile)
+    bounce, _ = kt.bounce_rays(s, hit, seed, cfg)
 
     # Kernel 4 at the same tile: its bounce-1 launch, which resolves the
     # shadow queries posted from the primary hits.
@@ -748,9 +758,7 @@ def main() -> None:
     for label, fscene, fcam, fprep, iters in (
             ("demo", scene, cam, prep, PLAIN_ITERS),
             ("mid grid", mid, mid_cam, mid_prep, GRID_PLAIN_ITERS)):
-        ray, pseed = kt.camera_rays(fcam, cfg, tile, mid_tile, dev)
-        args = (*fu.pack_paths(ray, pseed), fprep.bounds, fprep.mu, fprep.mv,
-                fprep.mw, fu._build_table(fscene), fu._build_mats(fscene))
+        args = kt.fused_operands(fscene, fcam, fprep, cfg)
         got = fu.fused_paths(*args, fcfg)
         counts = {}
         want = fu.fused_paths_plain(*args, fcfg, counts=counts)
@@ -767,8 +775,15 @@ def main() -> None:
               f"the plain version")
         k = cuda_ms(lambda: fu.fused_paths(*args, fcfg), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: fu.fused_paths_plain(*args, fcfg), iters, torch)
+        # Thread-slots over the bounces: the block-cooperative walk's, and
+        # a thread per ray's (dead paths included, as they sit in blocks).
         log(f"  {counts['tests']:.4g} ray-triangle tests needed "
-            f"({counts['tests'] / segs:.1f} per segment)")
+            f"({counts['tests'] / segs:.1f} per segment), "
+            f"{counts['slots']:.4g} thread-slots swept "
+            f"({counts['tests'] / max(counts['slots'], 1.0):.3f} useful; a "
+            f"thread per ray: {counts['thread_slots']:.4g}, "
+            f"{counts['tests'] / max(counts['thread_slots'], 1.0):.3f} "
+            f"useful)")
         record("fused_paths", err, k, p, *bound(
             counts["tests"], fcfg.bounces * n * (e11 // ti.BT),
             18 * 4 * n + (12 + ti.TABLE_W) * 4 * e11
@@ -1156,11 +1171,13 @@ def main() -> None:
               f"{what}: the {param} gradients differ by {rel:.3g}")
 
     # -- 5. the GPU-only tests -----------------------------------------------
-    # Among them kernels 3, 6 and 7 on adversarial ray sets of the bench
+    # Among them kernels 1, 3, 6 and 7 on adversarial ray sets of the bench
     # grid (one needing ray a block, a block's 256 rays on one chunk,
     # winners at either end of a chunk, parked rays, exact ties; for kernel
     # 7 also a tie against a carried best, repeated and all-sentinel
-    # queues, 1 and 16 slots) and kernel 2 on adversarial shadow rays
+    # queues, 1 and 16 slots), kernel 11 on those sets of the mid grid's
+    # camera paths (and paths that all die after bounce 0, blocks with one
+    # live path), and kernel 2 on adversarial shadow rays
     # (blockers at either end of a half, a limit at a blocker's own t,
     # parked rays, one live ray a block, every ray toward one chunk), with
     # the kernels this run built (the same sources, so the same build

@@ -20,16 +20,24 @@
 //
 // What bounds it on the H100: arithmetic. Each swept (ray, triangle) pair
 // costs six 4-term dot products, one IEEE division and the edge tests
-// (~55 flops), and every ray of a block whose slab test passed sweeps all
-// 256 triangles of the chunk; device-memory traffic is only the rays in,
+// (~45 operations), and each ray sweeps the 256 triangles of every chunk
+// whose slab test it passes; device-memory traffic is only the rays in,
 // the 12 KB chunk rows per swept chunk and the 48 output rows.
-// The design: one thread per ray and one block per 256 rays. The block walks
-// the chunks in index order; `__syncthreads_or` skips a chunk no ray of the
-// block needs, otherwise the block stages the chunk's mu/mv/mw (3 x 4 x 256
-// f32 = 12 KB) in shared memory, where every thread reads the same
-// triangle at once (a broadcast, no bank conflicts). The best hit stays in
-// registers; the 40-row table gather happens once per ray at the end.
-// The device code lives in trace_common.cuh, shared with kernels 2 and 4.
+// The design: the block-cooperative flat walk (trace_common.cuh
+// walk_flat_coop), one block per 256 rays. A thread per ray would leave
+// every lane whose ray does not need a staged chunk idle while the others
+// sweep it (30% of the thread-slots useful on a demo tile's bounce-1
+// rays). Instead the block votes on the chunks in groups of 32, lists for
+// each candidate chunk the rays that need it, and sweeps it a warp per
+// listed ray (a lane per 8 triangles, a shuffle reduction to the lowest
+// (t, eidx)), or by the rays' own threads where the needing warps are
+// nearly full; the rows arrive by cp.async into a double buffer. Each
+// ray's best lives in shared memory during the walk; the 40-row table
+// gather happens once per ray at the end. Launch bounds (256, 3): 72
+// registers and 38 KB of shared memory, 3 blocks an SM; (256, 2) gives
+// the same 72, (256, 4) 64 and 5-7% more time, and warp sweeps alone
+// without the thread path 12-13% more (in turns on the H100,
+// tools/two_level_turns.py).
 
 #include "trace_common.cuh"
 
@@ -37,7 +45,7 @@ namespace {
 
 using namespace gdpt;
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 closest_hit_rows_kernel(const float* __restrict__ o4,
                         const float* __restrict__ d4,
                         const float* __restrict__ bounds,
@@ -46,18 +54,19 @@ closest_hit_rows_kernel(const float* __restrict__ o4,
                         const float* __restrict__ mw,
                         const float* __restrict__ tab,
                         float* __restrict__ out, int n, int e) {
-  __shared__ ChunkRows s_m;
+  __shared__ TwoLevelShared sh;
 
   const int nc = e / kBT;
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
   const Ray r = load_ray(o4, d4, (size_t)n, ray);
 
-  Best best = no_hit();
-  float steps = 0.f, sweeps = 0.f;
-  walk_flat_closest(s_m, r, bounds, nc, mu, mv, mw, (size_t)e, tid, best,
-                    steps, sweeps);
-  write_rows(out, tab, (size_t)n, (size_t)e, ray, best, steps, sweeps, 0.f);
+  CoopCursor cur{0, 0};
+  WalkCounts cnt{0.f, 0.f, 0.f};
+  walk_flat_coop(sh, r, true, bounds, nc, mu, mv, mw, (size_t)e, tid, cur,
+                 cnt);
+  write_rows(out, tab, (size_t)n, (size_t)e, ray, two_level_best(sh, tid),
+             cnt.steps, cnt.chunk_sweeps, 0.f);
 }
 
 }  // namespace

@@ -18,24 +18,35 @@
 //                              first-hit normal
 //        segs     (N,) i32     path segments traced
 //
-// Each bounce of a ray: the closest hit (kernel 1's walk, trace_common.cuh,
-// over the flat chunks); the winner's (E, 32) row (a load, where the TPU
-// used a one-hot product); u and v from its isect_cols at the winner's t,
-// not clipped, front = w_d < 0; the material by mat_id, transmission 0
-// and ior 1.5; the emission or, on a miss, the sky; on bounce 0 depth = t
-// and the normal; below the last bounce one BRDF sample. Dead rays park at
-// 1e9 with direction 0.5773503 and keep taking part in the block votes.
-// These are the reference's FUSED rules, kept as it has them; they differ
-// from MEGA's and PALLAS's (clipped u, v; depth |position - o|).
+// Each bounce of a ray: the closest hit (kernel 1's walk, trace_common.cuh
+// walk_flat_coop, over the flat chunks); the winner's (E, 32) row (a load,
+// where the TPU used a one-hot product); u and v from its isect_cols at the
+// winner's t, not clipped, front = w_d < 0; the material by mat_id,
+// transmission 0 and ior 1.5; the emission or, on a miss, the sky; on
+// bounce 0 depth = t and the normal; below the last bounce one BRDF sample.
+// Dead rays park at 1e9 with direction 0.5773503, where every slab test
+// fails. These are the reference's FUSED rules, kept as it has them; they
+// differ from MEGA's and PALLAS's (clipped u, v; depth |position - o|).
 //
 // What bounds it on the H100: arithmetic (~45 operations per ray-triangle
 // test, 25 per slab test, ~400 of shading and BRDF per ray and bounce);
 // device memory moves only the rays in, 8 words out, and the chunk and
-// winner rows. The design: one thread per ray, 256-ray blocks, the whole
-// bounce loop in the kernel with the path state in registers (one launch a
-// tile instead of one per bounce); the walk stages each needed chunk in
-// shared memory and skips chunks no ray of the block needs; shading stays
-// out of the walk loop.
+// winner rows. The design: the whole bounce loop in one launch (one a tile
+// instead of one per bounce), 256-ray blocks, a thread per path for the
+// path state (in registers) and the shading, and each bounce's closest hit
+// on kernel 1's block-cooperative flat walk (walk_flat_coop): from bounce 1
+// on a block's rays point everywhere and the dead ones need nothing, so a
+// thread per ray would sweep with most lanes idle; the cooperative walk
+// lists each chunk's needing rays and sweeps them a warp per ray (or by
+// their own threads where the needing warps are nearly full), the rows
+// double-buffered by cp.async. Each bounce stores the ray's o and d in
+// shared memory and reads its winner back from there; a dead path casts
+// no vote and is never listed, but takes part in every barrier, and a
+// block whose paths are all dead costs one vote per 32 chunks a bounce.
+// Launch bounds (256, 3): ptxas fits the path state and the walk in 77
+// registers without spilling, and 3 blocks of 38 KB fit an SM; under
+// (256, 2) it takes 85 and runs 6-8% slower, and without the walk's 7/8
+// thread path 8% slower (in turns on the H100, tools/two_level_turns.py).
 
 #include "path_common.cuh"
 #include "trace_common.cuh"
@@ -55,7 +66,7 @@ struct Params {
   Sky sky;
 };
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 fused_paths_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
                    const int* __restrict__ seeds,
                    const float* __restrict__ bounds,
@@ -64,7 +75,7 @@ fused_paths_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
                    const float* __restrict__ table,
                    const float* __restrict__ mats, float* __restrict__ out,
                    int* __restrict__ segs_out, const Params p) {
-  __shared__ ChunkRows s_m;
+  __shared__ TwoLevelShared sh;
 
   const size_t n = (size_t)p.n, e = (size_t)p.e;
   const int nc = p.e / kBT;
@@ -78,6 +89,8 @@ fused_paths_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
   bool active = true;
   float depth = kMiss;
   int segs = 0;
+  CoopCursor cur{0, 0};  // kept across the bounces (walk_flat_coop)
+  WalkCounts cnt{0.f, 0.f, 0.f};
 
   for (int bounce = 0; bounce < p.bounces; ++bounce) {
     Ray r;
@@ -92,10 +105,8 @@ fused_paths_kernel(const float* __restrict__ o4, const float* __restrict__ d4,
     r.rdx = rcp_guarded(r.dx);
     r.rdy = rcp_guarded(r.dy);
     r.rdz = rcp_guarded(r.dz);
-    Best best = no_hit();
-    float steps = 0.f, sweeps = 0.f;
-    walk_flat_closest(s_m, r, bounds, nc, mu, mv, mw, e, tid, best, steps,
-                      sweeps);
+    walk_flat_coop(sh, r, active, bounds, nc, mu, mv, mw, e, tid, cur, cnt);
+    const Best best = two_level_best(sh, tid);
     const float t = best.t;
     const bool hit = t < kMiss && active;
     segs += active ? 1 : 0;

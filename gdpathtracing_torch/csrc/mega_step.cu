@@ -15,11 +15,13 @@
 //   out  fs, is   the state after the bounce
 //
 // and, for each ray, in this order (the reference's phases):
-//   A   the closest hit (kernel 1's walk, trace_common.cuh) of the live
-//       rays, dead rays parked outside the scene;
+//   A   the closest hit (kernel 1's gate, trace_common.cuh
+//       walk_flat_closest, a thread per ray) of the live rays, dead rays
+//       parked outside the scene;
 //   A'  with NEE: shading from the winner's table row, one emitter sample
 //       (two PCG2D draws) and the shadow ray toward it;
-//   B   with NEE: its any-hit (kernel 2's walk);
+//   B   with NEE: its any-hit (kernel 2's gates, trace_common.cuh
+//       walk_flat_any, a thread per ray);
 //   B'  the emission (sky on a miss) with the MIS weight, the visible
 //       direct light, the first-hit AOVs, one BRDF sample (one draw), and
 //       with rr_start > 0 Russian roulette (one more draw, every bounce),

@@ -4,9 +4,10 @@
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
 // and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
 // shared memory, one thread per ray; in the block-cooperative walks also
-// a warp per ray that needs a chunk: the two-level closest hit of kernels
-// 3, 6 and 7 (walk_superchunk_coop) and the any-hit of kernel 2
-// (walk_any_coop).
+// a warp per ray that needs a chunk: the flat closest hit of kernels 1 and
+// 11 (walk_flat_coop), the two-level closest hit of kernels 3, 6 and 7
+// (walk_superchunk_coop), both over coop_group_closest, and the any-hit
+// of kernel 2 (walk_any_coop).
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -154,13 +155,15 @@ __device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
   }
 }
 
-// Flat closest-hit walk (kernels 1, 10 and 11) over the nc chunks in
-// index order. A ray sweeps chunk c when its own slab test against the
-// inflated box passes (tmax >= tmin, tmax > 0, tmin <= its best t so far);
-// the block skips a chunk none of its rays needs, otherwise it stages the
-// chunk and every ray that needs it sweeps it. `steps` counts the
-// triangles the ray swept, `sweeps` the chunks its block staged. The
-// winner depends on neither the visit order nor the block.
+// Flat closest-hit walk, a thread per ray (kernel 10; kernels 1 and 11
+// walk the same chunks block-cooperatively, walk_flat_coop) over the nc
+// chunks in index order. A ray sweeps chunk c when its own slab test
+// against the inflated box passes (tmax >= tmin, tmax > 0, tmin <= its
+// best t so far); the block skips a chunk none of its rays needs,
+// otherwise it stages the chunk and every ray that needs it sweeps it.
+// `steps` counts the triangles the ray swept, `sweeps` the chunks its
+// block staged. The winner depends on neither the visit order nor the
+// block.
 __device__ __forceinline__ void walk_flat_closest(
     ChunkRows& s_m, const Ray& r, const float* __restrict__ bounds, int nc,
     const float* __restrict__ mu, const float* __restrict__ mv,
@@ -393,12 +396,12 @@ __device__ __forceinline__ const ChunkRows& coop_rows(
   return now;
 }
 
-// Superchunk `s` of the two-level closest-hit walk, block-cooperative
-// (kernels 3 and 6 for every s in index order, walk_two_level; kernel 7
-// for each entry of its block's queue). A ray needs chunk c of s when its
-// own slab tests against the inflated boxes of s and c both pass (tmax >=
-// tmin, tmax > 0, tmin <= its best t so far); the block enters s when one
-// of its rays passes s's test, and stages c when one of them needs it.
+// One group of up to 32 chunks, c0 .. c0 + gn - 1, of a block-cooperative
+// closest-hit walk: the loop body both walks share (walk_superchunk_coop
+// for the chunks of a superchunk, walk_flat_coop for the flat chunks). A
+// ray needs chunk c when `live` holds (its superchunk's test passed; the
+// flat walk: the ray is not parked) and its own slab test against c's
+// inflated box passes (tmax >= tmin, tmax > 0, tmin <= its best t so far).
 // Who sweeps a staged chunk:
 //   - the block lists the k rays that need the chunk (a ballot per warp;
 //     entry i is the i-th needing ray in ray order);
@@ -408,13 +411,83 @@ __device__ __forceinline__ const ChunkRows& coop_rows(
 //     full (8k > 7 * 32 * those warps), the ray's own thread sweeps all
 //     256 triangles (sweep_closest), which then spends fewer instructions
 //     than k warp sweeps and their reductions. The two give the same bits;
-//   - the rows arrive by cp.async into one of two buffers: the first
-//     candidate chunk of s is requested when the block enters s, and each
-//     next candidate while the current chunk is swept. A candidate is a
-//     chunk of s that some ray of the block enters under the test without
-//     the best-t cut (its needing rays are a subset of those), so a chunk
-//     no ray can need costs nothing, and a candidate the cut removes costs
-//     one read of its rows from L2.
+//   - the rows arrive by cp.async into one of two buffers: the group's
+//     first candidate is requested after the vote, and each next candidate
+//     while the current chunk is swept. A candidate is a chunk that some
+//     live ray of the block enters under the test without the best-t cut
+//     (its needing rays are a subset of those), so a chunk no ray can need
+//     costs nothing but the vote, and a candidate the cut removes costs one
+//     read of its rows from L2.
+// Every thread of the block calls it with the same group and its own ray
+// `r`, whose o, d and best so far are in `sh` (two_level_start); the best
+// is merged there. `steps` counts the triangles the ray swept,
+// `chunk_sweeps` the chunks its block swept. A group whose vote finds no
+// candidate ends without a barrier after it: its only shared reads are
+// the vote words, which the next vote does not overwrite (CoopCursor).
+__device__ __forceinline__ void coop_group_closest(
+    TwoLevelShared& sh, const Ray& r, bool live, int c0, int gn,
+    const float* __restrict__ chunk_bounds, int nc,
+    const float* __restrict__ mu, const float* __restrict__ mv,
+    const float* __restrict__ mw, size_t e, int tid, int lane, int warp,
+    CoopCursor& cur, WalkCounts& cnt) {
+  float tmin, tmax;
+  unsigned bits = 0;
+  if (live) {
+    for (int j = 0; j < gn; ++j) {
+      slab(r, chunk_bounds, nc, c0 + j, tmin, tmax);
+      if ((tmax >= tmin) && (tmax > 0.f)) bits |= 1u << j;
+    }
+  }
+  coop_vote(sh.vote, cur, bits, lane, warp);
+  __syncthreads();
+  unsigned cand = coop_candidates(sh.vote, cur);
+  if (cand == 0) return;
+  coop_first(sh.rows, cur, cand, c0, mu, mv, mw, e, tid);
+  while (cand != 0) {
+    const int c = c0 + __ffs(cand) - 1;
+    cand &= cand - 1;
+    bool may = false;
+    if (live) {
+      slab(r, chunk_bounds, nc, c, tmin, tmax);
+      may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+    }
+    coop_ballot(sh.vote, cur, may, lane, warp);
+    __syncthreads();  // the ballots, and chunk c's rows
+    int k, nw;
+    const unsigned* need = coop_list(sh.vote, cur, k, nw);
+    const ChunkRows& rows = coop_rows(sh.rows, cur, cand, c0, mu, mv, mw, e,
+                                      tid);
+    if (k == 0) continue;
+    cnt.chunk_sweeps += 1.f;
+    if (may) cnt.steps += (float)kBT;
+    if (8 * k > 7 * 32 * nw) {
+      if (may) {
+        Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
+        sweep_closest(rows, r, c * kBT, b);
+        sh.bt[tid] = b.t;
+        sh.bu[tid] = b.u;
+        sh.bv[tid] = b.v;
+        sh.bwd[tid] = b.wd;
+        sh.be[tid] = b.e;
+      }
+    } else {
+      for (int i = warp; i < k; i += kWarps) {
+        sweep_closest_warp(sh, rows, needing_ray(need, i, lane), c * kBT,
+                           lane);
+      }
+    }
+    __syncthreads();  // the merged bests; rows and ballots are free
+  }
+}
+
+// Superchunk `s` of the two-level closest-hit walk, block-cooperative
+// (kernels 3 and 6 for every s in index order, walk_two_level; kernel 7
+// for each entry of its block's queue). A ray needs chunk c of s when its
+// own slab tests against the inflated boxes of s and c both pass (tmax >=
+// tmin, tmax > 0, tmin <= its best t so far); the block enters s when one
+// of its rays passes s's test, and then walks the chunks of s in groups of
+// 32 (coop_group_closest, which says who sweeps a chunk and how the rows
+// arrive).
 // Every thread of the block calls it with the same s and its own ray `r`,
 // whose o, d and best so far are in `sh` (two_level_start); the best is
 // merged there. `lane`, `warp` and `nc` (nsc * scc) are the caller's,
@@ -436,57 +509,10 @@ __device__ __forceinline__ void walk_superchunk_coop(
   // Also the barrier after which every best of the last sweep is seen.
   if (!__syncthreads_or(sc_may)) return;
   cnt.sc_entries += 1.f;
-  // The chunks of s in groups of 32, one bit each.
   for (int c0 = s * scc; c0 < (s + 1) * scc; c0 += 32) {
-    const int gn = min(32, (s + 1) * scc - c0);
-    unsigned bits = 0;
-    if (sc_may) {
-      for (int j = 0; j < gn; ++j) {
-        slab(r, chunk_bounds, nc, c0 + j, tmin, tmax);
-        if ((tmax >= tmin) && (tmax > 0.f)) bits |= 1u << j;
-      }
-    }
-    coop_vote(sh.vote, cur, bits, lane, warp);
-    __syncthreads();
-    unsigned cand = coop_candidates(sh.vote, cur);
-    if (cand == 0) continue;
-    coop_first(sh.rows, cur, cand, c0, mu, mv, mw, e, tid);
-    while (cand != 0) {
-      const int c = c0 + __ffs(cand) - 1;
-      cand &= cand - 1;
-      bool may = false;
-      if (sc_may) {
-        slab(r, chunk_bounds, nc, c, tmin, tmax);
-        may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
-      }
-      coop_ballot(sh.vote, cur, may, lane, warp);
-      __syncthreads();  // the ballots, and chunk c's rows
-      int k, nw;
-      const unsigned* need = coop_list(sh.vote, cur, k, nw);
-      const ChunkRows& rows = coop_rows(sh.rows, cur, cand, c0, mu, mv, mw,
-                                        e, tid);
-      if (k == 0) continue;
-      cnt.chunk_sweeps += 1.f;
-      if (may) cnt.steps += (float)kBT;
-      if (8 * k > 7 * 32 * nw) {
-        if (may) {
-          Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid],
-                 sh.be[tid]};
-          sweep_closest(rows, r, c * kBT, b);
-          sh.bt[tid] = b.t;
-          sh.bu[tid] = b.u;
-          sh.bv[tid] = b.v;
-          sh.bwd[tid] = b.wd;
-          sh.be[tid] = b.e;
-        }
-      } else {
-        for (int i = warp; i < k; i += kWarps) {
-          sweep_closest_warp(sh, rows, needing_ray(need, i, lane), c * kBT,
-                             lane);
-        }
-      }
-      __syncthreads();  // the merged bests; rows and ballots are free
-    }
+    coop_group_closest(sh, r, sc_may, c0, min(32, (s + 1) * scc - c0),
+                       chunk_bounds, nc, mu, mv, mw, e, tid, lane, warp, cur,
+                       cnt);
   }
 }
 
@@ -524,6 +550,36 @@ __device__ __forceinline__ void walk_two_level(
 __device__ __forceinline__ Best two_level_best(const TwoLevelShared& sh,
                                                int tid) {
   return Best{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
+}
+
+// Flat closest-hit walk of kernels 1 and 11, block-cooperative: the nc
+// chunks in index order, in groups of 32 (coop_group_closest), from no hit.
+// A ray needs chunk c when it is `live` and its own slab test against c's
+// inflated box passes before its best t so far: the gate of
+// walk_flat_closest, seeing the best after the same earlier chunks, so the
+// winner, `steps` (256 per chunk the ray needs) and `chunk_sweeps` (the
+// chunks some ray of the block needs) come out as that walk's. A ray that
+// is not live (a parked path of kernel 11, whose every gate fails) casts
+// no vote bit and is never listed; it still takes part in every barrier.
+// Every thread calls it with its own ray `r`; it stores r and no hit in
+// `sh` first (two_level_start), and the winner is read from `sh` after it
+// returns (two_level_best). The cursor `cur` is the caller's, so that
+// kernel 11 keeps the vote parity across its bounces: the first vote of a
+// bounce then never overwrites the vote words a slow thread still reads
+// from the last group of the bounce before. Every read of another ray's
+// o, d and best ends at the barrier after its sweep, so the next bounce's
+// two_level_start overwrites nothing still being read.
+__device__ __forceinline__ void walk_flat_coop(
+    TwoLevelShared& sh, const Ray& r, bool live,
+    const float* __restrict__ bounds, int nc, const float* __restrict__ mu,
+    const float* __restrict__ mv, const float* __restrict__ mw, size_t e,
+    int tid, CoopCursor& cur, WalkCounts& cnt) {
+  const int lane = tid & 31, warp = tid >> 5;
+  two_level_start(sh, r, tid, kMiss, 0);
+  for (int c0 = 0; c0 < nc; c0 += 32) {
+    coop_group_closest(sh, r, live, c0, min(32, nc - c0), bounds, nc, mu, mv,
+                       mw, e, tid, lane, warp, cur, cnt);
+  }
 }
 
 // Any-hit of shadow ray `r` against the staged chunk c: each 128-triangle

@@ -33,7 +33,7 @@ import torch
 from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
-from gdpathtracing_torch.ops.intersect import (BN, MAT_W, TABLE_W,
+from gdpathtracing_torch.ops.intersect import (BN, BT, MAT_W, TABLE_W,
                                                TracePrep, _FAR, _S3,
                                                _check_inputs, _launch, _MISS,
                                                prepare_trace_inputs,
@@ -87,8 +87,11 @@ def fused_paths_plain(o4t, d4t, seeds, bounds, mu, mv, mw, table, mats,
     bounces of each ray, each a :func:`walk_flat_plain` closest hit and the
     reference's FUSED shading (fused_pallas.py:200-297). Returns ((7, N)
     f32 radiance rgb | depth (1e9 on a miss) | first-hit normal, (N,) i32
-    segments). A ``counts`` dict receives ``tests``, the ray-triangle tests
-    these inputs need over all bounces."""
+    segments). A ``counts`` dict receives, summed over the bounces,
+    ``tests``, the ray-triangle tests these inputs need, ``slots``, the
+    thread-slots kernel 11's block-cooperative walk spends on them
+    (``walk_flat_plain``), and ``thread_slots``, those a thread per ray
+    would (every lane of a block sweeps each chunk some ray of it needs)."""
     n = o4t.shape[1]
     o = Vec3(o4t[0], o4t[1], o4t[2])
     d = Vec3(d4t[0], d4t[1], d4t[2])
@@ -104,15 +107,17 @@ def fused_paths_plain(o4t, d4t, seeds, bounds, mu, mv, mw, table, mats,
     segs = torch.zeros(n, dtype=torch.int32, device=o4t.device)
 
     for bounce in range(config.bounces):
-        walk, _ = walk_flat_plain(torch.stack([*o, one_n]),
-                                  torch.stack([*d, zero_n]), bounds, mu, mv,
-                                  mw)
+        walk, sweeps, slots = walk_flat_plain(
+            torch.stack([*o, one_n]), torch.stack([*d, zero_n]), bounds, mu,
+            mv, mw)
         t = walk.best_t
         hit = (t < _MISS) & active
         segs = segs + active.to(torch.int32)
         if counts is not None:
-            counts["tests"] = counts.get("tests", 0.0) + float(
-                walk.steps.sum())
+            for k, v in (("tests", walk.steps.sum()),
+                         ("slots", slots[::BN].sum()),
+                         ("thread_slots", sweeps[::BN].sum() * BN * BT)):
+                counts[k] = counts.get(k, 0.0) + float(v)
 
         row = torch.where(hit[:, None], table.index_select(0, walk.best_e),
                           0.0)

@@ -473,26 +473,46 @@ class _ClosestWalk:
         return out
 
 
-def walk_flat_plain(o4t, d4t, bounds, mu, mv, mw
-                    ) -> tuple[_ClosestWalk, torch.Tensor]:
-    """Plain version of csrc/trace_common.cuh ``walk_flat_closest``
-    (kernels 1, 10 and 11): chunks in index order, each ray gated by its
-    own slab test against the chunk's inflated box. Returns the walk and,
-    per ray, the chunks its 256-ray block swept."""
+class FlatWalk(NamedTuple):
+    """What :func:`walk_flat_plain` finds for N rays."""
+    walk: _ClosestWalk     # each ray's winner and triangles swept
+    sweeps: torch.Tensor   # (N,) chunks its 256-ray block swept
+    slots: torch.Tensor    # (N,) thread-slots its block spent in the
+    #                        block-cooperative walk (:func:`two_level_slots`)
+
+
+def walk_flat_plain(o4t, d4t, bounds, mu, mv, mw) -> FlatWalk:
+    """Plain version of the flat closest-hit walk of kernels 1 and 11
+    (csrc/trace_common.cuh ``walk_flat_coop``) and of kernel 10
+    (``walk_flat_closest``): chunks in index order, each ray gated by its
+    own slab test against the chunk's inflated box before its best t so
+    far. Also counts, per ray, the chunks its 256-ray block swept and the
+    thread-slots the block spends on them under kernel 1's cooperative
+    mapping (:func:`two_level_slots` of each chunk's gates, summed over
+    the chunks)."""
     walk = _ClosestWalk(o4t, d4t)
     sweeps = torch.zeros_like(walk.best_t)
+    slots = torch.zeros_like(walk.best_t)
     for c in range(mu.shape[1] // BT):
         may = walk.passes(bounds[:, c])
         sweeps += _block_any(may)
+        slots += two_level_slots(may).repeat_interleave(BN)
         walk.sweep(c, may, mu, mv, mw)
-    return walk, sweeps
+    return FlatWalk(walk, sweeps, slots)
 
 
-def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
+def closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab,
+                           counts: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel's contract (see
     csrc/closest_hit_rows.cu): :func:`walk_flat_plain` and the winner's
-    rows."""
-    walk, sweeps = walk_flat_plain(o4t, d4t, bounds, mu, mv, mw)
+    rows. ``counts``, when given, receives the thread-slots kernel 1's
+    block-cooperative walk spends (``"slots"``) and those of a thread per
+    ray (``"thread_slots"``: every lane of a block sweeps each chunk some
+    ray of the block needs), summed over the blocks."""
+    walk, sweeps, slots = walk_flat_plain(o4t, d4t, bounds, mu, mv, mw)
+    if counts is not None:
+        counts["slots"] = float(slots[::BN].sum())
+        counts["thread_slots"] = float(sweeps[::BN].sum()) * BN * BT
     return walk.rows(tab, sweeps, 0.0)
 
 

@@ -22,6 +22,7 @@ import torch
 
 from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.ops import fused as fu
 from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.render import brdf
 from gdpathtracing_torch.render.integrator import sample_direct
@@ -63,6 +64,29 @@ def bounce_rays(s, hit, seed, cfg: RenderConfig):
     (r1, r2), _ = rng.pcg2d(seed)
     return Ray(s.position + s.normal * cfg.ray_eps,
                brdf.sample_brdf(s, r1, r2)), hit.hit
+
+
+def rows_tiles(scene, cam, prep: ti.TracePrep, cfg: RenderConfig
+               ) -> dict[str, tuple]:
+    """Kernel 1's tiles: the standard loop's middle tile, primary rays and
+    one bounce from their hits, each as the operands of
+    ``ti.closest_hit_rows``, by name."""
+    primary, hit, s, seed = middle_rays(scene, cam, prep, cfg,
+                                        cfg.tile_rays, middle_tile(cfg))
+    bounce, active = bounce_rays(s, hit, seed, cfg)
+    geo = (prep.bounds, prep.mu, prep.mv, prep.mw, prep.tab)
+    return {"primary": (*ti.pack_rays(primary, None), *geo),
+            "bounce 1": (*ti.pack_rays(bounce, active), *geo)}
+
+
+def fused_operands(scene, cam, prep: ti.TracePrep, cfg: RenderConfig):
+    """Kernel 11's tile: the camera paths of the middle tile (rays and
+    PCG2D words as ``path_trace_fused`` packs them), as the operands of
+    ``fused.fused_paths`` before its config."""
+    ray, seed = camera_rays(cam, cfg, cfg.tile_rays, middle_tile(cfg),
+                            prep.mu.device)
+    return (*fu.pack_paths(ray, seed), prep.bounds, prep.mu, prep.mv,
+            prep.mw, fu._build_table(scene), fu._build_mats(scene))
 
 
 def shadow_queries(s, hit, seed, prep: ti.TracePrep, cfg: RenderConfig):

@@ -337,6 +337,176 @@ def test_two_level_kernels_adversarial(bench_grid, kernel, kind, n):
     assert (got[t_row] < ti._MISS).any()
 
 
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["one_per_block", "same_chunk", "edges",
+                                  "ties"])
+def test_flat_rows_kernel_adversarial(bench_grid, kind, n):
+    """Kernel 1 (the block-cooperative flat walk) on the adversarial sets of
+    _two_level_set, the bench grid's 384 padded chunks walked flat: all 48
+    rows bit for bit against the plain version, the counters 45 (tests a
+    ray needed) and 46 (chunks its block swept) included; the aimed rays
+    find the triangle they were aimed at (for ties: the lower eidx)."""
+    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    args = rays + geo[1:] + (tab,)
+    before = ti.closest_hit_rows.launches
+    got = ti.closest_hit_rows(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_rows.launches == before + 1
+    want = ti.closest_hit_rows_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    on = torch.from_numpy(aimed >= 0).cuda()
+    if kind == "one_per_block":
+        assert int((rays[0][0] < 1e8).sum()) == n // ti.BN
+    else:
+        assert torch.equal(got[44][on].long(),
+                           torch.from_numpy(aimed).cuda()[on])
+    assert (got[40] < ti._MISS).any()
+
+
+@pytest.fixture(scope="module")
+def mid_fused():
+    """The mid-size sphere grid (34 chunks, FUSED's flat walk) on the card
+    with FUSED's winner table and material rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from gdpathtracing_torch.ops import fused as fu
+    from gdpathtracing_torch.scene.demo import build_sphere_grid
+    s = build_sphere_grid(n=4, sphere_detail=12, device="cuda")
+    return ti.prepare_trace_inputs(s), fu._build_table(s), fu._build_mats(s)
+
+
+# (source eidx, destination eidx) of the triangles copied for exact ties on
+# the mid grid: within chunk 3, from chunk 3 into chunk 20, from chunk 30
+# into chunk 9 (before its source).
+MID_COPIES = ((3 * 256 + 17, 3 * 256 + 200), (3 * 256 + 40, 20 * 256 + 5),
+              (30 * 256 + 100, 9 * 256 + 250))
+
+
+def _fused_set(mid_fused, kind, n):
+    """Kernel 11's operands (camera paths on the card, the mid grid's flat
+    geometry, table and materials) for an adversarial set, from a numpy
+    seed, and each path's first aimed distance (or -1). Random paths start
+    over the grid (a tenth parked, origin 1e9):
+    - one_per_block: one random path in each 256-ray block, the rest
+      parked: k <= 1 on every chunk a block stages, at every bounce;
+    - same_chunk: the 256 paths of a block aimed at one triangle of a
+      sphere's upper half from 0.25 off its plane: k = 256 on that chunk at
+      bounce 0, where the rays' own threads sweep;
+    - edges: paths at triangle 255 of a chunk and at triangle 0 of the
+      next from 1e-2 off (the winner at either end of a chunk);
+    - ties: paths at the triangles of MID_COPIES, copied with their table
+      rows into the destination columns (boxes grown to hold them), the
+      copies given the next material, so the lower eidx's material shows
+      in the radiance;
+    - die: every path leaves the scene upward from above the light (or is
+      parked), so all die after bounce 0 and every block walks bounces
+      1-4 with no live path;
+    - one_live: random paths, but in every other block all but one leave
+      the scene at bounce 0: a block with one live path."""
+    prep, table, mats = mid_fused
+    g = np.random.default_rng({"one_per_block": 41, "same_chunk": 42,
+                               "edges": 43, "ties": 44, "die": 45,
+                               "one_live": 46}[kind])
+    rows = [x.cpu().numpy().copy() for x in (prep.mu, prep.mv, prep.mw)]
+    cb = prep.bounds.cpu().numpy().copy()
+    table = table.clone()
+    ok = _well_formed(rows)
+    aimed = np.full(n, -1.0)
+    o = np.stack([g.uniform(-6, 6, n), g.uniform(-0.5, 7.5, n),
+                  g.uniform(-6, 6, n)])
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    park = g.uniform(size=n) < 0.1
+    up = np.zeros(n, bool)  # paths that leave the scene upward
+    if kind == "one_per_block":
+        park = np.ones(n, bool)
+        park[np.arange(0, n, ti.BN) + g.integers(0, ti.BN, n // ti.BN)] = False
+    elif kind == "same_chunk":
+        mu, mv, mw = (x[:, ok].astype(np.float64) for x in rows)
+        a = np.stack([mu[:3].T, mv[:3].T, mw[:3].T], axis=1)
+        cy = np.linalg.solve(a, np.stack([1 / 3 - mu[3], 1 / 3 - mv[3],
+                                          -mw[3]], axis=1)[..., None])[:, 1, 0]
+        tri = g.choice(np.flatnonzero(ok)[(cy > 0.2) & (cy < 0.9)],
+                       n // ti.BN)
+        o, d = _aim_at(rows, np.repeat(tri, ti.BN), 0.25, g)
+        aimed[:] = 0.25
+        park[:] = False
+    elif kind == "edges":
+        c = g.choice(np.flatnonzero(ok[255:-1:ti.BT] & ok[256::ti.BT]), n)
+        tri = c * ti.BT + np.where(g.uniform(size=n) < 0.5, 255, 256)
+        o, d = _aim_at(rows, tri, 1e-2, g)
+        aimed[:] = 1e-2
+    elif kind == "ties":
+        for src, dst in MID_COPIES:
+            assert ok[src]
+            for x in rows:
+                x[:, dst] = x[:, src]
+            table[dst] = table[src]
+            table[dst, 27] = (table[src, 27] + 1) % mats.shape[0]
+            cb[0:3, dst // ti.BT] = np.minimum(cb[0:3, dst // ti.BT],
+                                               cb[0:3, src // ti.BT])
+            cb[3:6, dst // ti.BT] = np.maximum(cb[3:6, dst // ti.BT],
+                                               cb[3:6, src // ti.BT])
+        pick = g.uniform(size=n) < 0.6
+        tri = np.array([min(s, t) for s, t in MID_COPIES])[
+            g.integers(0, len(MID_COPIES), int(pick.sum()))]
+        o[:, pick], d[:, pick] = _aim_at(rows, tri, 1e-2, g)
+        aimed[pick] = 1e-2
+        park &= ~pick
+    elif kind == "die":
+        up[:] = True
+    elif kind == "one_live":
+        up = (np.arange(n) // ti.BN) % 2 == 0
+        up[np.arange(0, n, 2 * ti.BN) + g.integers(0, ti.BN, -(-n // (
+            2 * ti.BN)))] = False
+    o[:, up] = np.stack([g.uniform(-6, 6, int(up.sum())),
+                         np.full(int(up.sum()), 20.0),
+                         g.uniform(-6, 6, int(up.sum()))])
+    d[1, up] = np.abs(d[1, up]) + 0.1
+    d[:, up] /= np.linalg.norm(d[:, up], axis=0, keepdims=True)
+    o[:, park], d[:, park] = 1e9, 0.5773503
+    aimed[park] = -1
+    dev = prep.mu.device
+    o4, d4 = (torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [x, np.full((1, n), w)]), dtype=np.float32)).to(dev)
+        for x, w in ((o, 1.0), (d, 0.0)))
+    seeds = torch.from_numpy(g.integers(-2**31, 2**31, (2, n),
+                                        dtype=np.int32)).to(dev)
+    geo = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (cb, *rows))
+    return (o4, d4, seeds, *geo, table, mats), aimed, up
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["one_per_block", "same_chunk", "edges",
+                                  "ties", "die", "one_live"])
+def test_fused_paths_kernel_adversarial(mid_fused, kind, n):
+    """Kernel 11 (5 bounces, each on the block-cooperative flat walk) on the
+    adversarial sets of _fused_set: radiance, depth, normal and segments
+    bit for bit against the plain version; the aimed paths' depth is their
+    distance to the aimed triangle, and the paths that leave the scene
+    trace one segment."""
+    from gdpathtracing_torch.ops import fused as fu
+    args, aimed, up = _fused_set(mid_fused, kind, n)
+    cfg = RenderConfig(traversal=Traversal.FUSED)
+    before = fu.fused_paths.launches
+    got = fu.fused_paths(*args, cfg)
+    torch.cuda.synchronize()
+    assert fu.fused_paths.launches == before + 1
+    want = fu.fused_paths_plain(*args, cfg)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    on = aimed >= 0
+    depth = got[0][3].cpu().numpy()
+    np.testing.assert_allclose(depth[on], aimed[on], rtol=1e-3)
+    segs = got[1].cpu().numpy()
+    assert (segs[up] == 1).all() and (depth[up] == ti._MISS).all()
+    if kind == "die":
+        assert (segs == 1).all()
+    elif kind in ("same_chunk", "edges", "ties"):
+        assert (segs > 1).any()
+
+
 def _no_winner(n, dev):
     return torch.stack([torch.full((n,), ti._MISS, device=dev),
                         torch.full((n,), float(ti.BIG_E), device=dev)])

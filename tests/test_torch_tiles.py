@@ -9,7 +9,10 @@ on and tools/two_level_turns.py times them on, cut small on the CPU:
   takes, parked rays with limit 0, both answers among the queries;
 - ``rows_nee_operands`` on the demo: kernel 4's rows equal kernel 1's on
   its bounce rays (the winners), its occlusion kernel 2's on its shadow
-  rays.
+  rays;
+- ``rows_tiles`` on the demo: kernel 1's primary and bounce-1 rays;
+- ``fused_operands`` on the mid grid: kernel 11's camera paths, as FUSED's
+  path tracer packs them.
 
 The tiles hold no kernel of their own, so nothing here runs JAX.
 """
@@ -19,7 +22,8 @@ from __future__ import annotations
 import pytest
 import torch
 
-from gdpathtracing_torch.config import RenderConfig
+from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.ops import fused as fu
 from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.ops import tiles as kt
 from gdpathtracing_torch.scene.demo import (build_demo_scene,
@@ -133,3 +137,43 @@ def test_rows_nee_operands_on_demo():
     assert torch.equal(rows[:45], ti.closest_hit_rows(
         nee[0], nee[1], prep.bounds, prep.mu, prep.mv, prep.mw,
         prep.tab)[:45])
+
+
+def test_rows_tiles_on_demo():
+    """Kernel 1's tiles: the middle tile's primary rays and the bounce
+    from their hits (the hits kernel 1 finds on the primary rays)."""
+    scene = build_demo_scene(device="cpu")
+    prep = ti.prepare_trace_inputs(scene)
+    tiles = kt.rows_tiles(scene, demo_camera(kt.W, kt.H), prep, CFG)
+    assert list(tiles) == ["primary", "bounce 1"]
+    primary, hit, s, seed = kt.middle_rays(
+        scene, demo_camera(kt.W, kt.H), prep, CFG, N, kt.middle_tile(CFG))
+    assert torch.equal(torch.cat(tiles["primary"][:2]),
+                       torch.cat(ti.pack_rays(primary, None)))
+    assert torch.equal(torch.cat(tiles["bounce 1"][:2]), torch.cat(
+        ti.pack_rays(*kt.bounce_rays(s, hit, seed, CFG))))
+    for args in tiles.values():
+        assert args[0].shape == (4, N)
+        assert args[2:] == (prep.bounds, prep.mu, prep.mv, prep.mw, prep.tab)
+    rows = ti.closest_hit_rows(*tiles["primary"])
+    assert torch.equal(rows[40] < ti._MISS, hit.hit)
+
+
+def test_fused_operands_on_mid(mid):
+    """Kernel 11's tile: the middle tile's camera paths over the mid grid's
+    34 chunks, walked flat; its 5 bounces equal FUSED's path tracer on the
+    same rays."""
+    scene, cam, prep = mid
+    args = kt.fused_operands(scene, cam, prep, CFG)
+    o4t, d4t, seeds = args[:3]
+    assert o4t.shape == d4t.shape == (4, N) and seeds.shape == (2, N)
+    assert seeds.dtype == torch.int32
+    assert args[3:7] == (prep.bounds, prep.mu, prep.mv, prep.mw)
+    assert prep.bounds.shape[1] == 34
+    fcfg = CFG.replace(traversal=Traversal.FUSED, bounces=2)
+    out, segs = fu.fused_paths(*args, fcfg)
+    ray, seed = kt.camera_rays(cam, CFG, N, kt.middle_tile(CFG), "cpu")
+    res = fu.path_trace_fused(scene, ray, seed, fcfg, prep)
+    assert torch.equal(segs, res.segments)
+    assert torch.equal(out[0], res.radiance.x)
+    assert int((out[3] < ti._MISS).sum()) > N // 10

@@ -1,5 +1,6 @@
-"""The winner rule of the two-level closest hit (kernels 3 and 6) at exact
-ties, and the thread-slot count of their block-cooperative walk.
+"""The winner rule of the two-level closest hit (kernels 3 and 6) and of
+the flat closest hit (kernels 1 and 11) at exact ties, and the thread-slot
+count of the two-level block-cooperative walk.
 
 The CUDA walk (csrc/trace_common.cuh ``walk_two_level``) sweeps a chunk
 with a warp per needing ray and reduces the lanes' winners in a shuffle
@@ -11,7 +12,11 @@ padded chunks in 5 superchunks of 8), triangles are copied into other
 columns of their own chunk, of a chunk of another superchunk, and of a
 chunk before theirs; rays aimed at the copied triangles then hit two
 triangles at the same t, and the port's plain versions must pick the same
-eidx as JAX's interpret-mode kernels: the lower one.
+eidx as JAX's interpret-mode kernels: the lower one. The flat walk
+(csrc/trace_common.cuh ``walk_flat_coop``) takes the same 40 chunks in
+index order, without the superchunk level, against JAX's flat
+``_closest_hit_rows``; kernel 11's plain version shows its winner through
+a material per triangle whose emission is its eidx.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import jax.numpy as jnp
 
 import gdpathtracing_tpu.ops.intersect_pallas as jip
 
+from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.ops import fused as fu
 from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.render.types import MISS_T
 from gdpathtracing_torch.scene.demo import build_sphere_grid
@@ -175,6 +182,65 @@ def test_tie_winner_rows_matches_jax(dup):
     hit = got[40] < MISS_T
     np.testing.assert_array_equal(
         got[:ti.TAB_R][:, hit], tab[:, got[44][hit].astype(np.int64)])
+
+
+@pytest.fixture(scope="module")
+def flat_jax(dup):
+    """A random winner table and JAX's flat rows kernel in interpret mode on
+    the dup operands (its (8, nc) boxes: JAX inflates them once more, which
+    only lets more chunks pass the gate and moves no winner)."""
+    m, cb, sb, _, o4, d4, _ = dup
+    tab = np.random.default_rng(13).uniform(
+        size=(ti.TAB_R, m[0].shape[1])).astype(np.float32)
+    want = np.asarray(jip._closest_hit_rows(
+        jnp.asarray(o4), jnp.asarray(d4), jnp.asarray(cb),
+        _jax_operands(m, cb, sb)[2], jnp.asarray(tab), interpret=True))
+    return tab, want
+
+
+def test_flat_tie_winner_rows_matches_jax(dup, flat_jax):
+    m, cb, _, _, o4, d4, aimed = dup
+    tab, want = flat_jax
+    got = ti.closest_hit_rows(torch.from_numpy(o4), torch.from_numpy(d4),
+                              torch.from_numpy(cb), *map(torch.from_numpy, m),
+                              torch.from_numpy(tab)).numpy()
+    np.testing.assert_array_equal(got[44], want[44])
+    np.testing.assert_allclose(got[40], want[40], rtol=T_RTOL, atol=T_ATOL)
+    for i, (src, dst) in enumerate(COPIES):
+        assert (got[44][aimed == i] == min(src, dst)).all()
+    assert (got[40][o4[0] > 1e8] == MISS_T).all()
+    hit = got[40] < MISS_T
+    np.testing.assert_array_equal(
+        got[:ti.TAB_R][:, hit], tab[:, got[44][hit].astype(np.int64)])
+
+
+def test_flat_tie_winner_fused_matches_jax(dup, flat_jax):
+    """One bounce of kernel 11's plain version: triangle e has material e,
+    emitting (e, 0, 0) at energy 1, so a hit's radiance is its eidx, and
+    its depth its t."""
+    m, cb, _, _, o4, d4, aimed = dup
+    _, want = flat_jax
+    e, n = m[0].shape[1], o4.shape[1]
+    table = np.zeros((e, ti.TABLE_W), np.float32)
+    table[:, 27] = np.arange(e)
+    mats = np.zeros((e, ti.MAT_W), np.float32)
+    mats[:, 3] = np.arange(e)
+    mats[:, 6] = 1.0
+    out, segs = fu.fused_paths(
+        torch.from_numpy(o4), torch.from_numpy(d4),
+        torch.zeros(2, n, dtype=torch.int32), torch.from_numpy(cb),
+        *map(torch.from_numpy, m), torch.from_numpy(table),
+        torch.from_numpy(mats),
+        RenderConfig(traversal=Traversal.FUSED, bounces=1))
+    out = out.numpy()
+    hit = want[40] < MISS_T
+    assert hit.sum() >= len(COPIES) * N_AIM
+    np.testing.assert_array_equal(out[3] < MISS_T, hit)
+    np.testing.assert_array_equal(out[0][hit], want[44][hit])
+    np.testing.assert_allclose(out[3], want[40], rtol=T_RTOL, atol=T_ATOL)
+    for i, (src, dst) in enumerate(COPIES):
+        assert (out[0][aimed == i] == min(src, dst)).all()
+    assert (segs.numpy() == 1).all()
 
 
 def _gates(*warps):

@@ -4,10 +4,11 @@
     python3 tools/two_level_turns.py --other parent=DIR [--other NAME=DIR]
                                      [--only NAME ...]
 
-Builds ``closest_hit_sc_lite.cu`` (kernel 3), ``closest_hit_rows_sc.cu``
-(kernel 6), ``march_step_sc.cu`` (kernel 7), ``occlusion.cu`` (kernel 2),
-``closest_hit_rows_nee.cu`` (kernel 4) and ``mega_step.cu`` (kernel 10)
-from this checkout's ``gdpathtracing_torch/csrc`` ("change") and from each
+Builds ``closest_hit_rows.cu`` (kernel 1), ``closest_hit_sc_lite.cu``
+(kernel 3), ``closest_hit_rows_sc.cu`` (kernel 6), ``march_step_sc.cu``
+(kernel 7), ``occlusion.cu`` (kernel 2), ``closest_hit_rows_nee.cu``
+(kernel 4), ``mega_step.cu`` (kernel 10) and ``fused_paths.cu`` (kernel
+11) from this checkout's ``gdpathtracing_torch/csrc`` ("change") and from each
 ``DIR`` (another ``csrc`` directory, for example the parent commit's,
 unpacked with ``git archive`` into a directory that .gitignore lists), with
 ops/build.py's flags, and prints ptxas' registers, shared memory and
@@ -27,14 +28,18 @@ The tiles:
 - kernel 2: 393216 shadow rays (the regen wavefront) from the hits around
   the middle of a 1080p frame toward sampled light points, on the demo
   and on the grid (its 376 flat chunks);
-- kernel 4: the demo's middle tile, bounce-1 rays with the shadow rays of
-  its primary hits; kernel 10: that tile's camera paths at bounce 1 with
-  NEE (both of its walks).
+- kernel 1: the demo's middle tile, primary rays and bounce-1 rays;
+  kernel 4: that tile's bounce-1 rays with the shadow rays of its primary
+  hits; kernel 10: its camera paths at bounce 1 with NEE (both of its
+  walks);
+- kernel 11: the middle tile's camera paths, 5 bounces, on the demo and on
+  the mid grid (n=4, 34 chunks walked flat).
 Per tile it also prints the tests the rays need, the thread-slots of one
-thread per ray and of the block-cooperative walks (kernels 2, 3, 6, 7:
-``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound of
-chip_smoke.py. ``--only`` keeps the named kernels (C entry names). The
-last line is one JSON object with every time.
+thread per ray and of the block-cooperative walks (kernels 1, 2, 3, 6, 7,
+11: ``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound
+of chip_smoke.py (kernel 11's without its shading operations). ``--only``
+keeps the named kernels (C entry names). The last line is one JSON object
+with every time.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -53,9 +58,10 @@ ROOT = Path(__file__).resolve().parents[1]
 ITERS = 20
 # Each C entry point: its source and its operands (pointers, ints, floats;
 # then the stream).
-ENTRIES = {"closest_hit_sc_lite": (8, 3, 0), "closest_hit_rows_sc": (9, 3, 0),
-           "march_step_sc": (10, 4, 0), "occlusion": (9, 2, 0),
-           "closest_hit_rows_nee": (13, 2, 0), "mega_step": (11, 6, 8)}
+ENTRIES = {"closest_hit_rows": (8, 2, 0), "closest_hit_sc_lite": (8, 3, 0),
+           "closest_hit_rows_sc": (9, 3, 0), "march_step_sc": (10, 4, 0),
+           "occlusion": (9, 2, 0), "closest_hit_rows_nee": (13, 2, 0),
+           "mega_step": (11, 6, 8), "fused_paths": (11, 3, 7)}
 PEAK_FP32 = 67e12  # float32 outside the tensor cores, H100 SXM at 700 W
 OPS_PER_TEST, OPS_PER_SLAB = 45, 25  # as chip_smoke.py
 
@@ -119,6 +125,7 @@ def main() -> None:
         sys.exit("torch.cuda.is_available() is false: this needs a GPU")
     sys.path.insert(0, str(ROOT))
     from gdpathtracing_torch.config import RenderConfig, Traversal
+    from gdpathtracing_torch.ops import fused as fu
     from gdpathtracing_torch.ops import intersect as ti
     from gdpathtracing_torch.ops import megakernel as mk
     from gdpathtracing_torch.ops import tiles as kt
@@ -219,6 +226,16 @@ def main() -> None:
         cam = demo_camera(W, H)
         prep = ti.prepare_trace_inputs(scene)
         e, nc = prep.mu.shape[1], prep.mu.shape[1] // ti.BT
+        if name == "closest_hit_rows":
+            for what, tens in kt.rows_tiles(scene, cam, prep, cfg).items():
+                n = tens[0].shape[1]
+                counts = {}
+                want = ti.closest_hit_rows_plain(*tens, counts=counts)
+                tiles.append((name, "demo", what, tens,
+                              [((ti.OUT_R, n), torch.float32)], (n, e), (),
+                              [want], float(want[45].sum()), float(n * nc),
+                              counts["slots"], counts["thread_slots"]))
+            return
         if name == "closest_hit_rows_nee":
             _, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile,
                                              first)
@@ -256,6 +273,26 @@ def main() -> None:
                       list(want), counts["tests"], float(2 * n * nc), None,
                       None))
 
+    def fused_tiles():
+        fcfg = cfg.replace(traversal=Traversal.FUSED)
+        for label, scene, cam in (
+                ("demo", build_demo_scene(), demo_camera(W, H)),
+                ("mid grid", build_sphere_grid(n=4, sphere_detail=12),
+                 grid_camera(W, H, n=4))):
+            prep = ti.prepare_trace_inputs(scene)
+            tens = kt.fused_operands(scene, cam, prep, cfg)
+            n, e = tens[0].shape[1], prep.mu.shape[1]
+            counts = {}
+            want = fu.fused_paths_plain(*tens, fcfg, counts=counts)
+            tiles.append(("fused_paths", label, "camera paths, 5 bounces",
+                          tens, [((7, n), torch.float32),
+                                 ((n,), torch.int32)],
+                          (n, e, fcfg.bounces),
+                          (fcfg.ray_eps, *mk.sky_constants(fcfg)), list(want),
+                          counts["tests"],
+                          float(fcfg.bounces * n * (e // ti.BT)),
+                          counts["slots"], counts["thread_slots"]))
+
     for name in args.only:
         if name in ("closest_hit_sc_lite", "march_step_sc"):
             two_level_tiles(name, 10)
@@ -263,6 +300,8 @@ def main() -> None:
             two_level_tiles(name, 14)
         elif name == "occlusion":
             occlusion_tiles()
+        elif name == "fused_paths":
+            fused_tiles()
         else:
             flat_tiles(name)
 

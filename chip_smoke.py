@@ -18,8 +18,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      on the demo and on the grid (its 376 flat chunks), with the
      thread-slots its block-cooperative walk spends against one thread
      per ray's;
-   - kernel 4 (both in one pass): the middle tile's bounce-1 rays with the
-     shadow rays of its primary hits;
+   - kernel 4 (both in one launch, on the same two block-cooperative
+     walks): the middle tile's bounce-1 rays with the shadow rays of its
+     primary hits, with the thread-slots of its walks against one thread
+     per ray's;
    - kernel 3 (two-level closest hit, lite) on the sphere grid of the JAX
      bench (n=10, 96256 triangles), and kernel 6 (two-level closest hit
      with rows) on the n=14 grid (188416 triangles, over the reference's
@@ -39,7 +41,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      middle tile's primary hits toward sampled light points, on the demo
      and on the grid, with soft shadows' edge_eps of phase 3b;
    - kernel 10 (MEGA's per-bounce megakernel) on the middle demo tile's
-     packed path state, bounce 0 and bounce 1, without and with NEE;
+     packed path state, bounce 0 and bounce 1, without and with NEE, with
+     the thread-slots of its block-cooperative walks against one thread
+     per ray's;
      kernel 11 (FUSED's all-bounces kernel) on the middle demo tile and on
      the middle mid-grid tile, 5 bounces, with the thread-slots of its
      block-cooperative flat walk summed over the bounces against one
@@ -407,7 +411,8 @@ def main() -> None:
     args = kt.rows_nee_operands(prep, bounce, hit.hit, pend)
     n = args[0].shape[1]
     rows, occ = ti.closest_hit_rows_nee(*args)
-    rows_p, occ_p = ti.closest_hit_rows_nee_plain(*args)
+    counts = {}
+    rows_p, occ_p = ti.closest_hit_rows_nee_plain(*args, counts=counts)
     torch.cuda.synchronize()
     flips = int((occ != occ_p).sum())
     err = max(float((rows - rows_p).abs().max()), float(flips))
@@ -417,17 +422,22 @@ def main() -> None:
         f"{flips} occlusion mismatches")
     check(torch.equal(rows, rows_p) and flips == 0,
           "kernel 4 differs from its plain version")
-    shadow_counts = {}
-    shadow = ti.occluded_plain(*args[2:10], counts=shadow_counts)
-    needed = float(rows_p[45].sum()) + float(shadow.tests.sum())
+    needed = counts["tests"]
     k = cuda_ms(lambda: ti.closest_hit_rows_nee(*args), KERNEL_ITERS, torch)
     p = cuda_ms(lambda: ti.closest_hit_rows_nee_plain(*args), PLAIN_ITERS,
                 torch)
-    log(f"  {needed:.4g} ray-triangle tests needed (both phases)")
+    # Thread-slots of both block-cooperative walks (the flat closest hit's
+    # and the any-hit's), beside a thread per ray's (every lane of a block
+    # on each chunk some ray of it needs, in each walk).
+    log(f"  {needed:.4g} ray-triangle tests needed (both walks), "
+        f"{counts['slots']:.4g} thread-slots swept "
+        f"({needed / max(counts['slots'], 1.0):.3f} useful; a thread per "
+        f"ray: {counts['thread_slots']:.4g}, "
+        f"{needed / max(counts['thread_slots'], 1.0):.3f} useful)")
     # Slab tests: every chunk box of every bounce ray, and what the shadow
     # rays need in index order (ti.occluded_plain).
     record("closest_hit_rows_nee", err, k, p, *bound(
-        needed, n * nc + shadow_counts["slab_tests"],
+        needed, counts["slab_tests"],
         17 * 4 * n + scene_bytes + tab_bytes + (ti.OUT_R + 1) * 4 * n))
 
     def occlusion_check(label, oscene, ocam, oprep):
@@ -452,7 +462,7 @@ def main() -> None:
         # Thread-slots: the block-cooperative walk's (ti.any_hit_slots),
         # beside a thread per ray with every lane of the block on each
         # chunk a ray of it needs.
-        spent_1 = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+        spent_1 = counts["thread_slots"]
         k = cuda_ms(lambda: ti.occluded(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.occluded_plain(*args),
                     PLAIN_ITERS if onc <= 16 else GRID_PLAIN_ITERS, torch)
@@ -745,7 +755,11 @@ def main() -> None:
             p = cuda_ms(lambda: mk.mega_step_plain(*state, *geo, b, mcfg),
                         PLAIN_ITERS, torch)
             log(f"  {counts['tests']:.4g} ray-triangle tests needed "
-                f"(both walks)")
+                f"(both walks), {counts['slots']:.4g} thread-slots swept "
+                f"({counts['tests'] / max(counts['slots'], 1.0):.3f} useful;"
+                f" a thread per ray: {counts['thread_slots']:.4g}, "
+                f"{counts['tests'] / max(counts['thread_slots'], 1.0):.3f} "
+                f"useful)")
             record("mega_step", err, k, p, *bound(
                 counts["tests"], (2 if nee else 1) * n * nc,
                 2 * (mk.FS_R + mk.IS_R) * 4 * n + scene_bytes + tab_bytes

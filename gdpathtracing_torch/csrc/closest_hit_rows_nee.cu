@@ -17,17 +17,35 @@
 //                                and 47 those it swept for phase B
 //        occ         (N,) i32    kernel 2's answer for the shadow rays
 //
-// Thread i carries bounce ray i through kernel 1's loop body and shadow
-// ray i through kernel 2's, over one walk of the chunks: a block stages a
-// chunk (12 KB of shared memory) when any of its rays needs it for either
-// phase, so the two phases share the chunk loads and the launch. Both
-// answers are those of kernels 1 and 2 run apart, bit for bit.
+// Ray i of the block is bounce ray i and shadow ray i. The block runs
+// kernel 1's walk on the bounce rays and then kernel 2's on the shadow
+// rays, both block-cooperative (trace_common.cuh walk_flat_coop, then
+// walk_any_coop): both answers, and rows 45 and 46, are those of kernels 1
+// and 2 run apart, bit for bit. Row 47 counts the chunks on which some
+// still unresolved shadow ray of the block passes its chunk gate
+// (walk_any_coop's counting variant), as the thread-per-ray form of this
+// kernel counted its shadow sweeps.
 //
 // What bounds it on the H100: arithmetic, as for kernels 1 and 2 (the
-// ray-triangle tests of both phases); bytes are the two ray sets in and
-// the rows and flags out. The design keeps each phase's per-ray gates, so
-// it tests exactly what kernels 1 and 2 would; what it saves is one launch
-// and the chunk loads the phases share.
+// ray-triangle tests of both walks); bytes are the two ray sets in and the
+// rows and flags out. The design: a thread per ray would sweep each chunk
+// some ray of the block needs with every lane, and leave idle the lanes
+// whose ray does not need it (0.30 of the thread-slots useful on a demo
+// bounce-1 tile, kernel 1 before its redesign). The cooperative walks list
+// each chunk's needing rays and sweep them a warp per ray, the rows
+// double-buffered by cp.async. What the single launch keeps is the launch
+// itself: the two walks no longer share the chunk loads, but the demo's 8
+// chunks (96 KB of rows) stay in L2. A merged walk (one vote and two
+// ballots per candidate) would share them, at the price of a third walk
+// in trace_common.cuh to keep bit-equal to the other two, one whose
+// barriers wait on both ray sets at once; the two walks in sequence reuse
+// what kernels 1 and 2 already run. Their shared blocks overlay each
+// other (NeeShared, 37 952 B): each thread reads its winner out of the
+// closest walk's block before the barrier after which the any-hit walk
+// writes its own. Launch bounds (256, 3): 79 registers, no spills, 3
+// blocks an SM; (256, 2) takes 82 and 11% more time, (256, 4) 64 with 8 B
+// of spill stores and 9% more (in turns on the H100,
+// tools/two_level_turns.py).
 
 #include "trace_common.cuh"
 
@@ -35,7 +53,7 @@ namespace {
 
 using namespace gdpt;
 
-__global__ void __launch_bounds__(kBN)
+__global__ void __launch_bounds__(kBN, 3)
 closest_hit_rows_nee_kernel(
     const float* __restrict__ o4, const float* __restrict__ d4,
     const float* __restrict__ so4, const float* __restrict__ sd4,
@@ -44,44 +62,27 @@ closest_hit_rows_nee_kernel(
     const float* __restrict__ mv, const float* __restrict__ mw,
     const float* __restrict__ tab, float* __restrict__ out,
     int* __restrict__ occ_out, int n, int e) {
-  __shared__ ChunkRows s_m;
+  __shared__ NeeShared sh;
 
   const int nc = e / kBT;
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kBN + tid;
-  const Ray a = load_ray(o4, d4, (size_t)n, ray);
-  const Ray b = load_ray(so4, sd4, (size_t)n, ray);
-  const float lim = stmax[ray];
 
-  Best best = no_hit();
-  float steps = 0.f, sweeps_a = 0.f, sweeps_b = 0.f;
-  bool occ = false;
+  // Phase A: the bounce rays' closest hit.
+  CoopCursor cur{0, 0};
+  WalkCounts cnt{0.f, 0.f, 0.f};
+  walk_flat_coop(sh.closest, load_ray(o4, d4, (size_t)n, ray), true, bounds,
+                 nc, mu, mv, mw, (size_t)e, tid, cur, cnt);
+  const Best best = two_level_best(sh.closest, tid);
+  __syncthreads();  // every winner read: the any-hit walk may write `any`
 
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(a, bounds, nc, c, tmin, tmax);
-    const bool may_a = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
-    slab(b, bounds, nc, c, tmin, tmax);
-    const bool may_b =
-        !occ && (tmax >= tmin) && (tmax > 0.f) && (tmin < lim);
-
-    // The first is also the barrier that ends every read of the previous
-    // chunk's rows.
-    const bool any_a = __syncthreads_or(may_a);
-    const bool any_b = __syncthreads_or(may_b);
-    if (!any_a && !any_b) continue;
-    stage_chunk(s_m, mu, mv, mw, (size_t)e, c, tid);
-    __syncthreads();
-    if (any_a) sweeps_a += 1.f;
-    if (any_b) sweeps_b += 1.f;
-    if (may_a) {
-      steps += (float)kBT;
-      sweep_closest(s_m, a, c * kBT, best);
-    }
-    if (may_b) occ = occlude_chunk(s_m, b, lim, sub_bounds, kSub * nc, c);
-  }
-  write_rows(out, tab, (size_t)n, (size_t)e, ray, best, steps, sweeps_a,
-             sweeps_b);
+  // Phase B: the shadow rays' any-hit; parked rays carry stmax = 0.
+  float sweeps_b = 0.f;
+  const bool occ = walk_any_coop<true>(
+      sh.any, load_ray(so4, sd4, (size_t)n, ray), stmax[ray], bounds,
+      sub_bounds, nc, mu, mv, mw, (size_t)e, tid, &sweeps_b);
+  write_rows(out, tab, (size_t)n, (size_t)e, ray, best, cnt.steps,
+             cnt.chunk_sweeps, sweeps_b);
   occ_out[ray] = occ ? 1 : 0;
 }
 

@@ -15,13 +15,12 @@
 //   out  fs, is   the state after the bounce
 //
 // and, for each ray, in this order (the reference's phases):
-//   A   the closest hit (kernel 1's gate, trace_common.cuh
-//       walk_flat_closest, a thread per ray) of the live rays, dead rays
-//       parked outside the scene;
+//   A   the closest hit (kernel 1's walk, trace_common.cuh walk_flat_coop)
+//       of the live rays; dead rays are parked outside the scene and cast
+//       no vote;
 //   A'  with NEE: shading from the winner's table row, one emitter sample
 //       (two PCG2D draws) and the shadow ray toward it;
-//   B   with NEE: its any-hit (kernel 2's gates, trace_common.cuh
-//       walk_flat_any, a thread per ray);
+//   B   with NEE: its any-hit (kernel 2's walk, walk_any_coop);
 //   B'  the emission (sky on a miss) with the MIS weight, the visible
 //       direct light, the first-hit AOVs, one BRDF sample (one draw), and
 //       with rr_start > 0 Russian roulette (one more draw, every bounce),
@@ -39,14 +38,22 @@
 // operations per ray-triangle test, 25 per slab test, plus ~600 of
 // shading, light sampling and BRDF per ray); device memory moves only the
 // state (32 rows in and out), the winner rows and the chunk rows. The
-// design: one thread per ray and 256-ray blocks, the state read and
-// written once per bounce (the whole point of the TPU kernel, which kept
-// it resident in VMEM); the walks stage each needed chunk's rows in shared
-// memory (12 KB) and skip chunks no ray of the block needs
-// (`__syncthreads_or`); shading stays out of the walk loops, so the walks
-// run at kernels 1 and 2's register count and the epilogues' registers
-// are live only between them.
-
+// design: one thread per ray for the state and the epilogues, and 256-ray
+// blocks, the state read and written once per bounce (the whole point of
+// the TPU kernel, which kept it resident in VMEM); the walks are kernels
+// 1 and 2's block-cooperative ones, which list each chunk's needing rays
+// and sweep them a warp per ray, the rows double-buffered by cp.async: a
+// thread per ray left the lanes of dead or non-needing rays idle while
+// their warps swept (after the first bounce most of a block). The two
+// walks' shared blocks overlay each other (NeeShared, 37 952 B): each
+// thread takes its winner into registers before the barrier after which
+// the any-hit walk writes its block. Shading stays out of the walk loops,
+// so the epilogues' registers are live only between them, and o and d
+// are loaded again after each walk (load_row3). Launch bounds (256, 3):
+// 80 registers, no spills, 3 blocks of 38 KB an SM; holding o and d across
+// the walks spilled 12 B there (and ran within 3.5% of it), (256, 2) takes
+// 93 registers and 2-9% more time, (256, 4) 64 with 92 B of spill stores
+// and 3-16% more (in turns on the H100, tools/two_level_turns.py).
 #include "path_common.cuh"
 #include "trace_common.cuh"
 
@@ -121,7 +128,24 @@ __device__ __forceinline__ LightSample draw_light(const float* __restrict__ lt,
   return sample_light(lt, n_lights, pos, lr3, lr1, lr2);
 }
 
-__global__ void __launch_bounds__(kBN)
+// Rows r .. r + 2 of the state at this ray, loaded where they are used
+// rather than held across the walks: a volatile load is never merged with
+// an earlier one, so o and d take no register during the walks, which
+// leaves launch bounds (256, 3) without spills (the state is read-only
+// here, so the non-coherent path is safe).
+__device__ __forceinline__ V3 load_row3(const float* __restrict__ f,
+                                        size_t n, int r) {
+  float x[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    asm volatile("ld.global.nc.f32 %0, [%1];"
+                 : "=f"(x[k])
+                 : "l"(f + (size_t)(r + k) * n));
+  }
+  return V3{x[0], x[1], x[2]};
+}
+
+__global__ void __launch_bounds__(kBN, 3)
 mega_step_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                  const float* __restrict__ bounds,
                  const float* __restrict__ sub_bounds,
@@ -129,7 +153,7 @@ mega_step_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                  const float* __restrict__ mw, const float* __restrict__ tab,
                  const float* __restrict__ lt, float* __restrict__ fs_out,
                  int* __restrict__ is_out, const Params p) {
-  __shared__ ChunkRows s_m;
+  __shared__ NeeShared sh;
 
   const size_t n = (size_t)p.n, e = (size_t)p.e;
   const int nc = p.e / kBT;
@@ -144,26 +168,28 @@ mega_step_kernel(const float* __restrict__ fs, const int* __restrict__ is,
     for (int r = 0; r < 8; ++r) is_out[r * n + ray] = iv[r * n];
     return;
   }
-  const V3 o{f[0], f[n], f[2 * n]};
-  const V3 d{f[3 * n], f[4 * n], f[5 * n]};
-
   // ---- A: closest hit; dead rays parked so that every slab test fails.
   Ray ra;
-  ra.ox = act ? o.x : kPark;
-  ra.oy = act ? o.y : kPark;
-  ra.oz = act ? o.z : kPark;
-  ra.ow = 1.f;
-  ra.dx = act ? d.x : kParkD;
-  ra.dy = act ? d.y : kParkD;
-  ra.dz = act ? d.z : kParkD;
-  ra.dw = 0.f;
-  ra.rdx = rcp_guarded(ra.dx);
-  ra.rdy = rcp_guarded(ra.dy);
-  ra.rdz = rcp_guarded(ra.dz);
-  Best best = no_hit();
-  float steps = 0.f, sweeps = 0.f;
-  walk_flat_closest(s_m, ra, bounds, nc, mu, mv, mw, e, tid, best, steps,
-                    sweeps);
+  {
+    const V3 o = load_row3(f, n, 0), d = load_row3(f, n, 3);
+    ra.ox = act ? o.x : kPark;
+    ra.oy = act ? o.y : kPark;
+    ra.oz = act ? o.z : kPark;
+    ra.ow = 1.f;
+    ra.dx = act ? d.x : kParkD;
+    ra.dy = act ? d.y : kParkD;
+    ra.dz = act ? d.z : kParkD;
+    ra.dw = 0.f;
+    ra.rdx = rcp_guarded(ra.dx);
+    ra.rdy = rcp_guarded(ra.dy);
+    ra.rdz = rcp_guarded(ra.dz);
+  }
+  CoopCursor cur{0, 0};
+  WalkCounts cnt{0.f, 0.f, 0.f};
+  walk_flat_coop(sh.closest, ra, act, bounds, nc, mu, mv, mw, e, tid, cur,
+                 cnt);
+  const Best best = two_level_best(sh.closest, tid);
+  const float steps = cnt.steps;
 
   const bool found = best.t < kMiss;
   const bool hit = found && act;
@@ -181,6 +207,7 @@ mega_step_kernel(const float* __restrict__ fs, const int* __restrict__ is,
     Ray rb;
     float lim;
     {
+      const V3 o = load_row3(f, n, 0), d = load_row3(f, n, 3);
       const Shade s = shade_rows(col, u, v, front, o, d, t);
       unsigned sx = seed_x, sy = seed_y;
       const LightSample ls = draw_light(lt, p.n_lights, s.pos, sx, sy);
@@ -200,12 +227,14 @@ mega_step_kernel(const float* __restrict__ fs, const int* __restrict__ is,
       rb.rdz = rcp_guarded(rb.dz);
       lim = sh_act ? ls.dist * kShadowScale : 0.f;
     }
-    // ---- B: its any-hit.
-    occ = walk_flat_any(s_m, rb, lim, bounds, sub_bounds, nc, mu, mv, mw, e,
-                        tid);
+    // ---- B: its any-hit, once every winner is read out of `closest`.
+    __syncthreads();
+    occ = walk_any_coop(sh.any, rb, lim, bounds, sub_bounds, nc, mu, mv, mw,
+                        e, tid);
   }
 
   // ---- B': shade, light, sample, write the state.
+  const V3 o = load_row3(f, n, 0), d = load_row3(f, n, 3);
   const Shade s = shade_rows(col, u, v, front, o, d, t);
   const V3 tp{f[6 * n], f[7 * n], f[8 * n]};
   V3 rad{f[9 * n], f[10 * n], f[11 * n]};

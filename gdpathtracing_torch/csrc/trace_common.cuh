@@ -3,11 +3,12 @@
 // closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
 // and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
-// shared memory, one thread per ray; in the block-cooperative walks also
-// a warp per ray that needs a chunk: the flat closest hit of kernels 1 and
-// 11 (walk_flat_coop), the two-level closest hit of kernels 3, 6 and 7
-// (walk_superchunk_coop), both over coop_group_closest, and the any-hit
-// of kernel 2 (walk_any_coop).
+// shared memory. Kernels 5, 8 and 9 sweep a staged chunk a thread per ray
+// (stage_chunk, sweep_closest); the others walk block-cooperatively, a
+// warp per ray that needs a chunk: the flat closest hit of kernels 1, 4,
+// 10 and 11 (walk_flat_coop), the two-level closest hit of kernels 3, 6
+// and 7 (walk_superchunk_coop), both over coop_group_closest, and the
+// any-hit of kernels 2, 4 and 10 (walk_any_coop).
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -152,35 +153,6 @@ __device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
                   (h.t == best.t && h.t < kMiss && eidx < best.e))) {
       best = Best{h.t, h.u, h.v, h.wd, eidx};
     }
-  }
-}
-
-// Flat closest-hit walk, a thread per ray (kernel 10; kernels 1 and 11
-// walk the same chunks block-cooperatively, walk_flat_coop) over the nc
-// chunks in index order. A ray sweeps chunk c when its own slab test
-// against the inflated box passes (tmax >= tmin, tmax > 0, tmin <= its
-// best t so far); the block skips a chunk none of its rays needs,
-// otherwise it stages the chunk and every ray that needs it sweeps it.
-// `steps` counts the triangles the ray swept, `sweeps` the chunks its
-// block staged. The winner depends on neither the visit order nor the
-// block.
-__device__ __forceinline__ void walk_flat_closest(
-    ChunkRows& s_m, const Ray& r, const float* __restrict__ bounds, int nc,
-    const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid, Best& best,
-    float& steps, float& sweeps) {
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(r, bounds, nc, c, tmin, tmax);
-    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= best.t);
-    // Also the barrier that ends every read of the previous chunk's rows.
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, e, c, tid);
-    __syncthreads();
-    sweeps += 1.f;
-    if (!may) continue;
-    steps += (float)kBT;
-    sweep_closest(s_m, r, c * kBT, best);
   }
 }
 
@@ -552,15 +524,17 @@ __device__ __forceinline__ Best two_level_best(const TwoLevelShared& sh,
   return Best{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
 }
 
-// Flat closest-hit walk of kernels 1 and 11, block-cooperative: the nc
-// chunks in index order, in groups of 32 (coop_group_closest), from no hit.
+// Flat closest-hit walk of kernels 1, 4, 10 and 11, block-cooperative:
+// the nc chunks in index order, in groups of 32 (coop_group_closest), from
+// no hit.
 // A ray needs chunk c when it is `live` and its own slab test against c's
-// inflated box passes before its best t so far: the gate of
-// walk_flat_closest, seeing the best after the same earlier chunks, so the
-// winner, `steps` (256 per chunk the ray needs) and `chunk_sweeps` (the
-// chunks some ray of the block needs) come out as that walk's. A ray that
-// is not live (a parked path of kernel 11, whose every gate fails) casts
-// no vote bit and is never listed; it still takes part in every barrier.
+// inflated box passes before its best t so far (each gate sees the best
+// after the same earlier chunks as a walk of the chunks one by one would),
+// so the winner, `steps` (256 per chunk the ray needs) and `chunk_sweeps`
+// (the chunks some ray of the block needs) depend on neither the grouping
+// nor the block. A ray that is not live (a parked path of kernels 10 and
+// 11, whose every gate fails) casts no vote bit and is never listed; it
+// still takes part in every barrier.
 // Every thread calls it with its own ray `r`; it stores r and no hit in
 // `sh` first (two_level_start), and the winner is read from `sh` after it
 // returns (two_level_best). The cursor `cur` is the caller's, so that
@@ -582,60 +556,8 @@ __device__ __forceinline__ void walk_flat_coop(
   }
 }
 
-// Any-hit of shadow ray `r` against the staged chunk c: each 128-triangle
-// half whose own (inflated) box the ray enters before `tlim` is swept,
-// and the first blocking triangle ends the query. A triangle blocks when
-// |w_d| > 1e-12, 0 < t < tlim, u, v >= 0 and u + v <= 1.
-__device__ __forceinline__ bool occlude_chunk(
-    const ChunkRows& s_m, const Ray& r, float tlim,
-    const float* __restrict__ sub_bounds, int nsub, int c) {
-  for (int s = 0; s < kSub; ++s) {
-    float tmin, tmax;
-    slab(r, sub_bounds, nsub, c * kSub + s, tmin, tmax);
-    if (!(tmax >= tmin && tmax > 0.f && tmin < tlim)) continue;
-#pragma unroll 4
-    for (int j = s * kSW; j < (s + 1) * kSW; ++j) {
-      const Uvt h = intersect(s_m, r, j);
-      if (h.wd_ok && h.t > 0.f && h.t < tlim && h.u >= 0.f && h.v >= 0.f &&
-          h.u + h.v <= 1.f) {
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
-// Flat any-hit walk (kernel 10; kernel 4 sweeps with occlude_chunk, and
-// kernel 2 walks the same chunks block-cooperatively, walk_any_coop) of
-// shadow ray `r` in (0, lim)
-// over the nc chunks in index order: a ray tests chunk c when its slab
-// test against the inflated box passes with tmin < lim (then each half
-// by its own box, occlude_chunk), and stops at its first blocker; the
-// block skips a chunk none of its rays needs and ends the walk once none
-// is unresolved (lim <= 0 marks a parked ray).
-__device__ __forceinline__ bool walk_flat_any(
-    ChunkRows& s_m, const Ray& r, float lim, const float* __restrict__ bounds,
-    const float* __restrict__ sub_bounds, int nc,
-    const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid) {
-  bool occ = false;
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(r, bounds, nc, c, tmin, tmax);
-    const bool may = !occ && (tmax >= tmin) && (tmax > 0.f) && (tmin < lim);
-    // Also the barrier that ends every read of the previous chunk's rows.
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, e, c, tid);
-    __syncthreads();
-    if (may) occ = occlude_chunk(s_m, r, lim, sub_bounds, kSub * nc, c);
-    // Also the barrier that ends every read of this chunk's rows.
-    if (!__syncthreads_or(!occ && lim > 0.f)) break;
-  }
-  return occ;
-}
-
 // ---------------------------------------------------------------------------
-// The block-cooperative any-hit walk (kernel 2)
+// The block-cooperative any-hit walk (kernels 2, 4 and 10)
 // ---------------------------------------------------------------------------
 
 // What the block shares during the any-hit walk (35 KB): the staged rows,
@@ -651,11 +573,26 @@ struct AnyHitShared {
   unsigned vote[2][kWarps];
 };
 
+// The shared memory of a kernel that runs the closest-hit walk and then
+// the any-hit walk (kernels 4 and 10): the two walks' blocks overlaid,
+// since stacked (37 952 + 35 904 B) they pass the 48 KB of static shared
+// memory. The handover: every thread reads its winner out of `closest`
+// (two_level_best) into registers, then a __syncthreads(), and only then
+// does the any-hit walk write `any`. No copy is in flight when
+// walk_flat_coop returns (each candidate's ballot waits for its rows, and
+// the last candidate starts none), and the barrier also ends the reads of
+// a last group that had no candidate, which ends without one.
+union NeeShared {
+  TwoLevelShared closest;
+  AnyHitShared any;
+};
+
 // Any-hit of ray `ray` (o, d, limit and halves in `sh`) against the staged
 // chunk `rows`, by one warp: for each half it needs, lane l tests
-// triangles l, l + 32, l + 64, l + 96 of the half (occlude_chunk's test),
-// and the first half in which a lane finds a blocker marks the ray
-// occluded and ends its query.
+// triangles l, l + 32, l + 64, l + 96 of the half (a triangle blocks when
+// |w_d| > 1e-12, 0 < t < lim, u, v >= 0 and u + v <= 1), and the first half
+// in which a lane finds a blocker marks the ray occluded and ends its
+// query.
 __device__ __forceinline__ void occlude_warp(AnyHitShared& sh,
                                              const ChunkRows& rows, int ray,
                                              int lane) {
@@ -679,14 +616,13 @@ __device__ __forceinline__ void occlude_warp(AnyHitShared& sh,
   }
 }
 
-// Any-hit walk of kernel 2, block-cooperative: shadow ray `r` in (0, lim)
-// over the nc chunks in index order. The answer is walk_flat_any's: a ray
-// tests half h of chunk c when its slab test against the chunk's inflated
-// box passes with tmin < lim, the half's own box passes too, and it is not
-// yet occluded; `occ` is an OR over those tests, so neither the visit order
-// nor the grouping changes it. A ray with lim <= 0 (parked) is never
-// occluded (no t is in (0, lim)) and tests nothing. What differs is who
-// tests:
+// Any-hit walk of kernels 2, 4 and 10, block-cooperative: shadow ray `r`
+// in (0, lim) over the nc chunks in index order. A ray tests half h of
+// chunk c when its slab test against the chunk's inflated box passes with
+// tmin < lim, the half's own box passes too, and it is not yet occluded;
+// `occ` is an OR over those tests, so neither the visit order nor the
+// grouping changes it. A ray with lim <= 0 (parked) is never occluded (no
+// t is in (0, lim)) and tests nothing. Who tests:
 //   - the chunks in groups of 32: each unresolved ray keeps the bits of
 //     the group's chunks its gate passes, and a vote word per warp names
 //     the candidates (chunks some unresolved ray of the block enters);
@@ -703,12 +639,22 @@ __device__ __forceinline__ void occlude_warp(AnyHitShared& sh,
 //     candidate's while the current one is swept;
 //   - the block ends the walk at the first barrier where no ray is
 //     unresolved (lim > 0 and not occluded).
+// With kCountSweeps (kernel 4), `*chunk_sweeps` counts the chunks on which
+// some unresolved ray of the block passes its chunk gate (kernel 4's row
+// 47, `occluded_plain`'s sweeps): one more barrier per candidate, an OR
+// of "still unresolved and the chunk's bit set". Each such chunk is a
+// candidate (the ray was unresolved at the group's vote too); a candidate
+// whose gate-passing rays an earlier chunk of the group occluded does not
+// count, and one that lists no ray (every such ray misses both halves'
+// boxes) does. Kernel 2 compiles without it.
 // Every thread calls it with its own ray; returns whether it is occluded.
+template <bool kCountSweeps = false>
 __device__ __forceinline__ bool walk_any_coop(
     AnyHitShared& sh, const Ray& r, float lim,
     const float* __restrict__ bounds, const float* __restrict__ sub_bounds,
     int nc, const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid) {
+    const float* __restrict__ mw, size_t e, int tid,
+    float* chunk_sweeps = nullptr) {
   const int lane = tid & 31, warp = tid >> 5;
   sh.o[tid] = make_float4(r.ox, r.oy, r.oz, r.ow);
   sh.d[tid] = make_float4(r.dx, r.dy, r.dz, r.dw);
@@ -735,8 +681,12 @@ __device__ __forceinline__ bool walk_any_coop(
       const int j = __ffs(cand) - 1;
       const int c = c0 + j;
       cand &= cand - 1;
+      const bool gate = live && ((bits >> j) & 1u);
+      if constexpr (kCountSweeps) {
+        if (__syncthreads_or(gate)) *chunk_sweeps += 1.f;
+      }
       int halves = 0;
-      if (live && ((bits >> j) & 1u)) {
+      if (gate) {
         for (int s = 0; s < kSub; ++s) {
           float tmin, tmax;
           slab(r, sub_bounds, kSub * nc, c * kSub + s, tmin, tmax);

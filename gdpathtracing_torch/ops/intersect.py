@@ -482,14 +482,13 @@ class FlatWalk(NamedTuple):
 
 
 def walk_flat_plain(o4t, d4t, bounds, mu, mv, mw) -> FlatWalk:
-    """Plain version of the flat closest-hit walk of kernels 1 and 11
-    (csrc/trace_common.cuh ``walk_flat_coop``) and of kernel 10
-    (``walk_flat_closest``): chunks in index order, each ray gated by its
-    own slab test against the chunk's inflated box before its best t so
-    far. Also counts, per ray, the chunks its 256-ray block swept and the
-    thread-slots the block spends on them under kernel 1's cooperative
-    mapping (:func:`two_level_slots` of each chunk's gates, summed over
-    the chunks)."""
+    """Plain version of the flat closest-hit walk of kernels 1, 4, 10 and
+    11 (csrc/trace_common.cuh ``walk_flat_coop``): chunks in index order,
+    each ray gated by its own slab test against the chunk's inflated box
+    before its best t so far. Also counts, per ray, the chunks its 256-ray
+    block swept and the thread-slots the block spends on them under the
+    cooperative mapping (:func:`two_level_slots` of each chunk's gates,
+    summed over the chunks)."""
     walk = _ClosestWalk(o4t, d4t)
     sweeps = torch.zeros_like(walk.best_t)
     slots = torch.zeros_like(walk.best_t)
@@ -577,11 +576,14 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
     blocks when |w_d| > 1e-12, 0 < t < tlim, u, v >= 0 and u + v <= 1.
 
     Also counts, per ray, the triangle tests these inputs need in that
-    order (128 per half swept) and, per 256-ray block, the chunks that
-    some ray of the block needed (the fused kernel's row 47). ``counts``,
-    when given, receives the thread-slots kernel 2's block-cooperative
-    walk spends on these tests (``"slots"``, :func:`any_hit_slots` summed
-    over blocks and chunks) and the slab tests the rays need in that order
+    order (128 per half swept) and, per 256-ray block, the chunks on which
+    some ray of the block with tlim > 0 and not yet occluded passes the
+    chunk's gate, whether or not it passes a half's (kernel 4's row 47).
+    ``counts``, when given, receives the thread-slots kernel 2's
+    block-cooperative walk spends on these tests (``"slots"``,
+    :func:`any_hit_slots` summed over blocks and chunks), those of a thread
+    per ray (``"thread_slots"``: every lane of a block on each chunk some
+    ray of it needs), and the slab tests the rays need in that order
     (``"slab_tests"``): chunk c's box for each ray with tlim > 0 that no
     earlier chunk blocked, and half s's box for each such ray that passes
     the chunk's gate and that no earlier half blocked."""
@@ -599,7 +601,7 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
     live = tlim > 0.0
     for c in range(nc):
         tmin, tmax = _slab(bounds[:, c], ox, oy, oz, rdx, rdy, rdz)
-        may = (tmax >= tmin) & (tmax > 0.0) & (tmin < tlim) & ~occ
+        may = live & (tmax >= tmin) & (tmax > 0.0) & (tmin < tlim) & ~occ
         sweeps += _block_any(may)
         before = tests.clone() if counts is not None else None
         if counts is not None:
@@ -626,6 +628,7 @@ def occluded_plain(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
             slots += any_hit_slots(tests - before).sum()
     if counts is not None:
         counts["slots"] = float(slots)
+        counts["thread_slots"] = float(sweeps[::BN].sum()) * BN * BT
         counts["slab_tests"] = float(slabs)
     return Occlusion(occ.to(torch.int32), tests, sweeps)
 
@@ -658,15 +661,34 @@ occluded.launches = 0
 # ---------------------------------------------------------------------------
 
 def closest_hit_rows_nee_plain(o4t, d4t, so4t, sd4t, stmax, bounds,
-                               sub_bounds, mu, mv, mw, tab):
+                               sub_bounds, mu, mv, mw, tab,
+                               counts: dict | None = None):
     """Plain version of csrc/closest_hit_rows_nee.cu: the closest-hit rows
     of the bounce rays (rows 0-46 as :func:`closest_hit_rows_plain`) with
-    row 47 the chunks each block swept for its shadow rays, and the
-    occlusion of the shadow rays (as :func:`occluded_plain`)."""
-    rows = closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab)
+    row 47 the chunks on which some unresolved shadow ray of the block
+    passes the chunk's gate, and the occlusion of the shadow rays (as
+    :func:`occluded_plain`).
+
+    ``counts``, when given, receives what both walks need and spend:
+    ``tests``, the ray-triangle tests; ``slab_tests``, every chunk box for
+    each bounce ray and the boxes the shadow rays need in index order
+    (``occluded_plain``'s count); ``slots``, the thread-slots of the
+    block-cooperative walks (:func:`walk_flat_plain`'s and
+    ``occluded_plain``'s); ``thread_slots``, those of a thread per ray
+    (both functions' counts)."""
+    closest = {} if counts is not None else None
+    rows = closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab,
+                                  counts=closest)
+    shadow_counts = {} if counts is not None else None
     shadow = occluded_plain(so4t, sd4t, stmax, bounds, sub_bounds, mu, mv,
-                            mw)
+                            mw, counts=shadow_counts)
     rows[47] = shadow.sweeps
+    if counts is not None:
+        counts["tests"] = float(rows[45].sum()) + float(shadow.tests.sum())
+        counts["slab_tests"] = (o4t.shape[1] * bounds.shape[1]
+                                + shadow_counts["slab_tests"])
+        for k in ("slots", "thread_slots"):
+            counts[k] = closest[k] + shadow_counts[k]
     return rows, shadow.occ
 
 
@@ -676,7 +698,8 @@ def closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax, bounds, sub_bounds,
     """((48, N) rows, (N,) int32 occlusion) in one pass: the closest hit
     of rays ``o4t``/``d4t`` and the any-hit of shadow rays ``so4t``/
     ``sd4t`` in (0, ``stmax``). Row 46 counts each block's chunk sweeps
-    for the first set, row 47 for the second.
+    for the first set, row 47 the chunks whose gate some unresolved ray of
+    the second set passes.
 
     CUDA tensors launch the kernel (counted in
     ``closest_hit_rows_nee.launches``); CPU tensors run the plain version.

@@ -129,6 +129,13 @@ def _as_i32(word: torch.Tensor) -> torch.Tensor:
     return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
 
 
+def _add_counts(counts: dict, tests: float, walk: dict) -> None:
+    """Adds a walk's tests and its two slot counts to ``counts``."""
+    counts["tests"] = counts.get("tests", 0.0) + tests
+    for k in ("slots", "thread_slots"):
+        counts[k] = counts.get(k, 0.0) + walk[k]
+
+
 def mega_step_plain(fstate, istate, bounds, sub_bounds, mu, mv, mw, tab, lt,
                     bounce: int, config: RenderConfig,
                     counts: dict | None = None):
@@ -137,9 +144,14 @@ def mega_step_plain(fstate, istate, bounds, sub_bounds, mu, mv, mw, tab, lt,
     versions and the port's shading, light, sky and BRDF modules, in the
     reference's order (megakernel.py:182-478). Returns (fstate, istate).
 
-    A ``counts`` dict receives the work these inputs need: ``tests``, the
-    ray-triangle tests of both walks, and ``shadow_rays``, the shadow
-    queries posted."""
+    A ``counts`` dict receives the work these inputs need, added to what
+    it holds: ``tests``, the ray-triangle tests of both walks; ``slots``,
+    the thread-slots kernel 10's block-cooperative walks spend on them
+    (``closest_hit_rows_plain``'s and ``occluded_plain``'s); and
+    ``thread_slots``, those a thread per ray would (every lane of a block
+    on each chunk some ray of it needs, in each walk); and it is given
+    ``shadow_rays``, the shadow queries posted. A block of dead rays walks
+    nothing: its parked rays pass no gate."""
     fs = fstate
     nee = config.nee and lt.shape[0] > 0
     act = fs[12] > 0.0
@@ -149,13 +161,14 @@ def mega_step_plain(fstate, istate, bounds, sub_bounds, mu, mv, mw, tab, lt,
 
     # Phase A: the closest hit, dead rays parked outside the scene.
     po, pd = _park(act, o, _FAR), _park(act, d, _S3)
+    walk_counts = {} if counts is not None else None
     rows = closest_hit_rows_plain(torch.stack([*po, one]),
                                   torch.stack([*pd, one * 0.0]), bounds, mu,
-                                  mv, mw, tab)
+                                  mv, mw, tab, counts=walk_counts)
     t = rows[40]
     hit = (t < _MISS) & act
     if counts is not None:
-        counts["tests"] = counts.get("tests", 0.0) + float(rows[45].sum())
+        _add_counts(counts, float(rows[45].sum()), walk_counts)
     u = torch.clamp(rows[41], 0.0, 1.0)
     v = torch.clamp(rows[42], 0.0, 1.0)
     s = _shade_rows(rows, u, v, rows[43] < 0.0, o, d, t)
@@ -175,9 +188,10 @@ def mega_step_plain(fstate, istate, bounds, sub_bounds, mu, mv, mw, tab, lt,
         occ = occluded_plain(torch.stack([*_park(sh_act, so, _FAR), one]),
                              torch.stack([*_park(sh_act, ls.wi, _S3),
                                           one * 0.0]),
-                             tlim, bounds, sub_bounds, mu, mv, mw)
+                             tlim, bounds, sub_bounds, mu, mv, mw,
+                             counts=walk_counts)
         if counts is not None:
-            counts["tests"] = counts.get("tests", 0.0) + float(occ.tests.sum())
+            _add_counts(counts, float(occ.tests.sum()), walk_counts)
             counts["shadow_rays"] = int(sh_act.sum())
         occ = occ.occ
 

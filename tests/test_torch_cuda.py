@@ -507,6 +507,198 @@ def test_fused_paths_kernel_adversarial(mid_fused, kind, n):
         assert (segs > 1).any()
 
 
+def _padded_halves(prep, cb, copies=()):
+    """(8, 2 nc_pad) half boxes for ``prep``'s padded chunks: the flat
+    half boxes, a point box at 1e30 for each half of a pad chunk (as the
+    pad chunks' boxes), and for each (src, dst) of ``copies`` the half of
+    dst grown to hold the half of src (the copied triangle)."""
+    sub = prep.sub_bounds.cpu().numpy()
+    pad = np.repeat(cb[:, sub.shape[1] // ti.SUB:], ti.SUB, axis=1)
+    sub = np.concatenate([sub, pad], axis=1)
+    for src, dst in copies:
+        hs, hd = src // ti.SW, dst // ti.SW
+        sub[0:3, hd] = np.minimum(sub[0:3, hd], sub[0:3, hs])
+        sub[3:6, hd] = np.maximum(sub[3:6, hd], sub[3:6, hs])
+    return np.ascontiguousarray(sub)
+
+
+def _box_distance(p, lo, hi):
+    """(n,) Euclidean distance from points ``p`` (3, n) to boxes
+    [``lo``, ``hi``] (3, n); 0 inside."""
+    gap = np.maximum(np.maximum(lo - p, p - hi), 0.0)
+    return np.sqrt((gap * gap).sum(axis=0))
+
+
+def _nee_shadow_set(rows, cb, sub, kind, n, g):
+    """Kernel 4's shadow rays (numpy (4, n) o4, d4 and (n,) limits) for an
+    adversarial set on the padded chunks ``cb`` with half boxes ``sub``
+    and rows ``rows``:
+    - parked: every shadow ray parked (origin 1e9, limit 0);
+    - miss_halves: each ray starts inside a chunk's box but more than 0.05
+      from both its halves' boxes, with a limit of 0.02: it passes the
+      chunk's gate (kernel 4's row 47 counts the chunk) and neither
+      half's, so it tests nothing there, and where no other ray of its
+      block needs that chunk (about a tenth of the block's candidates)
+      the candidate lists no ray;
+    - occluded_early: the 256 rays of a block aimed at one triangle from
+      0.25 off its plane, through it, with a limit of 20: the chunk of the
+      first blocker resolves the whole block, and the later chunks its
+      rays' gates passed at the group vote are candidates with no
+      unresolved ray."""
+    if kind == "parked":
+        o = np.full((3, n), 1e9)
+        d = np.full((3, n), 0.5773503)
+        lim = np.zeros(n)
+    elif kind == "miss_halves":
+        real = np.flatnonzero(cb[0] < 1e29)
+        pool_o, pool_c = [], []
+        while sum(x.size for x in pool_c) < n:
+            c = g.choice(real, 4 * n)
+            p = g.uniform(cb[0:3, c], cb[3:6, c])
+            far = np.minimum(
+                _box_distance(p, sub[0:3, 2 * c], sub[3:6, 2 * c]),
+                _box_distance(p, sub[0:3, 2 * c + 1], sub[3:6, 2 * c + 1]))
+            pool_o.append(p[:, far > 0.05])
+            pool_c.append(c[far > 0.05])
+        o = np.concatenate(pool_o, axis=1)[:, :n]
+        d = g.normal(size=(3, n))
+        d /= np.linalg.norm(d, axis=0, keepdims=True)
+        lim = np.full(n, 0.02)
+    else:
+        ok = _well_formed(rows)
+        tri = np.repeat(g.choice(np.flatnonzero(ok), n // ti.BN), ti.BN)
+        o, d = _aim_at(rows, tri, 0.25, g)
+        lim = np.full(n, 20.0)
+    return tuple(np.ascontiguousarray(x, dtype=np.float32) for x in (
+        np.concatenate([o, np.ones((1, n))]),
+        np.concatenate([d, np.zeros((1, n))]), lim))
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("shadow", ["parked", "miss_halves",
+                                    "occluded_early"])
+@pytest.mark.parametrize("kind", ["one_per_block", "same_chunk", "edges",
+                                  "ties"])
+def test_rows_nee_kernel_adversarial(bench_grid, kind, shadow, n):
+    """Kernel 4 (the flat closest-hit walk, then the any-hit walk, one
+    launch) on the bench grid's 384 padded chunks walked flat: the bounce
+    rays of _two_level_set's adversarial sets with the shadow rays of
+    _nee_shadow_set. All 48 rows bit for bit against the plain version,
+    the counters 45-47 included, and the occlusion flags equal; the aimed
+    bounce rays find their triangle."""
+    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    cb = geo[1].cpu().numpy()
+    rows = [x.cpu().numpy() for x in geo[2:]]
+    sub = _padded_halves(bench_grid, cb,
+                         GRID_COPIES if kind == "ties" else ())
+    g = np.random.default_rng({"parked": 51, "miss_halves": 52,
+                               "occluded_early": 53}[shadow])
+    dev = rays[0].device
+    so4, sd4, lim = (torch.from_numpy(x).to(dev)
+                     for x in _nee_shadow_set(rows, cb, sub, shadow, n, g))
+    args = (*rays, so4, sd4, lim, geo[1], torch.from_numpy(sub).to(dev),
+            *geo[2:], tab)
+    before = ti.closest_hit_rows_nee.launches
+    got, occ = ti.closest_hit_rows_nee(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_rows_nee.launches == before + 1
+    want, occ_p = ti.closest_hit_rows_nee_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(occ, occ_p)
+    on = torch.from_numpy(aimed >= 0).cuda()
+    if kind != "one_per_block":
+        assert torch.equal(got[44][on].long(),
+                           torch.from_numpy(aimed).cuda()[on])
+    if shadow == "parked":
+        assert not bool(occ.any()) and not bool(got[47].any())
+    elif shadow == "miss_halves":
+        assert bool((got[47] > 0).all())  # every block enters a chunk
+    else:
+        assert bool(occ.all())
+
+
+@pytest.fixture(scope="module")
+def mega_demo():
+    """The demo scene on the card, kernel 10's operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(device="cuda")
+    return ti.prepare_trace_inputs(scene)
+
+
+def _mega_set(kind, n, dev):
+    """Kernel 10's packed path state (camera rays replaced by random ones
+    over the demo room, random PCG2D words) for an adversarial set:
+    - one_live: one live path in each 256-ray block, the rest dead
+      (active 0);
+    - die: every path starts above the room heading up, so all miss at
+      bounce 0 and die: at bounce 1 every block is dead;
+    - every_other: random paths, but in every other block all but one
+      leave the room upward at bounce 0: from bounce 1 on those blocks
+      hold one live path."""
+    from gdpathtracing_torch.ops import megakernel as mk
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.types import Ray
+    g = np.random.default_rng({"one_live": 61, "die": 62,
+                               "every_other": 63}[kind])
+    o = g.uniform(-2.5, 2.5, (3, n))
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    up = np.zeros(n, bool)
+    if kind == "die":
+        up[:] = True
+    elif kind == "every_other":
+        up = (np.arange(n) // ti.BN) % 2 == 0
+        up[np.arange(0, n, 2 * ti.BN) + g.integers(0, ti.BN, -(-n // (
+            2 * ti.BN)))] = False
+    o[1, up] = 20.0
+    d[1, up] = np.abs(d[1, up]) + 0.1
+    d[:, up] /= np.linalg.norm(d[:, up], axis=0, keepdims=True)
+    ray = Ray(*(Vec3(*(torch.from_numpy(x.astype(np.float32)).to(dev)
+                       for x in v)) for v in (o, d)))
+    seed = tuple(torch.from_numpy(x).to(dev) for x in g.integers(
+        0, 2**32, (2, n), dtype=np.int64))
+    fs, is_ = mk.pack_state(ray, seed)
+    if kind == "one_live":
+        live = np.zeros(n, bool)
+        live[np.arange(0, n, ti.BN) + g.integers(0, ti.BN, n // ti.BN)] = True
+        fs[12] = torch.from_numpy(live.astype(np.float32)).to(dev)
+    return fs, is_
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["one_live", "die", "every_other"])
+@pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])
+def test_mega_step_kernel_adversarial(mega_demo, nee, kind, n):
+    """Kernel 10 (the closest-hit walk, with NEE the any-hit walk, and the
+    epilogues) at bounces 0 and 1 on the adversarial states of _mega_set:
+    the whole state bit for bit against the plain version, bounce 1 from
+    the plain version's bounce 0."""
+    from gdpathtracing_torch.ops import megakernel as mk
+    prep = mega_demo
+    cfg = RenderConfig(traversal=Traversal.MEGA, nee=nee)
+    lt = mk._build_light_block(prep.lights if nee else None, "cuda")
+    geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw, prep.tab,
+           lt)
+    state = _mega_set(kind, n, "cuda")
+    for b in (0, 1):
+        before = mk.mega_step.launches
+        got = mk.mega_step(*state, *geo, b, cfg)
+        torch.cuda.synchronize()
+        assert mk.mega_step.launches == before + 1
+        want = mk.mega_step_plain(*state, *geo, b, cfg)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        state = want
+    live = state[0][12] > 0
+    if kind == "die":
+        assert not bool(live.any())
+    elif kind == "every_other":
+        per_block = live.view(-1, ti.BN).sum(dim=1)
+        assert bool((per_block[::2] <= 1).all())
+
+
 def _no_winner(n, dev):
     return torch.stack([torch.full((n,), ti._MISS, device=dev),
                         torch.full((n,), float(ti.BIG_E), device=dev)])

@@ -30,16 +30,16 @@ The tiles:
   and on the grid (its 376 flat chunks);
 - kernel 1: the demo's middle tile, primary rays and bounce-1 rays;
   kernel 4: that tile's bounce-1 rays with the shadow rays of its primary
-  hits; kernel 10: its camera paths at bounce 1 with NEE (both of its
-  walks);
+  hits; kernel 10: its camera paths at bounce 0 and bounce 1, without and
+  with NEE (with it, both of its walks);
 - kernel 11: the middle tile's camera paths, 5 bounces, on the demo and on
   the mid grid (n=4, 34 chunks walked flat).
 Per tile it also prints the tests the rays need, the thread-slots of one
-thread per ray and of the block-cooperative walks (kernels 1, 2, 3, 6, 7,
-11: ``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound
-of chip_smoke.py (kernel 11's without its shading operations). ``--only``
-keeps the named kernels (C entry names). The last line is one JSON object
-with every time.
+thread per ray and of the block-cooperative walks (every kernel timed:
+``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound of
+chip_smoke.py (kernels 10 and 11 without their shading operations).
+``--only`` keeps the named kernels (C entry names). The last line is one
+JSON object with every time.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -218,8 +218,7 @@ def main() -> None:
             tiles.append(("occlusion", label, "shadow rays", tens,
                           [((n,), torch.int32)], (n, e), (), [want.occ],
                           float(want.tests.sum()), counts["slab_tests"],
-                          counts["slots"],
-                          float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT))
+                          counts["slots"], counts["thread_slots"]))
 
     def flat_tiles(name):
         scene = build_demo_scene()
@@ -243,35 +242,43 @@ def main() -> None:
             pend = kt.shadow_queries(s, hit, seed, prep, cfg)
             tens = kt.rows_nee_operands(prep, bounce, active, pend)
             n = tens[0].shape[1]
-            rows_p, occ_p = ti.closest_hit_rows_nee_plain(*tens)
             counts = {}
-            shadow = ti.occluded_plain(*tens[2:10], counts=counts)
+            rows_p, occ_p = ti.closest_hit_rows_nee_plain(*tens,
+                                                          counts=counts)
             tiles.append((name, "demo", "bounce 1 + shadow rays", tens,
                           [((ti.OUT_R, n), torch.float32),
                            ((n,), torch.int32)], (n, e), (), [rows_p, occ_p],
-                          float(rows_p[45].sum()) + float(shadow.tests.sum()),
-                          float(n * nc) + counts["slab_tests"], None,
-                          float(rows_p[46, ::ti.BN].sum()
-                                + rows_p[47, ::ti.BN].sum()) * ti.BN * ti.BT))
+                          counts["tests"], counts["slab_tests"],
+                          counts["slots"], counts["thread_slots"]))
             return
-        mcfg = cfg.replace(traversal=Traversal.MEGA, nee=True)
+        # Kernel 10: the camera paths at bounce 0 and, from the plain
+        # version's state, bounce 1, without and with NEE.
         cray, pseed = kt.camera_rays(cam, cfg, tile, first, prep.mu.device)
-        lt = mk._build_light_block(prep.lights, prep.mu.device)
-        geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw,
-               prep.tab, lt)
-        state = mk.mega_step_plain(*mk.pack_state(cray, pseed, cam.far), *geo,
-                                   0, mcfg)
-        counts = {}
-        want = mk.mega_step_plain(*state, *geo, 1, mcfg, counts=counts)
-        n = state[0].shape[1]
-        tiles.append((name, "demo", "camera paths, bounce 1, NEE",
-                      (*state, *geo),
-                      [(tuple(state[0].shape), torch.float32),
-                       (tuple(state[1].shape), torch.int32)],
-                      (n, e, lt.shape[0], 1, 1, mcfg.rr_start),
-                      (mcfg.ray_eps, mcfg.rr_min_p, *mk.sky_constants(mcfg)),
-                      list(want), counts["tests"], float(2 * n * nc), None,
-                      None))
+        for nee in (False, True):
+            mcfg = cfg.replace(traversal=Traversal.MEGA, nee=nee)
+            lt = mk._build_light_block(prep.lights if nee else None,
+                                       prep.mu.device)
+            geo = (prep.bounds, prep.sub_bounds, prep.mu, prep.mv, prep.mw,
+                   prep.tab, lt)
+            state = mk.pack_state(cray, pseed, cam.far)
+            n = state[0].shape[1]
+            for b in (0, 1):
+                counts = {}
+                want = mk.mega_step_plain(*state, *geo, b, mcfg,
+                                          counts=counts)
+                tiles.append((name, "demo",
+                              f"camera paths, bounce {b}"
+                              + (", NEE" if nee else ""), (*state, *geo),
+                              [(tuple(state[0].shape), torch.float32),
+                               (tuple(state[1].shape), torch.int32)],
+                              (n, e, lt.shape[0], b, int(nee),
+                               mcfg.rr_start),
+                              (mcfg.ray_eps, mcfg.rr_min_p,
+                               *mk.sky_constants(mcfg)),
+                              list(want), counts["tests"],
+                              float((2 if nee else 1) * n * nc),
+                              counts["slots"], counts["thread_slots"]))
+                state = want
 
     def fused_tiles():
         fcfg = cfg.replace(traversal=Traversal.FUSED)

@@ -39,7 +39,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      give kernel 3's winners, timed beside kernel 3 on the same rays;
    - kernel 5 (the soft-shadow top-1 blocker): the shadow rays of the
      middle tile's primary hits toward sampled light points, on the demo
-     and on the grid, with soft shadows' edge_eps of phase 3b;
+     and on the grid, with soft shadows' edge_eps of phase 3b, with the
+     thread-slots of its block-cooperative walk against one thread per
+     ray's;
    - kernel 10 (MEGA's per-bounce megakernel) on the middle demo tile's
      packed path state, bounce 0 and bounce 1, without and with NEE, with
      the thread-slots of its block-cooperative walks against one thread
@@ -96,8 +98,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    among them kernels 1, 3, 6 and 7 against their plain versions on
    adversarial ray sets and queues of the bench grid and at exact ties,
    kernel 11 on adversarial camera paths of the mid grid (also paths that
-   all die after bounce 0, and blocks with one live path), and kernel 2
-   on adversarial shadow rays of the demo and the grid.
+   all die after bounce 0, and blocks with one live path), kernel 2
+   on adversarial shadow rays of the demo and the grid, kernel 5 on
+   all-closed ties at margin 1.0 across lanes and chunks, sparse and
+   dense needing rays and parked rays, and kernel 9 on one passing gate
+   a block and ties on t.
 
 The last line of standard output is a JSON object with the device; the line
 before it lists each kernel with its launches, error, times and bound.
@@ -678,28 +683,21 @@ def main() -> None:
 
     # Kernel 5 on the soft-shadow rays of the middle tile's primary hits,
     # on the demo (the NEE shadow rays of kernel 4's check) and on the grid,
-    # over each scene's unpadded chunks.
-    _, ghit, gs, gseed = kt.middle_rays(grid, grid_cam, grid_prep, cfg, tile,
-                                        mid_tile)
-    gpend = kt.shadow_queries(gs, ghit, gseed, grid_prep, cfg)
-    for label, pscene, pprep, dl, iters in (
-            ("demo", scene, prep, pend, PLAIN_ITERS),
-            ("grid", grid, grid_prep, gpend, GRID_PLAIN_ITERS)):
-        so4t, sd4t, stmax = ti.pack_shadow_rays(dl.shadow, dl.active,
-                                                 dl.tmax)
+    # over each scene's unpadded chunks (ops/tiles.py, also the turns
+    # tool's).
+    for label, pscene, pcam, pprep, iters in (
+            ("demo", scene, cam, prep, PLAIN_ITERS),
+            ("grid", grid, grid_cam, grid_prep, GRID_PLAIN_ITERS)):
+        args, n_q = kt.soft_shadow_operands(pscene, pcam, pprep, cfg,
+                                            SOFT_EPS)
         e5 = pprep.mu.shape[1]
-        args = (so4t, sd4t, stmax,
-                ti.soft_bounds(pscene.isect_chunk_bounds, SOFT_EPS),
-                pprep.mu, pprep.mv, pprep.mw,
-                pscene.tri_edge_open[pscene.isect_tri.long()].T.contiguous())
-        n = so4t.shape[1]
+        n = args[0].shape[1]
         margin, eidx = ti.soft_occluded(*args)
         want = ti.soft_occluded_plain(*args)
         torch.cuda.synchronize()
         err = float((margin - want.margin).abs().max())
         flips = int((eidx != want.eidx).sum())
         found = want.margin > -1e8
-        n_q = int(dl.active.sum())
         log(f"kernel 5 vs plain, {label}: {n} shadow rays ({n_q} queries, "
             f"{int(found.sum())} with a candidate, "
             f"{int((want.margin == 1.0).sum())} at margin 1.0, "
@@ -709,13 +707,20 @@ def main() -> None:
                           want.margin.view(torch.int32)) and flips == 0,
               f"kernel 5, {label}: differs from its plain version")
         check(int(found.sum()) > 0, f"kernel 5, {label}: no candidates")
+        # Work: the candidate tests the rays need against the thread-slots
+        # of the block-cooperative walk (ti.two_level_slots of each
+        # chunk's gates), beside a thread per ray's (every lane of a block
+        # on each chunk some ray of it needs).
         needed = float(want.tests.sum())
-        spent = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
+        spent = float(want.slots[::ti.BN].sum())
+        spent_1 = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
         k = cuda_ms(lambda: ti.soft_occluded(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.soft_occluded_plain(*args), iters, torch)
         log(f"  {needed:.4g} candidate tests needed "
             f"({needed / max(n_q, 1):.1f} per query), {spent:.4g} "
-            f"thread-slots swept ({needed / max(spent, 1.0):.3f} useful)")
+            f"thread-slots swept ({needed / max(spent, 1.0):.3f} useful; a "
+            f"thread per ray: {spent_1:.4g}, "
+            f"{needed / max(spent_1, 1.0):.3f} useful)")
         record("soft_occluded", max(err, float(flips)), k, p, *bound(
             needed, n * (e5 // ti.BT),
             17 * 4 * n + 8 * n + (12 + 3) * 4 * e5 + 8 * 4 * (e5 // ti.BT),
@@ -809,19 +814,13 @@ def main() -> None:
     # and bounce-1 rays, and on the mid grid's (34 chunks, flat), against
     # their plain versions and against the default traversal's winners
     # (kernel 1 on the demo, kernel 3 on the mid grid).
-    primary, dhit, ds, dseed = kt.middle_rays(scene, cam, prep, cfg, tile,
-                                              mid_tile)
-    dbounce, dactive = kt.bounce_rays(ds, dhit, dseed, cfg)
-    mprimary = kt.middle_rays(mid, mid_cam, mid_prep, cfg, tile,
-                              mid_tile)[0]
-    for label, cscene, cprep, ray, active in (
-            ("demo, primary", scene, prep, primary, None),
-            ("demo, bounce 1", scene, prep, dbounce, dactive),
-            ("mid grid, primary", mid, mid_prep, mprimary, None)):
-        o4t, d4t = ti.pack_rays(ray, active)
-        n, e8 = o4t.shape[1], cprep.mu.shape[1]
-        args = (o4t, d4t, cscene.isect_chunk_bounds.contiguous(), cprep.mu,
-                cprep.mv, cprep.mw)
+    demo_tiles = kt.classic_tiles(scene, cam, prep, cfg)
+    mid_tiles = kt.classic_tiles(mid, mid_cam, mid_prep, cfg)
+    for label, cscene, cprep, (ray, active, args) in (
+            ("demo, primary", scene, prep, demo_tiles["primary"]),
+            ("demo, bounce 1", scene, prep, demo_tiles["bounce 1"]),
+            ("mid grid, primary", mid, mid_prep, mid_tiles["primary"])):
+        n, e8 = args[0].shape[1], cprep.mu.shape[1]
         iters = PLAIN_ITERS if label.startswith("demo") else GRID_PLAIN_ITERS
         out = {}
         for kname, kfn, pfn in (
@@ -1191,9 +1190,10 @@ def main() -> None:
     # 7 also a tie against a carried best, repeated and all-sentinel
     # queues, 1 and 16 slots), kernel 11 on those sets of the mid grid's
     # camera paths (and paths that all die after bounce 0, blocks with one
-    # live path), and kernel 2 on adversarial shadow rays
+    # live path), kernel 2 on adversarial shadow rays
     # (blockers at either end of a half, a limit at a blocker's own t,
-    # parked rays, one live ray a block, every ray toward one chunk), with
+    # parked rays, one live ray a block, every ray toward one chunk), and
+    # kernels 5 and 9 on their tie and gate cases, with
     # the kernels this run built (the same sources, so the same build
     # directory).
     phase("5. the GPU-only tests")

@@ -3,12 +3,15 @@
 // closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
 // and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
-// shared memory. Kernels 5, 8 and 9 sweep a staged chunk a thread per ray
-// (stage_chunk, sweep_closest); the others walk block-cooperatively, a
-// warp per ray that needs a chunk: the flat closest hit of kernels 1, 4,
-// 10 and 11 (walk_flat_coop), the two-level closest hit of kernels 3, 6
-// and 7 (walk_superchunk_coop), both over coop_group_closest, and the
-// any-hit of kernels 2, 4 and 10 (walk_any_coop).
+// shared memory. Kernel 8 sweeps a staged chunk a thread per ray
+// (stage_chunk); kernel 9 sweeps each chunk its block's gate passes for
+// every ray of the block, on the cooperative votes and cp.async staging;
+// the others walk block-cooperatively, a warp per ray that needs a chunk:
+// the flat closest hit of kernels 1, 4, 10 and 11 (walk_flat_coop), the
+// two-level closest hit of kernels 3, 6 and 7 (walk_superchunk_coop), both
+// over coop_group_closest, the any-hit of kernels 2, 4 and 10
+// (walk_any_coop), and the soft-shadow arg-max of kernel 5
+// (soft_occlusion.cu, on the same votes and ballot lists).
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0

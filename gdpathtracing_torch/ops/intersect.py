@@ -729,8 +729,9 @@ closest_hit_rows_nee.launches = 0
 
 def two_level_slots(may: torch.Tensor) -> torch.Tensor:
     """(N/256,) f32: the thread-slots each 256-ray block spends sweeping
-    one staged chunk in csrc/trace_common.cuh ``walk_superchunk_coop``,
-    from the rays' gates ``may`` (N,) bool. With k needing rays in the nw
+    one staged chunk in csrc/trace_common.cuh ``walk_superchunk_coop`` (and
+    in kernel 5's walk, csrc/soft_occlusion.cu), from the rays' gates
+    ``may`` (N,) bool. With k needing rays in the nw
     warps that hold one: where 8k > 7·32·nw their own threads sweep all 256
     triangles (nw × 32 lanes × 256), else a warp per ray (⌈k/8⌉ rounds ×
     8 warps × 32 lanes × 8 triangles); 0 where k = 0."""
@@ -1059,7 +1060,12 @@ class SoftOcclusion(NamedTuple):
     eidx: torch.Tensor    # (N,) i32 its expanded-triangle index (0: none)
     tests: torch.Tensor   # (N,) f32 triangle tests the ray needed: 256 per
     #                       chunk its own slab test passed
-    sweeps: torch.Tensor  # (N,) f32 chunks its 256-ray block swept
+    sweeps: torch.Tensor  # (N,) f32 chunks some ray of its 256-ray block
+    #                       needed (a thread per ray sweeps each with all
+    #                       256 lanes)
+    slots: torch.Tensor   # (N,) f32 thread-slots its block spent in the
+    #                       block-cooperative walk (:func:`two_level_slots`
+    #                       of each chunk's gates, summed)
 
 
 def soft_bounds(chunk_bounds: torch.Tensor, edge_eps: float) -> torch.Tensor:
@@ -1108,7 +1114,11 @@ def soft_occluded_plain(o4t, d4t, tmax, bounds, mu, mv, mw, eo
     order; a ray sweeps a chunk when its own slab test against the chunk's
     (soft-inflated) box passes with tmin < tmax; no early exit, since a
     maximum cannot resolve early. The winner is the largest margin, and
-    among equal margins above -1e8 the lowest eidx."""
+    among equal margins above -1e8 the lowest eidx. Also counts, per ray,
+    the chunks its block needed and the thread-slots the kernel's
+    block-cooperative walk spends on them: its gate reads no best, so the
+    rays a chunk lists are those whose gate passes, as in
+    :func:`two_level_slots`."""
     n, e = o4t.shape[1], mu.shape[1]
     o, d = o4t.unbind(0), d4t.unbind(0)
     rd = tuple(_rcp(x) for x in d[:3])
@@ -1117,11 +1127,13 @@ def soft_occluded_plain(o4t, d4t, tmax, bounds, mu, mv, mw, eo
     best_e = torch.zeros(n, dtype=torch.int64, device=o4t.device)
     tests = torch.zeros_like(best_m)
     sweeps = torch.zeros_like(best_m)
+    slots = torch.zeros_like(best_m)
     lane = torch.arange(BT, device=o4t.device)
     for c in range(e // BT):
         tmin, tmx = _slab(bounds[:, c], *o[:3], *rd)
         may = (tmx >= tmin) & (tmx > 0.0) & (tmin < tmax)
         sweeps += _block_any(may)
+        slots += two_level_slots(may).repeat_interleave(BN)
         idx = torch.nonzero(may).squeeze(1)
         if idx.numel() == 0:
             continue
@@ -1140,7 +1152,8 @@ def soft_occluded_plain(o4t, d4t, tmax, bounds, mu, mv, mw, eo
         sel = idx[better]
         best_m[sel] = mk[better]
         best_e[sel] = ek[better]
-    return SoftOcclusion(best_m, best_e.to(torch.int32), tests, sweeps)
+    return SoftOcclusion(best_m, best_e.to(torch.int32), tests, sweeps,
+                         slots)
 
 
 @torch.no_grad()

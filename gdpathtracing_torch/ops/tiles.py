@@ -9,7 +9,8 @@ rays (:func:`middle_tile`), or regen's wavefront of ``cfg.regen_wavefront``
 shadow rays (:func:`wavefront_shadow_rays`). The rays are the camera's,
 their hits those of the default traversal, a bounce is one BRDF sample
 from a hit, and a shadow ray goes from a hit toward a sampled light point
-(NEE's query), as in a frame. The march rounds (:func:`march_rounds`) are
+(NEE's query; kernel 5 takes those of the middle tile over soft-inflated
+boxes), as in a frame. The march rounds (:func:`march_rounds`) are
 those of regen's frontier march: the lanes in its sort order, queued by
 its own candidate scan and block queues.
 """
@@ -110,6 +111,38 @@ def wavefront_shadow_rays(scene, cam, prep: ti.TracePrep, cfg: RenderConfig,
     o4t, d4t, tlim = ti.pack_shadow_rays(pend.shadow, pend.active, pend.tmax)
     return ((o4t, d4t, tlim, prep.bounds, prep.sub_bounds, prep.mu, prep.mv,
              prep.mw), int(pend.active.sum()))
+
+
+def soft_shadow_operands(scene, cam, prep: ti.TracePrep, cfg: RenderConfig,
+                         edge_eps: float):
+    """Kernel 5's tile: the shadow rays of the middle tile's primary hits
+    toward sampled light points (NEE's queries), over the scene's chunk
+    boxes grown by ``edge_eps`` (soft shadows) and its triangles' edge
+    openness: (the operands of ``ti.soft_occluded``, the number of
+    queries)."""
+    _, hit, s, seed = middle_rays(scene, cam, prep, cfg, cfg.tile_rays,
+                                  middle_tile(cfg))
+    pend = shadow_queries(s, hit, seed, prep, cfg)
+    o4t, d4t, tmax = ti.pack_shadow_rays(pend.shadow, pend.active, pend.tmax)
+    eo = scene.tri_edge_open[scene.isect_tri.long()].T.contiguous()
+    return ((o4t, d4t, tmax, ti.soft_bounds(scene.isect_chunk_bounds,
+                                            edge_eps),
+             prep.mu, prep.mv, prep.mw, eo), int(pend.active.sum()))
+
+
+def classic_tiles(scene, cam, prep: ti.TracePrep, cfg: RenderConfig
+                  ) -> dict[str, tuple]:
+    """Kernels 8 and 9's tiles: the standard loop's middle tile, primary
+    rays and one bounce from their hits, by name, each as (Ray, active,
+    the operands of ``ti.closest_hit_classic`` / ``closest_hit_loop``: the
+    packed rays over the raw chunk boxes)."""
+    primary, hit, s, seed = middle_rays(scene, cam, prep, cfg,
+                                        cfg.tile_rays, middle_tile(cfg))
+    bounce, active = bounce_rays(s, hit, seed, cfg)
+    geo = (scene.isect_chunk_bounds.contiguous(), prep.mu, prep.mv, prep.mw)
+    return {name: (ray, act, (*ti.pack_rays(ray, act), *geo))
+            for name, ray, act in (("primary", primary, None),
+                                   ("bounce 1", bounce, active))}
 
 
 def rows_nee_operands(prep: ti.TracePrep, bounce: Ray, active, pend):

@@ -75,6 +75,8 @@ _MT, _BT = 17, 18                       # the march's (m_t, b_t)
 _SEED, _PID, _BOUNCE, _STEPS, _SEGS = 0, 2, 3, 4, 5
 _MSC, _BE = 6, 7                        # the march's (m_sc, b_e)
 _STEPS_MAX = (1 << 19) - 1  # the log path clamps steps (as the reference)
+MAX_IT = 96  # slots of the per-iteration stats; later iterations share the
+#              last one (as the reference)
 
 
 def regen_supported(scene: Scene, config: RenderConfig) -> bool:
@@ -149,9 +151,15 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                           return_stats: bool = False):
     """Full-frame trace with path regeneration on ``scene.device``. Returns
     FrameAOVs (the contract of renderer.render_radiance); with
-    ``return_stats``, (FrameAOVs, {"iters", "lane_slots", "n_blocks"}):
-    iterations over all stages, lanes traced summed over them, and 256-ray
-    blocks of the first stage. The iterations are also added to
+    ``return_stats``, (FrameAOVs, {"iters", "lane_slots", "it_alive",
+    "it_sweeps_a", "it_sweeps_b", "n_blocks"}): iterations over all
+    stages, lanes traced summed over them, per iteration (``MAX_IT`` slots,
+    iterations past the last slot overwriting it) the live lanes (int32)
+    and the sums over 256-lane blocks of the winner rows' counters 46 and
+    47 (f32: the chunks, or superchunks and chunks, each block swept in
+    the traversal's visit order; 0 where the traversal returns no rows:
+    the lite kernel, the march), and 256-ray blocks of the first stage.
+    The iterations are also added to
     ``render_radiance_regen.iterations``."""
     from gdpathtracing_torch.render.renderer import FrameAOVs
 
@@ -247,6 +255,9 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
     stages = [nw] + _drain_sizes(config, nw, n_paths, compact)
     iters = lane_slots = 0
+    if return_stats:
+        it_alive = torch.zeros(MAX_IT, dtype=torch.int32, device=dev)
+        it_sweeps = torch.zeros((2, MAX_IT), dtype=torch.float32, device=dev)
     for k, size in enumerate(stages):
         # A drain stage takes over the live prefix of the sorted lanes.
         fs, ints, active = fs[:, :size], ints[:, :size], active[:size]
@@ -302,6 +313,11 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             else:
                 hit = trace_pallas(scene, r, active, prep)
                 shade, tsteps = active, hit.steps
+            if return_stats:
+                it = min(iters, MAX_IT - 1)
+                it_alive[it] = active.sum()
+                if hit.rows is not None:
+                    it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
             # `shade`: the lanes whose segment resolved this iteration
             # (all active lanes without the march). Only they shade, draw
             # random numbers and count a segment.
@@ -453,7 +469,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     render_radiance_regen.iterations += iters
     if return_stats:
         return aovs, {"iters": iters, "lane_slots": lane_slots,
-                      "n_blocks": nw // BN}
+                      "it_alive": it_alive, "it_sweeps_a": it_sweeps[0],
+                      "it_sweeps_b": it_sweeps[1], "n_blocks": nw // BN}
     return aovs
 
 

@@ -1156,3 +1156,228 @@ def test_fused_paths_kernel_matches_plain(scene, scene_name):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1])
     assert bool((want[0][3] < 1e9).any())
+
+
+def _demo_cuda(scene):
+    s = scene.to("cuda")
+    return s, ti.prepare_trace_inputs(s)
+
+
+def _packed(o, d, n):
+    """(4, n) float32 (o, 1) and (d, 0) on the card from (3, n) arrays."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [x, np.full((1, n), w)]), dtype=np.float32)).cuda()
+        for x, w in ((o, 1.0), (d, 0.0)))
+
+
+def _soft_set(s, prep, kind, n):
+    """Kernel 5's operands on the demo (rays and limits on the card, the
+    boxes grown by edge_eps 0.05, the rows, the openness) for an
+    adversarial set, from a numpy seed:
+    - closed_ties: every edge marked closed (so every crossing inside a
+      triangle scores exactly 1.0) and random rays from inside the room
+      with limit 8, which cross several walls: ties at 1.0 across lanes
+      and chunks, the lowest eidx wins;
+    - sparse: random rays, 1-7 of them live in each 256-ray block, the
+      rest parked (origin 1e9, limit 0): k < 8 on every chunk;
+    - dense: the rays of each block aimed at triangles of one chunk from
+      0.05-0.5 off their planes, limit twice that: k = 256 on that chunk,
+      where the rays' own threads sweep;
+    - parked: random rays, a quarter with limit 0 inside the room and a
+      tenth parked at 1e9;
+    - no_need: every other block's rays far outside the room pointing
+      away (no ray of the block needs any chunk), random rays in the
+      others."""
+    g = np.random.default_rng({"closed_ties": 41, "sparse": 42, "dense": 43,
+                               "parked": 44, "no_need": 45}[kind])
+    o = g.uniform(-2.5, 2.5, (3, n))
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    tmax = g.uniform(0.0, 6.0, n)
+    park = np.zeros(n, bool)
+    eo = s.tri_edge_open[s.isect_tri.long()].T.contiguous()
+    if kind == "closed_ties":
+        eo = torch.zeros_like(eo)
+        tmax[:] = 8.0
+    elif kind == "sparse":
+        park[:] = True
+        for b in range(n // ti.BN):
+            live = g.choice(ti.BN, g.integers(1, 8), replace=False)
+            park[b * ti.BN + live] = False
+    elif kind == "dense":
+        rows = [x.cpu().numpy() for x in (prep.mu, prep.mv, prep.mw)]
+        ok = _well_formed(rows)
+        chunks = np.flatnonzero(ok.reshape(-1, ti.BT).sum(axis=1) > 32)
+        aimed = np.empty(n, np.int64)
+        for b in range(n // ti.BN):
+            c = g.choice(chunks)
+            cols = np.flatnonzero(ok[c * ti.BT:(c + 1) * ti.BT]) + c * ti.BT
+            aimed[b * ti.BN:(b + 1) * ti.BN] = g.choice(cols, ti.BN)
+        dist = g.uniform(0.05, 0.5, n)
+        o, d = _aim_at(rows, aimed, dist, g)
+        tmax = 2.0 * dist
+    elif kind == "parked":
+        tmax[g.uniform(size=n) < 0.25] = 0.0
+        park = g.uniform(size=n) < 0.1
+    else:
+        away = (np.arange(n) // ti.BN) % 2 == 0
+        o[:, away] = 50.0
+        d[:, away] = 0.5773503
+    o[:, park], d[:, park], tmax[park] = 1e9, 0.5773503, 0.0
+    o4, d4 = _packed(o, d, n)
+    return (o4, d4, torch.from_numpy(tmax.astype(np.float32)).cuda(),
+            ti.soft_bounds(s.isect_chunk_bounds, 0.05), prep.mu, prep.mv,
+            prep.mw, eo)
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["closed_ties", "sparse", "dense", "parked",
+                                  "no_need"])
+def test_soft_occlusion_kernel_adversarial(scene, kind, n):
+    """Kernel 5 (the block-cooperative walk with a warp arg-max) against
+    its plain version on the adversarial sets of _soft_set: margins bit
+    for bit, eidx equal; the ties at 1.0 go to the lowest eidx, every
+    parked ray finds no candidate, and a block that needs no chunk none."""
+    s, prep = _demo_cuda(scene)
+    args = _soft_set(s, prep, kind, n)
+    before = ti.soft_occluded.launches
+    margin, eidx = ti.soft_occluded(*args)
+    torch.cuda.synchronize()
+    assert ti.soft_occluded.launches == before + 1
+    want = ti.soft_occluded_plain(*args)
+    assert torch.equal(margin.view(torch.int32),
+                       want.margin.view(torch.int32))
+    assert torch.equal(eidx, want.eidx)
+    assert bool((margin[args[2] <= 0] == -1e9).all())
+    found = margin > -1e8
+    if kind == "closed_ties":
+        assert int((margin == 1.0).sum()) > n // 4
+    elif kind == "no_need":
+        away = (torch.arange(n, device="cuda") // ti.BN) % 2 == 0
+        assert not bool(found[away].any()) and not bool(
+            want.sweeps[away].any())
+        assert n == ti.BN or bool(found[~away].any())
+    elif kind == "sparse":
+        assert bool((want.tests.view(-1, ti.BN) > 0).sum(dim=1).le(7).all())
+    elif kind == "dense":
+        assert int(found.sum()) > n // 2
+    else:
+        assert bool(found.any())
+
+
+def _loop_set(s, prep, kind, n):
+    """Kernel 9's operands on the demo (rays on the card, the raw chunk
+    boxes, the rows) for an adversarial set, from a numpy seed, and for
+    one_gate the block of r0 and the chunk c (else None):
+    - one_gate: the camera rays of a square frame; chunk c's box shrunk to
+      a point on the path of one ray r0 of the block with the most hits
+      (c the chunk most of that block's rays hit): only r0's gate passes
+      on c, and every ray of its block sweeps c;
+    - one_live: one camera ray live in each 256-ray block (one that hits
+      where the block has one), the rest parked;
+    - ties: rays at triangles copied within a chunk and into a later chunk
+      (boxes grown to hold them), random rays and a tenth parked: equal t,
+      the lower index wins;
+    - two_rays: random rays with the lower or the upper half of every
+      block parked in turn, and a third of the rest parked at random, so
+      the gates of ray i and ray i + 128 of a block differ."""
+    g = np.random.default_rng({"one_gate": 51, "one_live": 52, "ties": 53,
+                               "two_rays": 54}[kind])
+    bounds = s.isect_chunk_bounds.clone()
+    mu, mv, mw = prep.mu, prep.mv, prep.mw
+    focus = None
+    if kind in ("one_gate", "one_live"):
+        side = int(np.sqrt(n))
+        pids = torch.arange(n)
+        ray, _ = demo_camera(side, side).generate_rays(
+            pids, rng.prng_seed(pids % side, pids // side, 1), RenderConfig())
+        o4, d4 = ti.pack_rays(ray)
+        o4, d4 = o4.cuda(), d4.cuda()
+        if kind == "one_live":  # a ray that hits, where a block has one
+            t, _ = ti.closest_hit_classic_plain(o4, d4, bounds, mu, mv, mw)
+            key = torch.from_numpy(g.uniform(size=n)).cuda() \
+                + (t < ti._MISS).double()
+            live = key.view(-1, ti.BN).argmax(dim=1) \
+                + torch.arange(0, n, ti.BN, device=key.device)
+            park = torch.ones(n, dtype=torch.bool, device=key.device)
+            park[live] = False
+            o4[:3, park] = 1e9
+            d4[:3, park] = 0.5773503
+        else:
+            t, idx = ti.closest_hit_classic_plain(o4, d4, bounds, mu, mv, mw)
+            hit = (t < ti._MISS).view(-1, ti.BN)
+            block = int(hit.sum(dim=1).argmax())
+            sl = slice(block * ti.BN, (block + 1) * ti.BN)
+            c = int(torch.bincount(idx[sl][hit[block]] // ti.BT).argmax())
+            r0 = int(torch.nonzero(hit[block] & (idx[sl] // ti.BT == c))[0])
+            r0 += block * ti.BN
+            p = o4[:3, r0] + t[r0] * d4[:3, r0]
+            bounds[0:3, c], bounds[3:6, c] = p - 1e-4, p + 1e-4
+            focus = (block, c)
+        return (o4, d4, bounds.contiguous(), mu, mv, mw), focus
+    o = g.uniform(-2.5, 2.5, (3, n))
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    park = np.zeros(n, bool)
+    if kind == "ties":
+        mu, mv, mw = mu.clone(), mv.clone(), mw.clone()
+        nc = bounds.shape[1]
+        copies = ((1 * ti.BT + 10, 1 * ti.BT + 200),
+                  (2 * ti.BT + 30, (nc - 1) * ti.BT + 100))
+        for src, dst in copies:
+            for x in (mu, mv, mw):
+                x[:, dst] = x[:, src]
+            cs, cd = src // ti.BT, dst // ti.BT
+            bounds[0:3, cd] = torch.minimum(bounds[0:3, cd], bounds[0:3, cs])
+            bounds[3:6, cd] = torch.maximum(bounds[3:6, cd], bounds[3:6, cs])
+        rows = [x.cpu().numpy() for x in (mu, mv, mw)]
+        aimed = g.choice([src for src, _ in copies], n // 2)
+        o[:, :n // 2], d[:, :n // 2] = _aim_at(rows, aimed,
+                                               g.uniform(0.05, 0.3, n // 2),
+                                               g)
+        park = g.uniform(size=n) < 0.1
+    else:
+        half = (np.arange(n) % ti.BN) < ti.BN // 2
+        upper = (np.arange(n) // ti.BN) % 2 == 1
+        park = np.where(upper, ~half, half) | (g.uniform(size=n) < 1 / 3)
+    o[:, park], d[:, park] = 1e9, 0.5773503
+    o4, d4 = _packed(o, d, n)
+    return (o4, d4, bounds.contiguous(), mu.contiguous(), mv.contiguous(),
+            mw.contiguous()), focus
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["one_gate", "one_live", "ties",
+                                  "two_rays"])
+def test_closest_hit_loop_kernel_adversarial(scene, kind, n):
+    """Kernel 9 (the block gate on double-buffered staging) against its
+    plain version on the adversarial sets of _loop_set: t bit for bit, idx
+    equal; on one_gate the block of r0 sweeps the shrunk chunk for all its
+    rays (many more of them win there than kernel 8 lets, whose own gates
+    fail), and tied triangles go to the lower index."""
+    s, prep = _demo_cuda(scene)
+    args, focus = _loop_set(s, prep, kind, n)
+    before = ti.closest_hit_loop.launches
+    t, idx = ti.closest_hit_loop(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_loop.launches == before + 1
+    want_t, want_i = ti.closest_hit_loop_plain(*args)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(idx, want_i)
+    assert bool((t < ti._MISS).any())
+    parked = args[0][0] > 1e8
+    assert bool((t[parked] == ti._MISS).all())
+    if kind == "one_gate":
+        block, c = focus
+        t8, i8 = ti.closest_hit_classic(*args)
+        sl = slice(block * ti.BN, (block + 1) * ti.BN)
+        in9 = (idx[sl] // ti.BT == c) & (t[sl] < ti._MISS)
+        in8 = (i8[sl] // ti.BT == c) & (t8[sl] < ti._MISS)
+        assert int(in9.sum()) > 4 * int(in8.sum()) >= 4
+    elif kind == "ties":
+        lower = {1 * ti.BT + 10, 2 * ti.BT + 30}
+        won = idx[:n // 2][t[:n // 2] < ti._MISS].tolist()
+        assert sum(i in lower for i in won) > 0.8 * len(won)
+        assert not any(i in (1 * ti.BT + 200,
+                             (args[2].shape[1] - 1) * ti.BT + 100)
+                       for i in won)

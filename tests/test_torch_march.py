@@ -275,7 +275,7 @@ def test_march_render_matches_jax(grid, no_march):
     frame 3, against the port's march frame, which equals its no-march
     frame bit for bit, in as many iterations and lane slots as JAX's (the
     march's advance, rescans, sort key and re-queues change those, not the
-    frame)."""
+    frame), with the same live lanes in every iteration."""
     cfg_j = JRenderConfig(bounces=3, traversal=JTraversal.PALLAS, regen=True,
                           regen_march=True)
     old = jip._FORCE_INTERPRET
@@ -291,6 +291,8 @@ def test_march_render_matches_jax(grid, no_march):
                                        return_stats=True)
     assert stats["iters"] == int(ref_stats["iters"])
     assert stats["lane_slots"] == int(ref_stats["lane_slots"])
+    np.testing.assert_array_equal(stats["it_alive"].numpy(),
+                                  np.asarray(ref_stats["it_alive"]))
     _assert_frames_equal(got, no_march)
     ok = (np.abs(got.radiance.numpy() - np.asarray(ref.radiance))
           <= FRAME_ATOL).all(axis=-1)

@@ -15,15 +15,21 @@ import gdpathtracing_tpu.ops.intersect_pallas as jip
 from gdpathtracing_tpu.config import (Jitter as JJitter,
                                       RenderConfig as JRenderConfig,
                                       Traversal as JTraversal)
+from gdpathtracing_tpu.render.regen import (
+    render_radiance_regen as jax_render_radiance_regen)
 from gdpathtracing_tpu.render.renderer import (
     render_radiance as jax_render_radiance)
 from gdpathtracing_tpu.scene.demo import (build_demo_scene as jax_demo_scene,
                                           demo_camera as jax_demo_camera)
 
 from gdpathtracing_torch.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_torch.render.regen import render_radiance_regen
+from gdpathtracing_torch.ops import intersect as ti
+from gdpathtracing_torch.render import regen
+from gdpathtracing_torch.render.regen import MAX_IT, render_radiance_regen
 from gdpathtracing_torch.render.renderer import render_radiance
-from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                            build_sphere_grid, demo_camera,
+                                            grid_camera)
 
 torch.set_num_threads(1)
 DATA = Path(__file__).parent / "data"
@@ -98,6 +104,125 @@ def test_regen_stats(scene):
     # stage runs at 256 lanes.
     assert stats["iters"] > cfg.bounces
     assert 256 * stats["iters"] < stats["lane_slots"] < 512 * stats["iters"]
+
+
+def test_regen_stats_match_jax(scene):
+    """The per-iteration live lanes against JAX regen's (PALLAS in
+    interpret mode) at 40x24, 3 bounces, frame 3, through 256 lanes and a
+    drain: equal in every one of the MAX_IT slots. They depend only on how
+    many segments each path traces, equal here on every pixel, not on the
+    order in which the traversal visits chunks (unlike it_sweeps_a/b,
+    test_regen_sweep_stats_are_the_rows_counters)."""
+    change = dict(regen_wavefront=256, regen_drain=True,
+                  regen_drain_wavefront=256)
+    old = jip._FORCE_INTERPRET
+    jip._FORCE_INTERPRET = True
+    try:
+        ref, ref_stats = jax_render_radiance_regen(
+            jax_demo_scene(texture_resolution=8, sphere_detail=6),
+            jax_demo_camera(W, H),
+            JRenderConfig(bounces=3, traversal=JTraversal.PALLAS, regen=True,
+                          **change), 3, return_stats=True)
+    finally:
+        jip._FORCE_INTERPRET = old
+    got, stats = render_radiance_regen(scene, demo_camera(W, H),
+                                       BASE.replace(**change), 3,
+                                       return_stats=True)
+    np.testing.assert_array_equal(got.segments.numpy(),
+                                  np.asarray(ref.segments))
+    assert stats["iters"] == int(ref_stats["iters"]) > BASE.bounces
+    assert stats["it_alive"].dtype == torch.int32
+    assert stats["it_alive"].shape == (MAX_IT,)
+    np.testing.assert_array_equal(stats["it_alive"].numpy(),
+                                  np.asarray(ref_stats["it_alive"]))
+
+
+def _mid_grid():
+    return (build_sphere_grid(n=4, sphere_detail=12, device="cpu"),
+            grid_camera(24, 16, n=4))
+
+
+@pytest.mark.parametrize("where", ["flat", "superchunk rows", "lite"])
+def test_regen_sweep_stats_are_the_rows_counters(scene, monkeypatch, where):
+    """Slot i of it_alive, it_sweeps_a and it_sweeps_b holds iteration i's
+    live lanes and the sums over its 256-lane blocks of rows 46 and 47 of
+    the winner rows the traversal returned (recorded here around
+    ``trace_pallas``), and the last slot the last iteration's once there
+    are more than MAX_IT: on the demo (kernel 1: row 46 the chunks each
+    block swept, row 47 0), on the mid grid through kernel 6 (``_SC_LITE``
+    off: row 46 the superchunks each block entered, row 47 the chunks it
+    swept, at least one a superchunk entered) and through kernel 3, whose
+    lite epilogue returns no rows (every sweep slot 0)."""
+    if where == "flat":
+        pscene, cam = scene, demo_camera(160, 128)
+    else:
+        pscene, cam = _mid_grid()
+        monkeypatch.setattr(ti, "_SC_LITE", where == "lite")
+    calls = []
+    trace = regen.trace_pallas
+
+    def recording(*a):
+        hit = trace(*a)
+        rows = hit.rows
+        calls.append((int(a[2].sum()),) + ((0.0, 0.0) if rows is None else
+                                           tuple(rows[46:48, ::ti.BN].sum(
+                                               dim=1).tolist())))
+        return hit
+
+    monkeypatch.setattr(regen, "trace_pallas", recording)
+    _, stats = render_radiance_regen(pscene, cam,
+                                     BASE.replace(regen_wavefront=256), 1,
+                                     return_stats=True)
+    assert stats["iters"] == len(calls)
+    want = np.zeros((3, MAX_IT))
+    for i, c in enumerate(calls):
+        want[:, min(i, MAX_IT - 1)] = c
+    got = np.stack([stats[k].numpy() for k in ("it_alive", "it_sweeps_a",
+                                               "it_sweeps_b")])
+    np.testing.assert_array_equal(got, want)
+    assert stats["it_sweeps_a"].dtype == torch.float32
+    sweeps = np.array(calls)[:, 1:]
+    if where == "flat":
+        assert len(calls) > MAX_IT  # the last slot was overwritten
+        assert not sweeps[:, 1].any() and sweeps[:, 0].max() > 0
+        assert (sweeps[:, 0] <= 8).all()  # 8 chunks, one block
+    elif where == "superchunk rows":
+        assert (sweeps[:, 0] > 0).all()
+        assert (sweeps[:, 1] >= sweeps[:, 0]).all()
+    else:
+        assert not sweeps.any()
+
+
+def test_regen_sweep_stats_sum_each_blocks_first_lane(scene, monkeypatch):
+    """The sweep stats on hand-set counters: rows 46 and 47 of every
+    traversal replaced by (1000 * (block + 1) + lane in the block) and (7
+    on a block's first lane, 1e6 on the others), through 512 lanes and a
+    drain stage of 256: an iteration of b blocks sums 1000 * b(b+1)/2 and
+    7b, whatever the other lanes hold."""
+    trace = regen.trace_pallas
+    sizes = []
+
+    def hand_set(*a):
+        hit = trace(*a)
+        rows = hit.rows.clone()
+        lane = torch.arange(rows.shape[1])
+        rows[46] = 1000.0 * (lane // ti.BN + 1) + lane % ti.BN
+        rows[47] = torch.where(lane % ti.BN == 0, 7.0, 1e6)
+        sizes.append(rows.shape[1] // ti.BN)
+        return hit._replace(rows=rows)
+
+    monkeypatch.setattr(regen, "trace_pallas", hand_set)
+    _, stats = render_radiance_regen(
+        scene, demo_camera(W, H),
+        BASE.replace(regen_wavefront=512, regen_drain=True,
+                     regen_drain_wavefront=256), 2, return_stats=True)
+    assert sizes[0] == 2 and sizes[-1] == 1  # a drain stage ran
+    b = np.array(sizes, dtype=np.float64)
+    n = len(sizes)
+    np.testing.assert_array_equal(stats["it_sweeps_a"].numpy()[:n],
+                                  1000.0 * b * (b + 1) / 2)
+    np.testing.assert_array_equal(stats["it_sweeps_b"].numpy()[:n], 7.0 * b)
+    assert not stats["it_sweeps_a"][n:].any()
 
 
 @pytest.mark.parametrize("nee", [False, True], ids=["primal", "nee"])

@@ -12,7 +12,11 @@ on and tools/two_level_turns.py times them on, cut small on the CPU:
   rays;
 - ``rows_tiles`` on the demo: kernel 1's primary and bounce-1 rays;
 - ``fused_operands`` on the mid grid: kernel 11's camera paths, as FUSED's
-  path tracer packs them.
+  path tracer packs them;
+- ``soft_shadow_operands`` on the mid grid: kernel 5's shadow rays over
+  the soft-inflated boxes;
+- ``classic_tiles`` on the mid grid: kernels 8 and 9's primary and
+  bounce-1 rays over the raw chunk boxes.
 
 The tiles hold no kernel of their own, so nothing here runs JAX.
 """
@@ -177,3 +181,44 @@ def test_fused_operands_on_mid(mid):
     assert torch.equal(segs, res.segments)
     assert torch.equal(out[0], res.radiance.x)
     assert int((out[3] < ti._MISS).sum()) > N // 10
+
+
+def test_soft_shadow_operands(mid):
+    """Kernel 5's tile: the middle tile's NEE shadow rays over the chunk
+    boxes grown by edge_eps and the triangles' edge openness; a parked ray
+    (limit 0) finds no candidate, and some queries find one."""
+    scene, cam, prep = mid
+    args, n_q = kt.soft_shadow_operands(scene, cam, prep, CFG, 0.02)
+    o4t, d4t, tmax, bounds = args[:4]
+    assert o4t.shape == d4t.shape == (4, N) and tmax.shape == (N,)
+    assert torch.equal(bounds, ti.soft_bounds(scene.isect_chunk_bounds,
+                                              0.02))
+    assert args[4:7] == (prep.mu, prep.mv, prep.mw)
+    assert args[7].shape == (3, prep.mu.shape[1])
+    assert 0 < n_q == int((tmax > 0).sum())
+    margin, _ = ti.soft_occluded(*args)
+    assert bool((margin[tmax <= 0] == -1e9).all())
+    assert bool((margin > -1e8).any())
+
+
+def test_classic_tiles_on_mid(mid):
+    """Kernels 8 and 9's tiles: the middle tile's primary rays and the
+    bounce from their hits, over the raw chunk boxes; kernel 8 finds the
+    default traversal's winners on the primary rays."""
+    scene, cam, prep = mid
+    tiles = kt.classic_tiles(scene, cam, prep, CFG)
+    assert list(tiles) == ["primary", "bounce 1"]
+    primary, hit, s, seed = kt.middle_rays(scene, cam, prep, CFG, N,
+                                           kt.middle_tile(CFG))
+    ray, active, args = tiles["primary"]
+    assert active is None
+    assert torch.equal(torch.cat(args[:2]), torch.cat(ti.pack_rays(primary)))
+    assert torch.equal(args[2], scene.isect_chunk_bounds)
+    assert args[3:] == (prep.mu, prep.mv, prep.mw)
+    t, idx = ti.closest_hit_classic(*args)
+    assert int(hit.hit.sum()) > N // 10
+    assert float(((t == hit.t) & (idx == hit.eidx)).float().mean()) >= 0.99
+    bray, bactive, bargs = tiles["bounce 1"]
+    assert torch.equal(bactive, hit.hit)
+    assert torch.equal(torch.cat(bargs[:2]),
+                       torch.cat(ti.pack_rays(bray, bactive)))

@@ -2,22 +2,19 @@
 """The traversal kernels of several builds, timed in turns on one GPU.
 
     python3 tools/two_level_turns.py --other parent=DIR [--other NAME=DIR]
-                                     [--only NAME ...]
+                                     [--only NAME ...] [--sass] [--clocks]
 
-Builds ``closest_hit_rows.cu`` (kernel 1), ``closest_hit_sc_lite.cu``
-(kernel 3), ``closest_hit_rows_sc.cu`` (kernel 6), ``march_step_sc.cu``
-(kernel 7), ``occlusion.cu`` (kernel 2), ``closest_hit_rows_nee.cu``
-(kernel 4), ``mega_step.cu`` (kernel 10) and ``fused_paths.cu`` (kernel
-11) from this checkout's ``gdpathtracing_torch/csrc`` ("change") and from each
-``DIR`` (another ``csrc`` directory, for example the parent commit's,
-unpacked with ``git archive`` into a directory that .gitignore lists), with
-ops/build.py's flags, and prints ptxas' registers, shared memory and
-spills for each. Then, on the operands of chip_smoke.py phase 2 (built by
-gdpathtracing_torch/ops/tiles.py for both), it launches every build's
-kernel on the same tensors, checks that each output equals the plain
-version bit for bit, and times the builds in turns, forward then backward
-(other, change, change, other), each with CUDA events over 20 launches.
-The tiles:
+Builds the kernels named by ``--only`` (C entry names; all eleven by
+default) from this checkout's ``gdpathtracing_torch/csrc`` ("change") and
+from each ``DIR`` (another ``csrc`` directory, for example the parent
+commit's, unpacked with ``git archive`` into a directory that .gitignore
+lists), with ops/build.py's flags, and prints ptxas' registers, shared
+memory and spills for each. Then, on the operands of chip_smoke.py phase 2
+(built by gdpathtracing_torch/ops/tiles.py for both), it launches every
+build's kernel on the same tensors, checks that each output equals the
+plain version bit for bit, and times the builds in turns, forward then
+backward (other, change, change, other), each with CUDA events over 20
+launches. The tiles:
 - kernels 3 and 6: the middle 262144-ray tile of a 1080p frame of the
   bench's sphere grid (n=10; kernel 6 the n=14 grid), primary rays and one
   BRDF bounce from their hits;
@@ -33,13 +30,27 @@ The tiles:
   hits; kernel 10: its camera paths at bounce 0 and bounce 1, without and
   with NEE (with it, both of its walks);
 - kernel 11: the middle tile's camera paths, 5 bounces, on the demo and on
-  the mid grid (n=4, 34 chunks walked flat).
+  the mid grid (n=4, 34 chunks walked flat);
+- kernel 5: the shadow rays of the middle tile's primary hits, on the demo
+  and on the n=10 grid, over boxes grown by soft shadows' edge_eps 0.02;
+- kernels 8 and 9: the demo's middle tile, primary and bounce-1 rays, and
+  the mid grid's primary rays, over the raw chunk boxes.
 Per tile it also prints the tests the rays need, the thread-slots of one
-thread per ray and of the block-cooperative walks (every kernel timed:
-``ops.intersect.two_level_slots``, ``any_hit_slots``), and the bound of
-chip_smoke.py (kernels 10 and 11 without their shading operations).
-``--only`` keeps the named kernels (C entry names). The last line is one
-JSON object with every time.
+thread per ray and of the block-cooperative walks (``ops.intersect.
+two_level_slots``, ``any_hit_slots``), and the bound of chip_smoke.py
+(kernels 10 and 11 without their shading operations).
+
+``--sass`` compares each kernel's SASS (``cuobjdump -sass``) and ptxas'
+usage lines between the builds, and prints, for kernels 5, 8 and 9, the
+instructions of each loop that runs ray-triangle tests, per test (a test
+is one IEEE division: one MUFU.RCP), by opcode. ``--clocks`` also builds
+kernel 9 with ``-DGDPT_CLOCKS`` (its clock64() split: the group votes,
+the per-candidate gates, waiting for the staged rows, the candidate
+barrier, starting the next copy, and the sweep, summed over the warps; and
+a log of each block's SM and lifetime) and prints each part's share and
+the blocks resident on an SM on kernel 9's tiles (the diagnostic build
+has its own register count, so its residency is its own). The last line is one JSON
+object with every time.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -49,6 +60,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,43 +68,80 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 ITERS = 20
-# Each C entry point: its source and its operands (pointers, ints, floats;
-# then the stream).
+# Each C entry point's operands (pointers, ints, floats; then the stream).
 ENTRIES = {"closest_hit_rows": (8, 2, 0), "closest_hit_sc_lite": (8, 3, 0),
            "closest_hit_rows_sc": (9, 3, 0), "march_step_sc": (10, 4, 0),
            "occlusion": (9, 2, 0), "closest_hit_rows_nee": (13, 2, 0),
-           "mega_step": (11, 6, 8), "fused_paths": (11, 3, 7)}
+           "mega_step": (11, 6, 8), "fused_paths": (11, 3, 7),
+           "soft_occlusion": (10, 2, 0), "closest_hit_classic": (8, 2, 0),
+           "closest_hit_loop": (8, 2, 0)}
+# The source of an entry that is not csrc/<entry>.cu.
+SOURCES = {"closest_hit_classic": "closest_hit_classic",
+           "closest_hit_loop": "closest_hit_classic"}
 PEAK_FP32 = 67e12  # float32 outside the tensor cores, H100 SXM at 700 W
 OPS_PER_TEST, OPS_PER_SLAB = 45, 25  # as chip_smoke.py
+OPS_PER_SOFT_TEST, SOFT_EPS = 59, 0.02  # kernel 5, as chip_smoke.py
+CLOCK_PARTS = ("vote", "gate", "wait for rows", "barrier", "start copy",
+               "sweep")  # closest_hit_classic.cu LoopPart
+LOG_BLOCKS = 4096  # closest_hit_classic.cu kLogBlocks
 
 
-def build(label: str, csrc: Path, out_dir: Path, names) -> dict:
-    """nvcc every kernel of ``names`` from ``csrc`` in parallel; by name, a
-    function that launches it on the current stream with the tensors'
-    pointers, the ints and the floats, and raises if the launch was
-    refused."""
+def source(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
+def kernel_name(mangled: str) -> str:
+    """The longest ``<entry>_kernel`` in a mangled name (the anonymous
+    namespace's hash aside)."""
+    known = [f"{k}_kernel" for k in ENTRIES if f"{k}_kernel" in mangled]
+    return max(known, key=len) if known else mangled.strip()
+
+
+class Built:
+    """One build of one source: its library and ptxas' usage lines by
+    kernel."""
+
+    def __init__(self, so: Path, usage: list[str]):
+        self.so, self.usage = so, usage
+        self.lib = ctypes.CDLL(str(so))
+
+
+def build(label: str, csrc: Path, out_dir: Path, names,
+          flags=()) -> tuple[dict, dict]:
+    """nvcc the sources of the kernels ``names`` from ``csrc`` in
+    parallel: (by kernel name, a function that launches it on the current
+    stream with the tensors' pointers, the ints and the floats, and raises
+    if the launch was refused; by source, its Built)."""
     import torch
 
     from gdpathtracing_torch.ops.build import NVCC_FLAGS, nvcc_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        so = out_dir / f"{name}-{label}.so"
-        procs[name] = (so, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(so),
-             str(csrc / f"{name}.cu")],
+    for src in sorted({source(n) for n in names}):
+        so = out_dir / f"{src}-{label}.so"
+        procs[src] = (so, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(so),
+             str(csrc / f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (so, proc) in procs.items():
+    built = {}
+    for src, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"nvcc failed on {csrc / name}.cu:\n{log}")
+            sys.exit(f"nvcc failed on {csrc / src}.cu:\n{log}")
+        usage, kern = {}, src
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {label} {name}: {line.strip()}")
+            if "Function properties for" in line:
+                kern = kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                usage.setdefault(kern, []).append(
+                    line.split(":", 1)[-1].strip())
+                print(f"  {label} {kern}: {usage[kern][-1]}")
+        built[src] = Built(so, usage)
+    fns = {}
+    for name in names:
         n_ptrs, n_ints, n_floats = ENTRIES[name]
-        fn = getattr(ctypes.CDLL(str(so)), name)
+        fn = getattr(built[source(name)].lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -104,7 +153,166 @@ def build(label: str, csrc: Path, out_dir: Path, names) -> dict:
                 raise RuntimeError(f"{label} {name}: cudaError {err}")
 
         fns[name] = launch
-    return fns
+    return fns, built
+
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+
+
+def sass_kernels(so: Path) -> dict[str, str]:
+    """By kernel (:func:`kernel_name`), the SASS instructions of ``so``
+    (``cuobjdump -sass``)."""
+    from gdpathtracing_torch.ops.build import nvcc_path
+
+    out = subprocess.run(
+        [str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        # The instructions, each "/*addr*/ text ;", with mangled names
+        # (which hold the anonymous namespace's hash) cut out and branch
+        # labels (".L_x_3:" before an instruction) read as its address.
+        labels, pending = {}, []
+        for line in body.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+            elif _INSTR.search(line) and pending:
+                for lab in pending:
+                    labels[lab] = "0x" + _INSTR.search(line).group(1)
+                pending = []
+        lines = []
+        for a, t in _INSTR.findall(body):
+            t = re.sub(r"`?\((\.L_x_\d+)\)", lambda m: labels.get(
+                m.group(1), m.group(1)), t)
+            lines.append(re.sub(r"_ZN[0-9A-Za-z_]+", "", f"/*{a}*/ {t} ;"))
+        funcs[kernel_name(name)] = "\n".join(lines)
+    return funcs
+
+
+def _opcode(text: str) -> str:
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def test_loops(sass: str) -> list[dict]:
+    """The loops of a kernel's SASS that run ray-triangle tests (a
+    backward branch whose range holds a MUFU.RCP: one IEEE division a
+    test), innermost first: their address range, tests per iteration and
+    instructions per test, by opcode (before its first dot)."""
+    ins = [(int(a, 16), _opcode(t), t) for a, t in _INSTR.findall(sass)]
+    loops = []
+    for addr, op, text in ins:
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", text.split(op, 1)[1])
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+    found = []
+    for lo, hi in sorted(set(loops), key=lambda x: x[1] - x[0]):
+        ops = [op for a, op, _ in ins if lo <= a <= hi]
+        tests = sum(op.startswith("MUFU.RCP") for op in ops)
+        if not tests:
+            continue
+        by_op = {}
+        for op in ops:
+            base = op.split(".")[0]
+            by_op[base] = by_op.get(base, 0) + 1
+        found.append(dict(range=f"0x{lo:x}-0x{hi:x}", tests=tests,
+                          per_test=len(ops) / tests,
+                          by_op={k: v / tests for k, v in sorted(
+                              by_op.items(), key=lambda x: -x[1])}))
+    return found
+
+
+def sass_report(built: dict) -> dict:
+    """Each kernel's SASS and ptxas usage in every build against the
+    change's; the test loops of kernels 5, 8 and 9 in every build."""
+    report = {}
+    srcs = sorted(set.intersection(*(set(b) for b in built.values())))
+    for src in srcs:
+        sass = {label: sass_kernels(b[src].so) for label, b in built.items()}
+        for label in built:
+            if label == "change":
+                continue
+            for kern, text in sass["change"].items():
+                same = sass[label].get(kern) == text
+                same_usage = built[label][src].usage.get(kern) == \
+                    built["change"][src].usage.get(kern)
+                n_ins = len(_INSTR.findall(text))
+                print(f"sass {kern}: {label} "
+                      f"{'identical' if same else 'DIFFERS'} "
+                      f"({n_ins} instructions in change, "
+                      f"{len(_INSTR.findall(sass[label].get(kern, '')))} in "
+                      f"{label}); ptxas usage "
+                      f"{'same' if same_usage else 'differs'}")
+                report[f"{kern} {label}"] = dict(identical=same,
+                                                 usage_same=same_usage)
+        for label, funcs in sass.items():
+            for kern in ("soft_occlusion_kernel", "closest_hit_classic_kernel",
+                         "closest_hit_loop_kernel"):
+                if kern not in funcs:
+                    continue
+                loops = test_loops(funcs[kern])
+                report[f"{kern} {label} loops"] = loops
+                for lp in loops:
+                    top = ", ".join(f"{k} {v:.2f}" for k, v in
+                                    list(lp["by_op"].items())[:12])
+                    print(f"loop {kern} {label} {lp['range']}: "
+                          f"{lp['tests']} tests an iteration, "
+                          f"{lp['per_test']:.2f} instructions a test "
+                          f"({top})")
+    return report
+
+
+def clock_split(clocks, tens, ints, tests: float) -> dict:
+    """One launch of kernel 9's diagnostic build on ``tens``: its clock64()
+    cycles summed over the warps, by part, each part's share, the sweep's
+    cycles a warp spends per test of a lane (its sweep cycles over the
+    tests its 32 lanes ran), and from its block log the blocks resident on
+    an SM: the most at once and the mean over the launch (the blocks'
+    lifetimes summed over the SMs' count times the launch's span)."""
+    import numpy as np
+    import torch
+
+    launch, read = clocks
+    n = tens[0].shape[1]
+    outs = (torch.empty(n, dtype=torch.float32, device=tens[0].device),
+            torch.empty(n, dtype=torch.int32, device=tens[0].device))
+    cycles = (ctypes.c_ulonglong * len(CLOCK_PARTS))()
+    log = (ctypes.c_ulonglong * (LOG_BLOCKS * 3))()
+    launch(tens + outs, ints, ())
+    torch.cuda.synchronize()
+    read(cycles, log)  # zeroes the sums
+    launch(tens + outs, ints, ())
+    torch.cuda.synchronize()
+    if read(cycles, log) != 0:
+        raise RuntimeError("closest_hit_loop_clocks failed")
+    total = float(sum(cycles))
+    split = {p: float(c) for p, c in zip(CLOCK_PARTS, cycles)}
+    shares = {p: c / total for p, c in split.items()}
+    per_test = split["sweep"] * 32 / max(tests, 1.0)
+    blocks = np.ctypeslib.as_array(log).reshape(LOG_BLOCKS, 3)[
+        :min(n // 256, LOG_BLOCKS)].astype(np.float64)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    span = blocks[:, 2].max() - blocks[:, 1].min()
+    mean_res = float((blocks[:, 2] - blocks[:, 1]).sum() / (n_sm * span))
+    most = 0
+    for sm in np.unique(blocks[:, 0]):
+        b = blocks[blocks[:, 0] == sm]
+        ev = sorted([(t, 1) for t in b[:, 1]] + [(t, -1) for t in b[:, 2]],
+                    key=lambda x: (x[0], x[1]))
+        now = 0
+        for _, d in ev:
+            now += d
+            most = max(most, now)
+    print("  kernel 9 clock64() split (cycles summed over warps): "
+          + ", ".join(f"{p} {shares[p]:.3f}" for p in CLOCK_PARTS)
+          + f"; sweep {per_test:.2f} cycles a warp per test of a lane; "
+          f"blocks resident on an SM: at most {most}, {mean_res:.2f} on "
+          f"average over the launch ({span / 1e3:.1f} us, {n_sm} SMs)")
+    return dict(cycles=split, shares=shares, sweep_cycles_per_test=per_test,
+                blocks_resident_max=most, blocks_resident_mean=mean_res)
 
 
 def main() -> None:
@@ -114,6 +322,11 @@ def main() -> None:
                     help="another csrc directory, timed against this one")
     ap.add_argument("--only", nargs="+", choices=sorted(ENTRIES),
                     default=sorted(ENTRIES), help="the kernels to time")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the builds' SASS; count kernels 5, 8 "
+                    "and 9's instructions a test")
+    ap.add_argument("--clocks", action="store_true",
+                    help="kernel 9's clock64() split (a diagnostic build)")
     args = ap.parse_args()
     others = [tuple(o.split("=", 1)) for o in args.other]
     if not others:
@@ -138,10 +351,22 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip()
     print(f"card (nvidia-smi --query-gpu=name,power.limit): {card}")
     out_dir = ROOT / "build" / "turns"
-    builds = {"change": build("change", ROOT / "gdpathtracing_torch" / "csrc",
-                              out_dir, args.only)}
-    for label, d in others:
-        builds[label] = build(label, Path(d).resolve(), out_dir, args.only)
+    csrc = ROOT / "gdpathtracing_torch" / "csrc"
+    builds, built = {}, {}
+    for label, d in [("change", csrc)] + others:
+        builds[label], built[label] = build(label, Path(d).resolve(),
+                                            out_dir, args.only)
+    sass = sass_report(built) if args.sass else {}
+    clocks = None
+    if args.clocks and "closest_hit_loop" in args.only:
+        clock_fns, clock_built = build("clocks", csrc, out_dir,
+                                       ["closest_hit_loop"],
+                                       ("-DGDPT_CLOCKS",))
+        read_clocks = clock_built["closest_hit_classic"].lib \
+            .closest_hit_loop_clocks
+        read_clocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        read_clocks.restype = ctypes.c_int
+        clocks = (clock_fns["closest_hit_loop"], read_clocks)
     order = [label for label, _ in others]
     order = order + ["change", "change"] + order[::-1]
 
@@ -300,8 +525,49 @@ def main() -> None:
                           float(fcfg.bounces * n * (e // ti.BT)),
                           counts["slots"], counts["thread_slots"]))
 
+    def soft_tiles():
+        for label, scene, cam in (
+                ("demo", build_demo_scene(), demo_camera(W, H)),
+                ("n=10 grid", build_sphere_grid(n=10, sphere_detail=16),
+                 grid_camera(W, H, n=10))):
+            prep = ti.prepare_trace_inputs(scene)
+            tens, _ = kt.soft_shadow_operands(scene, cam, prep, cfg,
+                                              SOFT_EPS)
+            n, e = tens[0].shape[1], prep.mu.shape[1]
+            want = ti.soft_occluded_plain(*tens)
+            tiles.append(("soft_occlusion", label, "shadow rays", tens,
+                          [((n,), torch.float32), ((n,), torch.int32)],
+                          (n, e), (), [want.margin, want.eidx],
+                          float(want.tests.sum()), float(n * (e // ti.BT)),
+                          float(want.slots[::ti.BN].sum()),
+                          float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT))
+
+    def classic_tiles(name):
+        plain = ti.closest_hit_classic_plain if name == "closest_hit_classic" \
+            else ti.closest_hit_loop_plain
+        for label, scene, cam in (
+                ("demo", build_demo_scene(), demo_camera(W, H)),
+                ("mid grid", build_sphere_grid(n=4, sphere_detail=12),
+                 grid_camera(W, H, n=4))):
+            prep = ti.prepare_trace_inputs(scene)
+            for what, (_, _, tens) in kt.classic_tiles(scene, cam, prep,
+                                                       cfg).items():
+                if label == "mid grid" and what != "primary":
+                    continue  # chip_smoke.py's three tiles
+                n, e = tens[0].shape[1], prep.mu.shape[1]
+                counts = {}
+                want = plain(*tens, counts=counts)
+                tiles.append((name, label, what, tens,
+                              [((n,), torch.float32), ((n,), torch.int32)],
+                              (n, e), (), list(want), counts["tests"],
+                              float(n * (e // ti.BT)), None, None))
+
     for name in args.only:
-        if name in ("closest_hit_sc_lite", "march_step_sc"):
+        if name == "soft_occlusion":
+            soft_tiles()
+        elif name in ("closest_hit_classic", "closest_hit_loop"):
+            classic_tiles(name)
+        elif name in ("closest_hit_sc_lite", "march_step_sc"):
             two_level_tiles(name, 10)
         elif name == "closest_hit_rows_sc":
             two_level_tiles(name, 14)
@@ -345,7 +611,9 @@ def main() -> None:
                 lambda f=builds[label][name]: f(tens + tuple(outs), ints,
                                                 floats)))
         n = tens[0].shape[-1]
-        bound_ms = (needed * OPS_PER_TEST + slabs * OPS_PER_SLAB) \
+        per_test = OPS_PER_SOFT_TEST if name == "soft_occlusion" \
+            else OPS_PER_TEST
+        bound_ms = (needed * per_test + slabs * OPS_PER_SLAB) \
             / PEAK_FP32 * 1e3
         row = dict(kernel=name, scene=where, rays=what, n=n,
                    ms={k: sum(v) / len(v) for k, v in ms.items()},
@@ -363,7 +631,10 @@ def main() -> None:
               f"(turns {order}); bound {bound_ms:.4f} ms; {needed:.4g} tests"
               + (f", useful share of thread-slots {', '.join(shares)}"
                  if shares else ""))
-    print(json.dumps({"card": card, "turns": order, "tiles": results}))
+        if clocks is not None and name == "closest_hit_loop":
+            row["clocks"] = clock_split(clocks, tens, ints, needed)
+    print(json.dumps({"card": card, "turns": order, "tiles": results,
+                      "sass": sass}))
 
 
 if __name__ == "__main__":

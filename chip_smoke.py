@@ -5,8 +5,9 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the eleven CUDA kernels from the ten sources in csrc/ with nvcc,
-   in parallel, and prints ptxas' registers, shared memory and spills;
+1. builds the twelve CUDA kernels (the eleven TPU kernels' and the BVH
+   traversal's) from the eleven sources in csrc/ with nvcc, in parallel,
+   and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
    - kernel 1 (closest hit): primary rays of the 262144-ray tile through
@@ -56,7 +57,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    - kernels 8 and 9 (the classic (t, idx) closest hit, gated per ray and
      per block) on the demo's middle tile, primary and bounce-1 rays, and
      on the mid grid's, with the share of rays on which they find the
-     default traversal's winners;
+     default traversal's winners, and kernel 8's thread-slots on its
+     block-cooperative walk against one thread per ray's;
+   - the BVH traversal (render/traverse.py trace_bvh, no TPU kernel: the
+     reference's is a plain-XLA loop) on the demo and the grid: the 262144
+     camera rays around the frame's centre, one bounce from their hits,
+     those camera rays with stacks of 2 (overflowing) and 96 (in device
+     memory), and axis-aligned rays on box planes (NaN in the slab test),
+     its bound from the plain version's counts of pops, box tests,
+     object-space rays and triangle tests;
 3. drives kernels 8 and 9 through their own entry points
    (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
    demo frame's camera rays, one launch a tile each, against kernel 1's
@@ -69,13 +78,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
    and regen with the frontier march, without and with NEE; regen on the
    mid grid (n=4), with and without the march, and on the n=14 grid, with
    and without regen_march=True (there over the 8 MiB threshold, so
-   ignored); and the path kernels' traversals: MEGA, MEGA + NEE and FUSED
-   on the demo, FUSED on the mid grid. Each regen_march=True frame comes
-   right after its no-march counterpart at the same frame index and must
-   equal it in radiance, depth and segments. Checks the launches against
+   ignored); the path kernels' traversals: MEGA, MEGA + NEE and FUSED
+   on the demo, FUSED on the mid grid; and RenderConfig()'s BVH traversal
+   (the standard loop, one trace_bvh launch a tile and bounce, two with
+   NEE) on the demo, the demo with NEE and the grid. Each
+   regen_march=True frame comes right after its no-march counterpart at
+   the same frame index and must equal it in radiance, depth and
+   segments. Checks the launches against
    the regen iterations and the tiles (kernel 7 once an iteration where
    the march runs, kernel 6 where it is ignored; 40 of kernel 10 and 8 of
-   kernel 11 a frame, and none of kernels 1-7 there), and prints ms/frame,
+   kernel 11 a frame, and none of kernels 1-7 there; 40 or 80 of the BVH
+   kernel), and prints ms/frame,
    Msegments/s and the regen iterations. Then it
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
@@ -90,8 +103,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    gradient, prints ms per step, Msegments/s (forward segments), peak
    device memory, and one more step under torch.profiler;
 4. renders 64x48 on the GPU and on the CPU for each demo path (MEGA with
-   and without NEE and FUSED among them) and for grid regen with and
-   without NEE and with and without the march, and compares each pair;
+   and without NEE, FUSED and BVH among them) and for the grid's regen
+   with and without NEE and with and without the march and its BVH path,
+   and compares each pair;
    the same for the differentiable demo's albedo gradient and its
    soft-shadow transform gradient;
 5. runs the GPU-only tests (``pytest -m cuda tests/test_torch_cuda.py``),
@@ -101,11 +115,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    all die after bounce 0, and blocks with one live path), kernel 2
    on adversarial shadow rays of the demo and the grid, kernel 5 on
    all-closed ties at margin 1.0 across lanes and chunks, sparse and
-   dense needing rays and parked rays, and kernel 9 on one passing gate
-   a block and ties on t.
+   dense needing rays and parked rays, kernel 9 on one passing gate a
+   block and ties on t, kernel 8 on ties, a chunk whose tmin equals a
+   ray's best t, one live ray a block, blocks that need nothing and full
+   blocks, and the BVH kernel on the demo and the grid with stacks of 2,
+   64 and 96, the active mask and axis-aligned rays on box planes.
 
 The last line of standard output is a JSON object with the device; the line
-before it lists each kernel with its launches, error, times and bound.
+before it lists each of the eleven TPU kernels' ports with its launches,
+error, times and bound, and the line before that the BVH kernel's.
 Needs one CUDA device and imports nothing of JAX.
 """
 
@@ -137,6 +155,14 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 OPS_PER_TEST = 45
 # One slab test: 6 sub, 6 mul, 10 min/max, 3 comparisons.
 OPS_PER_SLAB = 25
+# The BVH kernel (csrc/trace_bvh.cu), per pop: the entry's decode and the
+# three comparisons that order the pushes; per inner node two slab tests
+# (6 sub, 6 mul, 6 NaN tests, 10 min/max, 3 comparisons, a select); per
+# BLAS entry the object-space ray (point 18, direction 15, 3 divisions);
+# per triangle test Moller-Trumbore (edges 6, two crosses 18, three dots
+# and their scales 21, det 5 and its tests 3, tvec 3, the validity tests
+# 8, the facing test 15, inv_det 1).
+OPS_PER_POP, OPS_PER_AABB, OPS_PER_OBJ_RAY, OPS_PER_MT = 8, 32, 36, 76
 # One soft-shadow candidate test (csrc/soft_occlusion.cu): the six dot
 # products (33), the division, u and v (4), w = 1 - u - v (2), the three
 # openness tests, six selects and four minima of the margins, int_ok > 0,
@@ -308,6 +334,7 @@ def main() -> None:
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
     from gdpathtracing_torch.render.regen import render_radiance_regen
     from gdpathtracing_torch.render.renderer import render_radiance
+    from gdpathtracing_torch.render.traverse import trace_bvh, trace_bvh_plain
     from gdpathtracing_torch.scene.demo import (build_demo_scene,
                                                 build_sphere_grid,
                                                 demo_camera, grid_camera)
@@ -842,7 +869,12 @@ def main() -> None:
                   f"{kname}, {label}: differs from its plain version")
             k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
             p = cuda_ms(lambda: pfn(*args), iters, torch)
-            log(f"  {counts['tests']:.4g} ray-triangle tests swept")
+            log(f"  {counts['tests']:.4g} ray-triangle tests swept, "
+                f"{counts['slots']:.4g} thread-slots "
+                f"({counts['tests'] / max(counts['slots'], 1.0):.3f} useful;"
+                f" a thread per ray: {counts['thread_slots']:.4g}, "
+                f"{counts['tests'] / max(counts['thread_slots'], 1.0):.3f} "
+                f"useful)")
             record(kname, err, k, p, *bound(
                 counts["tests"], n * (e8 // ti.BT),
                 8 * 4 * n + 2 * 4 * n + 3 * 4 * e8 * 4
@@ -859,6 +891,50 @@ def main() -> None:
         check(same8 >= 0.99 and same9 >= 0.99,
               f"{label}: kernels 8 and 9 disagree with the other winners")
 
+    # The BVH traversal's kernel on its tiles (ops/tiles.py bvh_tiles) on the
+    # demo and the grid, bit for bit against trace_bvh_plain.
+    for label, bscene, bcam in (("demo", scene, cam),
+                                ("grid", grid, grid_cam)):
+        tables = sum(getattr(bscene, f).numel() * 4 for f in (
+            "tri_pos", "node_min", "node_max", "node_left", "node_right",
+            "node_first", "node_count", "tlas_min", "tlas_max", "tlas_left",
+            "tlas_right", "tlas_inst", "inst_inv_transform", "inst_root"))
+        for name, bt in kt.bvh_tiles(bscene, bcam, cfg).items():
+            bargs = (bscene, bt.ray, bt.active, bt.max_stack, bt.max_iters)
+            got = trace_bvh(*bargs)
+            counts = {}
+            want = trace_bvh_plain(*bargs, counts=counts)
+            torch.cuda.synchronize()
+            n = bt.ray.o.x.shape[0]
+            differ = torch.zeros(n, dtype=torch.bool, device=dev)
+            for f in ("t", "u", "v"):
+                differ |= getattr(got, f).view(torch.int32) \
+                    != getattr(want, f).view(torch.int32)
+            for f in ("tri", "inst", "front", "steps"):
+                differ |= getattr(got, f) != getattr(want, f)
+            on = want.hit
+            err = max(float((got.t - want.t)[on].abs().max()) if bool(
+                on.any()) else 0.0, float(int(differ.sum())))
+            log(f"trace_bvh vs plain, {label}, {name} ({n} rays, "
+                f"{int(on.sum())} hit, max_stack {bt.max_stack}, max_iters "
+                f"{bt.max_iters}): {int(differ.sum())} rays not bit-equal")
+            check(int(on.sum()) > n // 10, f"trace_bvh, {label} {name}: only "
+                  f"{int(on.sum())} rays hit")
+            check(not bool(differ.any()), f"trace_bvh, {label} {name}: "
+                  f"differs from its plain version")
+            k = cuda_ms(lambda: trace_bvh(*bargs), KERNEL_ITERS, torch)
+            p = cuda_ms(lambda: trace_bvh_plain(*bargs), 1, torch)
+            log(f"  {counts['pops']:.4g} pops ({counts['pops'] / n:.1f} a "
+                f"ray), {counts['inner']:.4g} inner nodes, "
+                f"{counts['blas']:.4g} object-space rays, "
+                f"{counts['tri_tests']:.4g} triangle tests")
+            record("trace_bvh", err, k, p, *bound(
+                counts["tri_tests"], 2 * counts["inner"],
+                (6 * 4 + 1 + 7 * 4) * n + tables, OPS_PER_MT,
+                counts["pops"] * OPS_PER_POP
+                + counts["blas"] * OPS_PER_OBJ_RAY
+                + 2 * counts["inner"] * (OPS_PER_AABB - OPS_PER_SLAB)))
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -871,13 +947,15 @@ def main() -> None:
                "fused_paths": fu.fused_paths,
                "march_step_sc": ti.march_step_sc,
                "closest_hit_classic": ti.closest_hit_classic,
-               "closest_hit_loop": ti.closest_hit_loop}
+               "closest_hit_loop": ti.closest_hit_loop,
+               "trace_bvh": trace_bvh}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
     # config, timed frames)])
     mega, fused = Traversal.MEGA, Traversal.FUSED
     march = cfg.replace(regen_march=True)
+    default = RenderConfig()  # Traversal.BVH, the standard loop
     runs = [
         ("demo", scene, cam, "closest_hit_rows", [
             ("standard loop", cfg.replace(regen=False), 2),
@@ -886,13 +964,16 @@ def main() -> None:
             ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2),
             ("MEGA", cfg.replace(traversal=mega), 2),
             ("MEGA + NEE", cfg.replace(traversal=mega, nee=True), 2),
-            ("FUSED", cfg.replace(traversal=fused), 2)]),
+            ("FUSED", cfg.replace(traversal=fused), 2),
+            ("BVH (RenderConfig())", default, 2),
+            ("BVH + NEE", default.replace(nee=True), 2)]),
         ("grid", grid, grid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
             ("regen + NEE", cfg.replace(nee=True), 2),
             ("standard loop (sorted)", cfg.replace(regen=False), 2),
             ("regen, march", march, 2),
-            ("regen + NEE, march", march.replace(nee=True), 2)]),
+            ("regen + NEE, march", march.replace(nee=True), 2),
+            ("BVH (RenderConfig())", default, 2)]),
         ("mid grid", mid, mid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
             ("FUSED", cfg.replace(traversal=fused), 2),
@@ -906,24 +987,26 @@ def main() -> None:
     # kernel `x_kernel`, but for kernel 9, which closest_hit_classic.cu
     # defines as closest_hit_loop_kernel.
     sources = {"closest_hit_rows": ("closest_hit_rows.cu",
-                                    "intersect_pallas.py:520"),
-               "occluded": ("occlusion.cu", "intersect_pallas.py:1662"),
+                                    "ops/intersect_pallas.py:520"),
+               "occluded": ("occlusion.cu", "ops/intersect_pallas.py:1662"),
                "closest_hit_rows_nee": ("closest_hit_rows_nee.cu",
-                                        "intersect_pallas.py:613"),
+                                        "ops/intersect_pallas.py:613"),
                "closest_hit_sc_lite": ("closest_hit_sc_lite.cu",
-                                       "intersect_pallas.py:973"),
+                                       "ops/intersect_pallas.py:973"),
                "closest_hit_rows_sc": ("closest_hit_rows_sc.cu",
-                                       "intersect_pallas.py:864"),
+                                       "ops/intersect_pallas.py:864"),
                "soft_occluded": ("soft_occlusion.cu",
-                                 "intersect_pallas.py:1828"),
-               "mega_step": ("mega_step.cu", "megakernel.py:182"),
-               "fused_paths": ("fused_paths.cu", "fused_pallas.py:174"),
+                                 "ops/intersect_pallas.py:1828"),
+               "mega_step": ("mega_step.cu", "ops/megakernel.py:182"),
+               "fused_paths": ("fused_paths.cu", "ops/fused_pallas.py:174"),
                "march_step_sc": ("march_step_sc.cu",
-                                 "intersect_pallas.py:1117"),
+                                 "ops/intersect_pallas.py:1117"),
                "closest_hit_classic": ("closest_hit_classic.cu",
-                                       "intersect_pallas.py:52"),
+                                       "ops/intersect_pallas.py:52"),
                "closest_hit_loop": ("closest_hit_classic.cu",
-                                    "intersect_pallas.py:2047")}
+                                    "ops/intersect_pallas.py:2047"),
+               # not a Pallas kernel: the reference's plain-XLA loop
+               "trace_bvh": ("trace_bvh.cu", "render/traverse.py:44")}
     kernel_symbols = {k: Path(src).stem + "_kernel"
                       for k, (src, _) in sources.items()}
     kernel_symbols["closest_hit_loop"] = "closest_hit_loop_kernel"
@@ -1025,6 +1108,9 @@ def main() -> None:
             want["mega_step"] = per_tile * pcfg.bounces
         elif pcfg.traversal == fused:  # one launch a tile
             want["fused_paths"] = per_tile
+        elif pcfg.traversal == Traversal.BVH:  # one a tile and bounce, and
+            #                                   one more for NEE's shadows
+            want["trace_bvh"] = per_tile * pcfg.bounces * (2 if nee else 1)
         elif regen:  # one closest hit (or march round) and, with NEE, one
             #          shadow query each
             marching = march_flag and trace == "closest_hit_sc_lite"
@@ -1192,10 +1278,10 @@ def main() -> None:
     # camera paths (and paths that all die after bounce 0, blocks with one
     # live path), kernel 2 on adversarial shadow rays
     # (blockers at either end of a half, a limit at a blocker's own t,
-    # parked rays, one live ray a block, every ray toward one chunk), and
-    # kernels 5 and 9 on their tie and gate cases, with
-    # the kernels this run built (the same sources, so the same build
-    # directory).
+    # parked rays, one live ray a block, every ray toward one chunk),
+    # kernels 5, 8 and 9 on their tie and gate cases, and the BVH kernel
+    # on its tiles, with the kernels this run built (the same sources, so
+    # the same build directory).
     phase("5. the GPU-only tests")
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
@@ -1213,19 +1299,24 @@ def main() -> None:
         "gdpathtracing_tpu.") for m in sys.modules),
         "the JAX package was imported")
     check(jax_preloaded or "jax" not in sys.modules, "jax was imported")
-    log(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"gdpathtracing_torch/csrc/{sources[name][0]}",
-        "replaces": f"gdpathtracing_tpu/ops/{sources[name][1]}",
-        "launches": launches[name],
-        "max_abs_err": r["err"],
-        "ms": statistics.mean(r["ms"]),
-        "plain_ms": statistics.mean(r["plain_ms"]),
-        "bound_ms": statistics.mean(r["bound_ms"]),
-        "bound_by": r["bound_by"],
-        "library_ms": None,
-    } for name, r in report.items()]}))
+    def entry(name):
+        r = report[name]
+        return {"name": name,
+                "route": "cuda",
+                "source": f"gdpathtracing_torch/csrc/{sources[name][0]}",
+                "replaces": f"gdpathtracing_tpu/{sources[name][1]}",
+                "launches": launches[name],
+                "max_abs_err": r["err"],
+                "ms": statistics.mean(r["ms"]),
+                "plain_ms": statistics.mean(r["plain_ms"]),
+                "bound_ms": statistics.mean(r["bound_ms"]),
+                "bound_by": r["bound_by"],
+                "library_ms": None}
+
+    # The BVH kernel on its own line: it replaces no TPU kernel.
+    log(json.dumps({"bvh_kernel": entry("trace_bvh")}))
+    log(json.dumps({"kernels": [entry(name) for name in report
+                                if name != "trace_bvh"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

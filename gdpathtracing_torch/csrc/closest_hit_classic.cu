@@ -39,11 +39,19 @@
 // rays in, the 12 KB rows of each chunk a block stages, and 8 bytes a ray
 // out.
 // The designs:
-//   - closest_hit_classic (kernel 8), kept simple: one thread per ray,
-//     256-ray blocks, chunks in index order; `__syncthreads_or` skips a
-//     chunk no ray of the block needs, a needed chunk is staged in shared
-//     memory (every thread reads the same triangle at once, a broadcast)
-//     and swept by the threads whose ray needs it;
+//   - closest_hit_classic (kernel 8): its rule leaves every ray whose gate
+//     fails idle on a chunk that others sweep (a thread per ray kept 0.06-
+//     0.15 of its bound on the H100, PERF.md §6), so it runs the
+//     block-cooperative flat walk of kernels 1, 4, 10 and 11
+//     (trace_common.cuh walk_flat_coop) with kernel 8's strict gate: the
+//     chunks in groups of 32, a vote per group on the raw-box test without
+//     the best-t cut names the block's candidates; each candidate's rows
+//     arrive by cp.async into one of two 16-byte-aligned buffers while the
+//     one before is swept; a ballot lists the rays whose own gate passes,
+//     and a warp sweeps each listed ray (a lane per 8 triangles, a shuffle
+//     reduction to the lowest (t, index)), or the rays' own threads sweep
+//     where the needing warps are more than 7/8 full. The bests live in
+//     shared memory; each ray writes its own at the end;
 //   - closest_hit_loop (kernel 9): its rule already keeps every lane of a
 //     swept chunk busy, so its walk (loop_walk) spends what it can save on
 //     the staging and the barriers: the chunks in groups of 32, a vote per
@@ -66,51 +74,9 @@ namespace {
 
 using namespace gdpt;
 
-__device__ __forceinline__ void classic_walk(
-    const float* __restrict__ o4, const float* __restrict__ d4,
-    const float* __restrict__ bounds, const float* __restrict__ mu,
-    const float* __restrict__ mv, const float* __restrict__ mw,
-    float* __restrict__ t_out, int* __restrict__ idx_out, int n, int e) {
-  __shared__ ChunkRows s_m;
-
-  const int nc = e / kBT;
-  const int tid = threadIdx.x;
-  const size_t ray = (size_t)blockIdx.x * kBN + tid;
-  const Ray r = load_ray(o4, d4, (size_t)n, ray);
-
-  float best_t = kMiss;
-  int best_i = 0;
-  for (int c = 0; c < nc; ++c) {
-    float tmin, tmax;
-    slab(r, bounds, nc, c, tmin, tmax);
-    const bool may = (tmax >= tmin) && (tmax > 0.f) && (tmin < best_t);
-    // Also the barrier that ends every read of the previous chunk's rows.
-    if (!__syncthreads_or(may)) continue;
-    stage_chunk(s_m, mu, mv, mw, (size_t)e, c, tid);
-    __syncthreads();
-    if (!may) continue;
-    float tk = kMiss;
-    int k = 0;
-#pragma unroll 4
-    for (int j = 0; j < kBT; ++j) {
-      const Uvt h = intersect(s_m, r, j);
-      const bool valid = h.wd_ok && (h.t > 0.f) && (h.u >= 0.f) &&
-                         (h.v >= 0.f) && (h.u + h.v <= 1.f);
-      if (valid && h.t < tk) {
-        tk = h.t;
-        k = j;
-      }
-    }
-    if (tk < best_t) {
-      best_t = tk;
-      best_i = c * kBT + k;
-    }
-  }
-  t_out[ray] = best_t;
-  idx_out[ray] = best_i;
-}
-
-__global__ void __launch_bounds__(kBN)
+// Kernel 8: the flat cooperative walk with the strict gate over the raw
+// boxes; launch bounds (256, 3) as kernel 1, whose walk it is.
+__global__ void __launch_bounds__(kBN, 3)
 closest_hit_classic_kernel(const float* __restrict__ o4,
                            const float* __restrict__ d4,
                            const float* __restrict__ bounds,
@@ -119,7 +85,18 @@ closest_hit_classic_kernel(const float* __restrict__ o4,
                            const float* __restrict__ mw,
                            float* __restrict__ t_out,
                            int* __restrict__ idx_out, int n, int e) {
-  classic_walk(o4, d4, bounds, mu, mv, mw, t_out, idx_out, n, e);
+  __shared__ TwoLevelShared sh;
+
+  const int tid = threadIdx.x;
+  const size_t ray = (size_t)blockIdx.x * kBN + tid;
+  const Ray r = load_ray(o4, d4, (size_t)n, ray);
+  CoopCursor cur{0, 0};
+  WalkCounts cnt{0.f, 0.f, 0.f};
+  walk_flat_coop<true>(sh, r, true, bounds, e / kBT, mu, mv, mw, (size_t)e,
+                       tid, cur, cnt);
+  // Every merge into this ray's best ended at a barrier (walk_flat_coop).
+  t_out[ray] = sh.bt[tid];
+  idx_out[ray] = sh.be[tid];
 }
 
 // The parts of kernel 9's walk, each ending at a mark of LoopClocks.

@@ -3,15 +3,15 @@
 // closest_hit_rows_sc.cu, soft_occlusion.cu, march_step_sc.cu,
 // closest_hit_classic.cu, and the walks of the path kernels mega_step.cu
 // and fused_paths.cu): 256-ray blocks, chunks of 256 triangles staged in
-// shared memory. Kernel 8 sweeps a staged chunk a thread per ray
-// (stage_chunk); kernel 9 sweeps each chunk its block's gate passes for
+// shared memory. Kernel 9 sweeps each chunk its block's gate passes for
 // every ray of the block, on the cooperative votes and cp.async staging;
 // the others walk block-cooperatively, a warp per ray that needs a chunk:
-// the flat closest hit of kernels 1, 4, 10 and 11 (walk_flat_coop), the
-// two-level closest hit of kernels 3, 6 and 7 (walk_superchunk_coop), both
-// over coop_group_closest, the any-hit of kernels 2, 4 and 10
-// (walk_any_coop), and the soft-shadow arg-max of kernel 5
-// (soft_occlusion.cu, on the same votes and ballot lists).
+// the flat closest hit of kernels 1, 4, 8, 10 and 11 (walk_flat_coop;
+// kernel 8 with its strict gate), the two-level closest hit of kernels 3,
+// 6 and 7 (walk_superchunk_coop), both over coop_group_closest, the
+// any-hit of kernels 2, 4 and 10 (walk_any_coop), and the soft-shadow
+// arg-max of kernel 5 (soft_occlusion.cu, on the same votes and ballot
+// lists).
 //
 // Layouts (ops/intersect.py):
 //   rays     o4, d4  (4, N)  (o, 1) and (d, 0), N % 256 == 0
@@ -87,22 +87,6 @@ __device__ __forceinline__ void slab(const Ray& r,
   const float tz2 = (box[5 * nb + k] - r.oz) * r.rdz;
   tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-}
-
-// Every thread of the block copies its column of chunk c. The caller
-// brackets it with barriers.
-__device__ __forceinline__ void stage_chunk(ChunkRows& s_m,
-                                            const float* __restrict__ mu,
-                                            const float* __restrict__ mv,
-                                            const float* __restrict__ mw,
-                                            size_t e, int c, int tid) {
-  const size_t col = (size_t)c * kBT + tid;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s_m[k][tid] = mu[k * e + col];
-    s_m[4 + k][tid] = mv[k * e + col];
-    s_m[8 + k][tid] = mw[k * e + col];
-  }
 }
 
 // Triangle j of the staged chunk against `r`: t (w_d = 1 where
@@ -187,8 +171,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Starts the copy of chunk c's 12 rows into `dst`: each thread its column,
-// as stage_chunk, without waiting.
+// Starts the copy of chunk c's 12 rows into `dst`: each thread of the
+// block its column, without waiting.
 __device__ __forceinline__ void stage_chunk_async(
     ChunkRows& dst, const float* __restrict__ mu,
     const float* __restrict__ mv, const float* __restrict__ mw, size_t e,
@@ -376,7 +360,8 @@ __device__ __forceinline__ const ChunkRows& coop_rows(
 // for the chunks of a superchunk, walk_flat_coop for the flat chunks). A
 // ray needs chunk c when `live` holds (its superchunk's test passed; the
 // flat walk: the ray is not parked) and its own slab test against c's
-// inflated box passes (tmax >= tmin, tmax > 0, tmin <= its best t so far).
+// box passes (tmax >= tmin, tmax > 0, tmin <= its best t so far; with
+// kStrictGate, kernel 8's contract over the raw boxes, tmin < its best t).
 // Who sweeps a staged chunk:
 //   - the block lists the k rays that need the chunk (a ballot per warp;
 //     entry i is the i-th needing ray in ray order);
@@ -399,6 +384,7 @@ __device__ __forceinline__ const ChunkRows& coop_rows(
 // `chunk_sweeps` the chunks its block swept. A group whose vote finds no
 // candidate ends without a barrier after it: its only shared reads are
 // the vote words, which the next vote does not overwrite (CoopCursor).
+template <bool kStrictGate = false>
 __device__ __forceinline__ void coop_group_closest(
     TwoLevelShared& sh, const Ray& r, bool live, int c0, int gn,
     const float* __restrict__ chunk_bounds, int nc,
@@ -424,7 +410,8 @@ __device__ __forceinline__ void coop_group_closest(
     bool may = false;
     if (live) {
       slab(r, chunk_bounds, nc, c, tmin, tmax);
-      may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
+      may = (tmax >= tmin) && (tmax > 0.f) &&
+            (kStrictGate ? tmin < sh.bt[tid] : tmin <= sh.bt[tid]);
     }
     coop_ballot(sh.vote, cur, may, lane, warp);
     __syncthreads();  // the ballots, and chunk c's rows
@@ -527,17 +514,23 @@ __device__ __forceinline__ Best two_level_best(const TwoLevelShared& sh,
   return Best{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
 }
 
-// Flat closest-hit walk of kernels 1, 4, 10 and 11, block-cooperative:
+// Flat closest-hit walk of kernels 1, 4, 8, 10 and 11, block-cooperative:
 // the nc chunks in index order, in groups of 32 (coop_group_closest), from
 // no hit.
 // A ray needs chunk c when it is `live` and its own slab test against c's
-// inflated box passes before its best t so far (each gate sees the best
-// after the same earlier chunks as a walk of the chunks one by one would),
-// so the winner, `steps` (256 per chunk the ray needs) and `chunk_sweeps`
-// (the chunks some ray of the block needs) depend on neither the grouping
-// nor the block. A ray that is not live (a parked path of kernels 10 and
-// 11, whose every gate fails) casts no vote bit and is never listed; it
-// still takes part in every barrier.
+// box (inflated; kernel 8's raw) passes before its best t so far (each
+// gate sees the best after the same earlier chunks as a walk of the chunks
+// one by one would), so the winner, `steps` (256 per chunk the ray needs)
+// and `chunk_sweeps` (the chunks some ray of the block needs) depend on
+// neither the grouping nor the block. A ray that is not live (a parked
+// path of kernels 10 and 11, whose every gate fails) casts no vote bit and
+// is never listed; it still takes part in every barrier.
+// kStrictGate (kernel 8) cuts with tmin < best t instead of <=. Kernel 8
+// takes the chunk's arg-min (lowest t, then lowest index) and replaces the
+// best only where it is strictly lower, so an earlier chunk keeps a tie;
+// the merge here takes the lowest (t, eidx), and since the chunks come in
+// index order every eidx of chunk c is above the best's, so an equal t
+// never replaces it either: the same winner.
 // Every thread calls it with its own ray `r`; it stores r and no hit in
 // `sh` first (two_level_start), and the winner is read from `sh` after it
 // returns (two_level_best). The cursor `cur` is the caller's, so that
@@ -546,6 +539,7 @@ __device__ __forceinline__ Best two_level_best(const TwoLevelShared& sh,
 // from the last group of the bounce before. Every read of another ray's
 // o, d and best ends at the barrier after its sweep, so the next bounce's
 // two_level_start overwrites nothing still being read.
+template <bool kStrictGate = false>
 __device__ __forceinline__ void walk_flat_coop(
     TwoLevelShared& sh, const Ray& r, bool live,
     const float* __restrict__ bounds, int nc, const float* __restrict__ mu,
@@ -554,8 +548,9 @@ __device__ __forceinline__ void walk_flat_coop(
   const int lane = tid & 31, warp = tid >> 5;
   two_level_start(sh, r, tid, kMiss, 0);
   for (int c0 = 0; c0 < nc; c0 += 32) {
-    coop_group_closest(sh, r, live, c0, min(32, nc - c0), bounds, nc, mu, mv,
-                       mw, e, tid, lane, warp, cur, cnt);
+    coop_group_closest<kStrictGate>(sh, r, live, c0, min(32, nc - c0),
+                                    bounds, nc, mu, mv, mw, e, tid, lane,
+                                    warp, cur, cnt);
   }
 }
 

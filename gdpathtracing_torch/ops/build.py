@@ -52,10 +52,11 @@ def nvcc_path() -> str:
 
 
 # One library per source; closest_hit_classic.cu exports two entry points
-# (kernels 8 and 9).
+# (kernels 8 and 9); trace_bvh.cu is the BVH traversal (render/traverse.py).
 KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
            "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion",
-           "mega_step", "fused_paths", "march_step_sc", "closest_hit_classic")
+           "mega_step", "fused_paths", "march_step_sc", "closest_hit_classic",
+           "trace_bvh")
 
 _loaded: dict[str, Library] = {}
 

@@ -1195,17 +1195,27 @@ def _classic_plain(o4t, d4t, bounds, mu, mv, mw, block_gate: bool,
     ``block_gate``, every ray of a 256-ray block in which any passes. The
     chunk's lowest t (ties to the lowest index) replaces the best where it
     is strictly lower. Returns (t (N,) f32, idx (N,) int32); ``counts``,
-    when given, receives the ray-triangle tests swept (``"tests"``)."""
+    when given, receives the ray-triangle tests swept (``"tests"``), the
+    thread-slots of the kernel's mapping (``"slots"``: kernel 8's
+    block-cooperative walk, :func:`two_level_slots` of each chunk's gates;
+    kernel 9's block gate, its tests) and those of a thread per ray with
+    the block gate of kernel 8's rule (``"thread_slots"``: every lane of
+    a block on each chunk some ray of it needs)."""
     n = o4t.shape[1]
     o, d = o4t.unbind(0), d4t.unbind(0)
     rd = tuple(_rcp(x) for x in d[:3])
     best_t = torch.full((n,), _MISS, dtype=torch.float32, device=o4t.device)
     best_i = torch.zeros(n, dtype=torch.int64, device=o4t.device)
     lane = torch.arange(BT, device=o4t.device)
-    tests = 0
+    tests = slots = thread_slots = 0.0
     for c in range(mu.shape[1] // BT):
         tmin, tmax = _slab(bounds[:, c], *o[:3], *rd)
         may = (tmax >= tmin) & (tmax > 0.0) & (tmin < best_t)
+        if counts is not None:
+            block = _block_any(may)[::BN]
+            thread_slots += float(block.sum()) * BN * BT
+            slots += float(block.sum()) * BN * BT if block_gate \
+                else float(two_level_slots(may).sum())
         if block_gate:
             may = _block_any(may) > 0.0
         idx = torch.nonzero(may).squeeze(1)
@@ -1224,13 +1234,16 @@ def _classic_plain(o4t, d4t, bounds, mu, mv, mw, block_gate: bool,
         best_t[sel] = tk[better]
         best_i[sel] = k[better] + c * BT
     if counts is not None:
-        counts["tests"] = float(tests)
+        counts.update(tests=float(tests), slots=slots,
+                      thread_slots=thread_slots)
     return best_t, best_i.to(torch.int32)
 
 
 def closest_hit_classic_plain(o4t, d4t, bounds, mu, mv, mw, counts=None):
     """Plain version of csrc/closest_hit_classic.cu ``closest_hit_classic``
-    (kernel 8): only the rays whose own gate passes sweep a chunk."""
+    (kernel 8): only the rays whose own gate passes sweep a chunk (the
+    kernel lists them and sweeps each with a warp, or with their own
+    threads where the needing warps are nearly full)."""
     return _classic_plain(o4t, d4t, bounds, mu, mv, mw, False, counts)
 
 

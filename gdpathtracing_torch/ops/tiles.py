@@ -12,23 +12,29 @@ from a hit, and a shadow ray goes from a hit toward a sampled light point
 (NEE's query; kernel 5 takes those of the middle tile over soft-inflated
 boxes), as in a frame. The march rounds (:func:`march_rounds`) are
 those of regen's frontier march: the lanes in its sort order, queued by
-its own candidate scan and block queues.
+its own candidate scan and block queues. The BVH traversal's tiles
+(:func:`bvh_tiles`) add rays that meet its corner cases: axis-aligned rays
+on box planes (:func:`axis_aligned_rays`) and stacks too shallow for the
+scene.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.core.vec import Vec3
 from gdpathtracing_torch.ops import fused as fu
 from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.render import brdf
 from gdpathtracing_torch.render.integrator import sample_direct
 from gdpathtracing_torch.render.regen import march_lane_key
 from gdpathtracing_torch.render.shading import get_shading_data
+from gdpathtracing_torch.render.traverse import trace_bvh_plain
 from gdpathtracing_torch.render.types import Ray
 
 W, H = 1920, 1080
@@ -228,3 +234,95 @@ def march_rounds(prep: ti.TracePrep, primary: Ray, bounce: Ray, active,
                        queue(bss)),
             MarchRound("primary rays, every superchunk queued", o4t, d4t,
                        no_winner(), every)]
+
+
+class BvhTile(NamedTuple):
+    """A tile of the BVH traversal: the arguments of
+    ``render.traverse.trace_bvh`` after the scene."""
+    ray: Ray
+    active: torch.Tensor | None
+    max_stack: int
+    max_iters: int
+
+
+def _subtree(left, right, count, root: int) -> list[int]:
+    """The BLAS nodes under ``root`` (numpy node tables)."""
+    out, todo = [], [root]
+    while todo:
+        k = todo.pop()
+        out.append(k)
+        if count[k] == 0:
+            todo += [int(left[k]), int(right[k])]
+    return out
+
+
+def axis_aligned_rays(scene, n: int, seed: int = 0) -> Ray:
+    """``n`` rays along +-x, +-y or +-z (the other two components exactly
+    0), each starting outside a box on one of its planes: half the boxes
+    TLAS nodes (world space), half BLAS nodes of instances whose inverse
+    transform maps that axis to itself exactly (so the object-space origin
+    lies on the plane too), from a numpy seed. The unguarded 1/d is inf
+    there, (plane - o) * inf is 0 * inf = NaN, and the slab test must miss
+    the box as the reference's does."""
+    g = np.random.default_rng(seed)
+    tmin, tmax = (x.detach().cpu().numpy() for x in (scene.tlas_min,
+                                                       scene.tlas_max))
+    nt = tmin.shape[0]
+    boxes = [(np.repeat(tmin, 3, axis=0), np.repeat(tmax, 3, axis=0),
+              np.tile(np.arange(3), nt))]
+    inv = scene.inst_inv_transform.detach().cpu().numpy()
+    left, right, count, nmin, nmax = (x.detach().cpu().numpy() for x in (
+        scene.node_left, scene.node_right, scene.node_count, scene.node_min,
+        scene.node_max))
+    roots = scene.inst_root.detach().cpu().numpy()
+    blas = [(nmin[ks], nmax[ks], np.full(len(ks), a))
+            for i in range(inv.shape[0]) for a in range(3)
+            if np.array_equal(inv[i, a], np.eye(3, 4)[a])
+            for ks in [_subtree(left, right, count, int(roots[i]))]]
+    pools = [tuple(np.concatenate(x) for x in zip(*p)) for p in
+             (boxes, blas) if p]
+    which = np.arange(n) % len(pools)  # TLAS, BLAS, TLAS, ...
+    lo, hi = np.empty((n, 3)), np.empty((n, 3))
+    a = np.empty(n, np.int64)
+    for w, (plo, phi, pa) in enumerate(pools):
+        sel = which == w
+        k = g.integers(len(pa), size=int(sel.sum()))
+        lo[sel], hi[sel], a[sel] = plo[k], phi[k], pa[k]
+    b = (a + 1 + g.integers(2, size=n)) % 3
+    c = 3 - a - b
+    sign = g.choice([-1.0, 1.0], size=n)
+    j = np.arange(n)
+    o = np.zeros((3, n), np.float32)
+    d = np.zeros((3, n), np.float32)
+    o[a, j] = np.where(g.uniform(size=n) < 0.5, lo[j, a], hi[j, a])
+    o[c, j] = g.uniform(lo[j, c], hi[j, c])
+    o[b, j] = np.where(sign > 0, lo[j, b] - 1.0, hi[j, b] + 1.0)
+    d[b, j] = sign
+    dev = scene.tri_pos.device
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    return Ray(Vec3(*o.unbind(0)), Vec3(*d.unbind(0)))
+
+
+def bvh_tiles(scene, cam, cfg: RenderConfig, n: int | None = None
+              ) -> dict[str, BvhTile]:
+    """The BVH traversal's tiles, by name: the camera rays of the ``n``
+    pixels (``cfg.tile_rays`` by default) around the middle of the frame
+    and one BRDF bounce from their hits (the traversal's own, shaded by
+    triangle and instance), with ``cfg.max_stack``; those primary rays
+    with stacks
+    of 2 (overflowing: a pop past the stack re-reads its top entry, so
+    rays may cycle to the iteration cap, 256 pops here) and of 96 (deeper
+    than the kernel's local stack); and ``n`` axis-aligned rays on box
+    planes (:func:`axis_aligned_rays`)."""
+    n = cfg.tile_rays if n is None else n
+    first = (H // 2) * W + W // 2 - n // 2  # the frame's centre pixel
+    primary, seed = camera_rays(cam, cfg, n, first, scene.tri_pos.device)
+    hit = trace_bvh_plain(scene, primary, None, cfg.max_stack)
+    s = get_shading_data(scene, hit, primary, fast=False)
+    bounce, active = bounce_rays(s, hit, seed, cfg)
+    return {"primary": BvhTile(primary, None, cfg.max_stack, 1 << 20),
+            "bounce 1": BvhTile(bounce, active, cfg.max_stack, 1 << 20),
+            "primary, max_stack 2": BvhTile(primary, None, 2, 256),
+            "primary, max_stack 96": BvhTile(primary, None, 96, 1 << 20),
+            "axis-aligned": BvhTile(axis_aligned_rays(scene, n), None,
+                                    cfg.max_stack, 1 << 20)}

@@ -1,10 +1,14 @@
 """The path-tracing integrator: bounce loop over a ray wavefront.
 
 Port of the standard loop of gdpathtracing_tpu/render/integrator.py for
-``Traversal.PALLAS``: ``lax.fori_loop`` becomes a Python loop over bounces,
-and the reference's reorderings are kept: on large scenes a per-bounce
-stable sort of the wavefront by the Morton cell of the ray origin and the
-octant of its direction, otherwise group-granular survivor compaction,
+``Traversal.PALLAS`` and ``Traversal.BVH`` (the two backends of the
+reference's ``get_trace_fn`` that the port has: ops/intersect.py
+``trace_pallas``, or render/traverse.py ``trace_bvh`` with
+``config.max_stack``): ``lax.fori_loop`` becomes a Python loop over
+bounces, and the reference's reorderings are kept: on large PALLAS scenes
+a per-bounce stable sort of the wavefront by the Morton cell of the ray
+origin and the octant of its direction (or wherever ``sort_rays=True``
+asks for it), otherwise, on PALLAS, group-granular survivor compaction,
 each with the final unsort. Light transport is the reference's: BRDF
 importance sampling, ``radiance += throughput * emission`` per segment, sky
 on a miss, a hard bounce cap and a ray-origin offset along the shading
@@ -12,11 +16,16 @@ normal. With ``config.nee`` each hit also samples an emitter (next-event
 estimation) and the two strategies are weighted by the power heuristic
 (MIS).
 
-On a flat scene NEE runs the reference's fused form: bounce i's shadow
-query only gates an additive radiance term, so it is resolved by bounce
-i+1's closest-hit launch (ops/intersect.py ``trace_occlude_pallas``,
-kernel 4), and one trailing any-hit launch (``occluded_pallas``, kernel 2)
-resolves the last bounce's. The radiance accumulates in the same order as
+With BVH, as in the reference, a hit is shaded by triangle and instance
+(render/shading.py's gather path) and NEE's shadow query is a closest hit
+of its own, visible where nothing is hit before the light (``t <
+dist·(1 - 1e-3)`` fails), with or without ``soft_shadows``.
+
+On a flat PALLAS scene NEE runs the reference's fused form: bounce i's
+shadow query only gates an additive radiance term, so it is resolved by
+bounce i+1's closest-hit launch (ops/intersect.py
+``trace_occlude_pallas``, kernel 4), and one trailing any-hit launch
+(``occluded_pallas``, kernel 2) resolves the last bounce's. The radiance accumulates in the same order as
 resolving each query at once would (emission_i, direct_i, emission_i+1,
 ...). On a superchunk scene, as in the reference, each bounce's shadow
 rays are resolved at once by their own any-hit launch.
@@ -52,6 +61,7 @@ from gdpathtracing_torch.ops.megakernel import mega_supported, path_trace_mega
 from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
+from gdpathtracing_torch.render.traverse import trace_bvh
 from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
 
@@ -90,17 +100,24 @@ def check_path_kernel(scene: Scene, config: RenderConfig) -> None:
 
 
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """The transport the frame loops render: ``Traversal.PALLAS`` without
-    Russian roulette or transmission, or the path kernels (MEGA, FUSED)
-    within their gates (:func:`check_path_kernel`; MEGA runs Russian
-    roulette in its kernel)."""
+    """The transport the frame loops render: ``Traversal.PALLAS`` or
+    ``Traversal.BVH`` (primal only) without Russian roulette or
+    transmission, or the path kernels (MEGA, FUSED) within their gates
+    (:func:`check_path_kernel`; MEGA runs Russian roulette in its
+    kernel)."""
     if config.traversal in (Traversal.MEGA, Traversal.FUSED):
         check_path_kernel(scene, config)
         return
-    if config.traversal != Traversal.PALLAS:
-        oracle = config.traversal in (Traversal.BRUTE, Traversal.UNIT)
-        not_ported(f"Traversal.{config.traversal.name}",
-                   3 if oracle else 4)
+    if config.traversal in (Traversal.BRUTE, Traversal.UNIT):
+        not_ported(f"Traversal.{config.traversal.name}", 3)
+    if config.traversal == Traversal.BVH and config.differentiable:
+        raise ValueError(
+            "BVH traversal has no gradient in this port (its kernel is not "
+            "differentiated); the reference renders it, but a gradient that "
+            "reaches the geometry or the camera through trace_bvh's "
+            "lax.while_loop raises there (reverse-mode differentiation does "
+            "not work for lax.while_loop), and only material gradients "
+            "pass; use PALLAS with differentiable=True")
     if config.rr_start > 0:
         not_ported("Russian roulette (rr_start > 0)", 3)
     if scene.has_transmission:
@@ -257,7 +274,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
                far: float = 1000.0) -> PathTraceResult:
     """Trace one path per ray; all rays advance in lockstep through the
     bounce loop under an `active` mask. ``prep`` is the scene's
-    :func:`prepare_trace_inputs` (built here when not given).
+    :func:`prepare_trace_inputs` (built here when not given; BVH needs
+    none).
 
     With ``config.differentiable`` the kernels find hits on detached inputs
     and the hit records are recomputed from the live scene
@@ -279,19 +297,26 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         return path_trace_fused(scene, ray, seed, config, prep, far=far)
     if config.traversal == Traversal.MEGA:
         return path_trace_mega(scene, ray, seed, config, prep, far=far)
-    if prep is None:
+    bvh = config.traversal == Traversal.BVH
+    if prep is None and not bvh:
         prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     diff = config.differentiable
     use_nee = config.nee and scene.n_lights > 0
-    soft_shadows = config.soft_shadows > 0.0
-    fuse_nee = use_nee and not prep.superchunks and not soft_shadows
+    # BVH resolves shadows with its hard closest-hit query, soft or not.
+    soft_shadows = config.soft_shadows > 0.0 and not bvh
+    fuse_nee = use_nee and not bvh and not prep.superchunks \
+        and not soft_shadows
     # The differentiable path reads emitters from the live scene, so light
     # sampling and the MIS weights carry emission and geometry gradients.
-    table = (lights.build_light_table(scene) if diff else prep.lights) \
-        if use_nee else None
-    trace = trace_pallas_diff if diff else trace_pallas
+    table = (lights.build_light_table(scene) if diff or bvh
+             else prep.lights) if use_nee else None
+    if bvh:
+        def trace(scene, ray, active, prep):
+            return trace_bvh(scene, ray, active, max_stack=config.max_stack)
+    else:
+        trace = trace_pallas_diff if diff else trace_pallas
     trace_occlude = trace_occlude_pallas_diff if diff \
         else trace_occlude_pallas
     sampled = _sampled(config)
@@ -300,20 +325,26 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         return soft_occluded_pallas(scene, shadow, tmax, active,
                                     config.soft_shadows, prep)
 
-    # Per-bounce sort (large scenes, where the per-block culling needs
-    # coherent blocks after a diffuse bounce) or group-granular survivor
-    # compaction (a stable partition of 128-ray groups by any-live, so dead
-    # groups pack into tail blocks whose slab tests all fail). The sort
-    # keys dead rays last, so it takes the place of compaction. Per-ray
-    # results do not depend on the order.
+    def bvh_visibility(shadow, tmax, active):
+        return (~(trace(scene, shadow, active, prep).t < tmax)).to(
+            torch.float32)
+
+    # Per-bounce sort (large PALLAS scenes, where the per-block culling
+    # needs coherent blocks after a diffuse bounce; any traversal where
+    # sort_rays=True) or group-granular survivor compaction (PALLAS: a
+    # stable partition of 128-ray groups by any-live, so dead groups pack
+    # into tail blocks whose slab tests all fail). The sort keys dead rays
+    # last, so it takes the place of compaction. Per-ray results do not
+    # depend on the order.
     sort_rays = config.sort_rays
     if sort_rays is None:
-        sort_rays = scene.isect_mu.shape[1] > 128 * 256
+        sort_rays = not bvh and scene.isect_mu.shape[1] > 128 * 256
     compact = config.compact_rays
     if compact is None:
         compact = not sort_rays and n >= 65536
     cg = _compaction_group(n)
-    compact = bool(compact) and not sort_rays and cg is not None
+    compact = bool(compact) and not sort_rays and cg is not None \
+        and not bvh
     reorder = bool(sort_rays) or compact
     if sort_rays:
         cell_lo, cell_span = morton_frame(scene.detach())
@@ -376,7 +407,7 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         steps = steps + torch.where(active, hit.steps, 0)
         segments = segments + active.to(torch.int32)
 
-        s = get_shading_data(scene, hit, r)
+        s = get_shading_data(scene, hit, r, fast=not bvh)
         sky = sample_sky(ray_d, config, scene)
         if config.soft_primary > 0.0 and i == 0:
             # The primary silhouette relaxed (SoftRas-style): the winner's
@@ -407,11 +438,12 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         if use_nee:
             dl, seed = sample_direct(
                 s, throughput, is_hit, seed, table, config,
-                soft_visibility if soft_shadows else None)
+                soft_visibility if soft_shadows
+                else bvh_visibility if bvh else None)
             segments = segments + dl.active.to(torch.int32)
             if fuse_nee:
                 pend = dl
-            elif soft_shadows:
+            elif soft_shadows or bvh:
                 radiance = vwhere(active, radiance + dl.direct, radiance)
             else:
                 # Hard visibility has no derivative almost everywhere: the

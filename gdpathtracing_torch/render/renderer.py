@@ -6,9 +6,11 @@ same AOVs as the JAX version: through the path-regeneration loop
 (render/regen.py) when ``config.regen`` asks for it or, as ``None``, by the
 reference's auto policy (every primal PALLAS render); otherwise through the
 standard loop in tiles of ``config.tile_rays`` rays (``lax.map`` over tiles
-becomes a Python loop), where each tile's ``path_trace`` runs the PALLAS
-bounce loop or, for ``Traversal.MEGA`` and ``Traversal.FUSED``, the path
-kernels (one launch a bounce, or one a tile). A differentiable render
+becomes a Python loop), where each tile's ``path_trace`` runs the PALLAS or
+BVH bounce loop (BVH, the default ``RenderConfig()``'s traversal, always
+takes the standard loop) or, for ``Traversal.MEGA`` and
+``Traversal.FUSED``, the path kernels (one launch a bounce, or one a
+tile). A differentiable render
 always takes the standard loop; its radiance carries the autograd graph
 back to the scene and camera tensors. ``render`` adds the ACES tonemap.
 """
@@ -19,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from gdpathtracing_torch.config import RenderConfig
+from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.post.tonemap import aces_film
 from gdpathtracing_torch.render.camera import Camera
@@ -41,9 +43,10 @@ class FrameAOVs(NamedTuple):
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
     """Trace the full frame on ``scene.device``. Only the ported slice
-    renders (``Traversal.PALLAS``, ``MEGA`` and ``FUSED``, see ROADMAP); any
-    other config raises NotImplementedError naming its ROADMAP item, and
-    MEGA or FUSED outside their gates raise ValueError."""
+    renders (``Traversal.PALLAS``, ``BVH``, ``MEGA`` and ``FUSED``, see
+    ROADMAP); any other config raises NotImplementedError naming its
+    ROADMAP item, and MEGA or FUSED outside their gates, a differentiable
+    BVH render and ``regen=True`` with BVH raise ValueError."""
     if config.regen is not False:
         if config.regen and not regen_supported(scene, config):
             raise ValueError("config.regen requires a primal "
@@ -70,7 +73,8 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
             bwd_checkpoint=resid > config.bwd_resid_budget)
 
     pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
-    prep = prepare_trace_inputs(scene)
+    prep = None if config.traversal == Traversal.BVH \
+        else prepare_trace_inputs(scene)
     frame_index = int(frame_index)
 
     outs = []
@@ -113,8 +117,8 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
 def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,
            frame_index: int = 0) -> torch.Tensor:
     """One-shot convenience: trace + ACES tonemap → (H, W, 3) in [0, 1].
-    The default config is the JAX default (BVH), which raises here: pass
-    ``RenderConfig(traversal=Traversal.PALLAS)``."""
+    The default config is the JAX default (``Traversal.BVH``, through the
+    standard loop)."""
     config = config or RenderConfig()
     aovs = render_radiance(scene, camera, config, frame_index)
     return aces_film(aovs.radiance)

@@ -1,19 +1,21 @@
 """Hit → shading data.
 
-Port of ``get_shading_data`` (its two PALLAS forms),
-``get_shading_data_fast``, ``shading_from_rows`` and
-``sample_texture_array`` of gdpathtracing_tpu/render/shading.py. After a
-rows kernel everything a hit needs (normals, uvs, material values) arrives
-pre-selected in ``hit.rows`` (ops/intersect.py ``build_trace_table``
-layout) and only textured scenes gather; after the superchunk lite kernel
-(``rows`` is None) shading gathers one packed triangle row and one
-material row per hit.
+Port of ``get_shading_data``, ``get_shading_data_fast``,
+``shading_from_rows`` and ``sample_texture_array`` of
+gdpathtracing_tpu/render/shading.py. After a rows kernel everything a hit
+needs (normals, uvs, material values) arrives pre-selected in ``hit.rows``
+(ops/intersect.py ``build_trace_table`` layout) and only textured scenes
+gather; after the superchunk lite kernel (``rows`` is None) shading
+gathers one packed triangle row and one material row per hit; after the
+BVH traversal (``fast=False``: no expanded-triangle index) it gathers by
+triangle and instance, as the reference's own gather path does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gdpathtracing_torch.core.math3d import affine_apply_dir
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
@@ -124,12 +126,58 @@ def _finish(ray, t, normal, albedo, emission, metallic, roughness,
         albedo=albedo)
 
 
-def get_shading_data(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:
-    """Shading of a PALLAS hit: from the winner rows where the kernel
-    wrote them, else by the gathers of :func:`get_shading_data_fast`."""
+def get_shading_data(scene: Scene, hit: HitInfo, ray: Ray,
+                     fast: bool = True) -> ShadingInfo:
+    """Shading of a hit: from the winner rows where a kernel wrote them;
+    else, with ``fast`` (a PALLAS hit, which carries its expanded-triangle
+    index), by the gathers of :func:`get_shading_data_fast`; else (a BVH
+    hit) by triangle and instance. ``fast`` is the reference's switch,
+    which its integrator sets for PALLAS; the reference defaults it to
+    False, the port to True, since every caller but the BVH loop shades a
+    PALLAS hit."""
     if hit.rows is not None:
         return shading_from_rows(scene, hit, ray)
-    return get_shading_data_fast(scene, hit, ray)
+    if fast:
+        return get_shading_data_fast(scene, hit, ray)
+    tri = hit.tri.long()
+    inst = hit.inst.long()
+    # The surface's material through its instance's material table (one
+    # mesh, many materials).
+    slot = torch.clamp(scene.tri_slot[tri].long(),
+                       max=scene.inst_materials.shape[1] - 1)
+    mat = scene.inst_materials[inst, slot].long()
+    tf = scene.inst_transform[inst]  # (N, 3, 4)
+
+    u, v = hit.u, hit.v
+    w = 1.0 - u - v
+    nrm = scene.tri_normal[tri]  # (N, 3, 3)
+    n_obj = Vec3(
+        nrm[..., 0, 0] * w + nrm[..., 1, 0] * u + nrm[..., 2, 0] * v,
+        nrm[..., 0, 1] * w + nrm[..., 1, 1] * u + nrm[..., 2, 1] * v,
+        nrm[..., 0, 2] * w + nrm[..., 1, 2] * u + nrm[..., 2, 2] * v,
+    )
+    uvs = scene.tri_uv[tri]  # (N, 3, 2)
+    uv_u = uvs[..., 0, 0] * w + uvs[..., 1, 0] * u + uvs[..., 2, 0] * v
+    uv_v = uvs[..., 0, 1] * w + uvs[..., 1, 1] * u + uvs[..., 2, 1] * v
+    normal = affine_apply_dir(tf, n_obj).normalize(eps=1e-20)
+    normal = vwhere(hit.front, normal, -normal)
+
+    albedo = Vec3.from_array(scene.mat_albedo[mat])
+    if scene.has_textures:
+        albedo = albedo * sample_texture_array(scene.textures,
+                                               scene.mat_tex[mat], uv_u, uv_v)
+    energy = torch.clamp(scene.mat_emission_energy[mat], min=0.0)
+    em = scene.mat_emission[mat]
+    emission = Vec3(em[:, 0] * energy, em[:, 1] * energy, em[:, 2] * energy)
+    metallic = scene.mat_metallic[mat]
+    roughness = scene.mat_roughness[mat]
+    if scene.has_mr_textures:
+        mr_idx = scene.mat_mr_tex[mat]
+        mr = sample_texture_array(scene.textures, mr_idx, uv_u, uv_v)
+        roughness = torch.where(mr_idx >= 0, roughness * mr.y, roughness)
+        metallic = torch.where(mr_idx >= 0, metallic * mr.z, metallic)
+    return _finish(ray, hit.t, normal, albedo, emission, metallic, roughness,
+                   scene.mat_transmission[mat], scene.mat_ior[mat])
 
 
 def shading_from_rows(scene: Scene, hit: HitInfo, ray: Ray) -> ShadingInfo:

@@ -17,6 +17,11 @@ class Ray(NamedTuple):
     o: Vec3
     d: Vec3
 
+    def rcp_d(self) -> Vec3:
+        """1/d, unguarded: a zero component gives inf (as in the
+        reference, whose slab test then yields NaN on a box plane)."""
+        return Vec3(1.0 / self.d.x, 1.0 / self.d.y, 1.0 / self.d.z)
+
     def at(self, t) -> Vec3:
         return self.o + self.d * t
 
@@ -40,6 +45,21 @@ class HitInfo(NamedTuple):
     eidx: torch.Tensor    # i32 — expanded-triangle index
     rows: torch.Tensor | None = None  # (48, N) packed winner rows
     #                       (ops/intersect.py build_trace_table layout)
+
+    @classmethod
+    def none(cls, shape, device=None) -> "HitInfo":
+        """Miss record of ``shape``: t = MISS_T, eidx = -1 (the backend
+        tracks no expanded-triangle index), everything else zero."""
+        z = torch.zeros(shape, dtype=torch.float32, device=device)
+        zi = torch.zeros(shape, dtype=torch.int32, device=device)
+        return cls(t=z + MISS_T, tri=zi, inst=zi, u=z, v=z,
+                   front=torch.zeros(shape, dtype=torch.bool, device=device),
+                   steps=zi, eidx=zi - 1)
+
+    @classmethod
+    def none_like(cls, ref: torch.Tensor) -> "HitInfo":
+        """Miss record of ``ref``'s shape on its device."""
+        return cls.none(ref.shape, ref.device)
 
     @property
     def hit(self) -> torch.Tensor:

@@ -232,3 +232,57 @@ def test_wrappers_check_operands():
         with pytest.raises(ValueError, match="requires grad"):
             fn(o4t.clone().requires_grad_(True), d4t, cb, prep.mu, prep.mv,
                prep.mw)
+
+
+# (copies of one ray in each of the first `warps` warps of block 0, the
+# thread-slots kernel 8's cooperative walk spends per chunk the ray needs,
+# counted by hand): k needing rays in nw warps are swept by their own
+# threads where 8k > 7 * 32 * nw (nw x 32 lanes x 256 triangles), else a
+# warp per ray (ceil(k / 8) rounds x 8 warps x 32 lanes x 8 triangles).
+SLOT_CASES = [(1, 1, 1 * 2048),      # one ray: one round of warp sweeps
+              (28, 1, 4 * 2048),     # 224 = 7/8 of 256: still warps
+              (29, 1, 1 * 32 * 256),  # past 7/8: the warp's own threads
+              (28, 8, 28 * 2048),    # 8k = 7 * 32 * 8 exactly: warps
+              (29, 8, 8 * 32 * 256)]  # past it: every thread sweeps
+
+
+@pytest.mark.parametrize("per_warp, warps, per_chunk", SLOT_CASES)
+def test_classic_cooperative_slots(per_warp, warps, per_chunk):
+    """Kernel 8's plain version counts the thread-slots of its
+    block-cooperative walk on a hand-built tile: block 0 holds copies of
+    one camera ray that hits (per_warp in each of its first ``warps``
+    warps, the rest parked), block 1 only parked rays. Every copy needs
+    the same chunks, c of them (its tests / 256), so the walk spends
+    c x per_chunk slots, where a thread per ray spends c x 256 x 256; the
+    copies all find the ray's own winner."""
+    s = build_demo_scene(texture_resolution=8, sphere_detail=6, device="cpu")
+    prep = ti.prepare_trace_inputs(s)
+    pids = torch.arange(16 * 16)
+    ray, _ = demo_camera(16, 16).generate_rays(
+        pids, rng.prng_seed(pids % 16, pids // 16, 1), RenderConfig())
+    o4, d4 = ti.pack_rays(ray)
+    geo = (s.isect_chunk_bounds.contiguous(), prep.mu, prep.mv, prep.mw)
+    t0, i0 = ti.closest_hit_classic_plain(o4, d4, *geo)
+    r = int(torch.nonzero(t0 < MISS_T)[len(torch.nonzero(t0 < MISS_T)) // 2])
+    lanes = torch.tensor([w * 32 + j for w in range(warps)
+                          for j in range(per_warp)])
+    po4, pd4 = ti.pack_rays(ray, torch.zeros(pids.numel(), dtype=torch.bool))
+    o4t, d4t = torch.cat([po4, po4], 1), torch.cat([pd4, pd4], 1)
+    o4t[:, lanes], d4t[:, lanes] = o4[:, r:r + 1], d4[:, r:r + 1]
+    one = {}
+    ti.closest_hit_classic_plain(o4[:, r:r + 1].repeat(1, ti.BN),
+                                 d4[:, r:r + 1].repeat(1, ti.BN), *geo,
+                                 counts=one)
+    chunks = one["tests"] / ti.BN / ti.BT
+    assert chunks >= 1 and chunks == int(chunks)
+    counts = {}
+    t, idx = ti.closest_hit_classic_plain(o4t.contiguous(),
+                                          d4t.contiguous(), *geo,
+                                          counts=counts)
+    assert counts["tests"] == per_warp * warps * chunks * ti.BT
+    assert counts["slots"] == chunks * per_chunk
+    assert counts["thread_slots"] == chunks * ti.BN * ti.BT
+    assert (t[lanes] == t0[r]).all() and (idx[lanes] == i0[r]).all()
+    rest = torch.ones(2 * ti.BN, dtype=torch.bool)
+    rest[lanes] = False
+    assert (t[rest] == MISS_T).all()

@@ -1381,3 +1381,185 @@ def test_closest_hit_loop_kernel_adversarial(scene, kind, n):
         assert not any(i in (1 * ti.BT + 200,
                              (args[2].shape[1] - 1) * ti.BT + 100)
                        for i in won)
+
+
+def _classic_set(s, prep, kind, n):
+    """Kernel 8's operands on the demo (rays on the card, the raw chunk
+    boxes, the rows) for an adversarial set, from a numpy seed, and for
+    tmin_at_best the lanes of the target ray and its winner (else None):
+    - ties, one_live: kernel 9's sets (_loop_set): equal t within a chunk
+      and across chunks; one passing ray in each block;
+    - tmin_at_best: a ray R along -z is put in every block (among random
+      rays); a copy of R's winning triangle, moved to make its t a few ulp
+      lower, takes a slot of the last chunk, whose raw box is cut so that
+      R's slab test gives tmin exactly R's best t. The strict gate skips
+      that chunk, so R keeps its winner; a <= gate would sweep it and find
+      the copy;
+    - no_need: the odd blocks' rays far outside the room pointing away
+      (no ray of the block needs any chunk), random rays in the others;
+    - dense: every block's 256 rays within 1e-4 of one random ray, so the
+      needing warps are full and the rays' own threads sweep."""
+    if kind in ("ties", "one_live"):
+        return _loop_set(s, prep, kind, n)[0], None
+    g = np.random.default_rng({"tmin_at_best": 61, "no_need": 62,
+                               "dense": 63}[kind])
+    bounds = s.isect_chunk_bounds.clone()
+    mu, mv, mw = prep.mu, prep.mv, prep.mw
+    o = g.uniform(-2.5, 2.5, (3, n))
+    d = g.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    focus = None
+    if kind == "no_need":
+        away = (np.arange(n) // ti.BN) % 2 == 1
+        o[:, away] = 50.0
+        d[:, away] = 0.5773503
+    elif kind == "dense":
+        # Each block's ray: a random one that hits.
+        t0, _ = ti.closest_hit_classic_plain(*_packed(o, d, n), bounds, mu,
+                                             mv, mw)
+        hits = np.flatnonzero(t0.cpu().numpy() < ti._MISS)
+        base = np.repeat(g.choice(hits, n // ti.BN), ti.BN)
+        o = o[:, base] + g.uniform(-1e-4, 1e-4, (3, n))
+        d = d[:, base] + g.uniform(-1e-4, 1e-4, (3, n))
+        d /= np.linalg.norm(d, axis=0, keepdims=True)
+    else:
+        o4, d4 = _packed(o, d, n)
+        lanes = torch.arange(0, n, ti.BN, device="cuda") \
+            + torch.from_numpy(g.integers(0, ti.BN, n // ti.BN)).cuda()
+        nc = bounds.shape[1]
+        for _ in range(100):  # a ray along -z that hits before the last chunk
+            r_o = torch.tensor([*g.uniform(-1.5, 1.5, 2), 5.0],
+                               dtype=torch.float32, device="cuda")
+            o4[:3, lanes] = r_o[:, None]
+            d4[:3, lanes] = torch.tensor([[0.0], [0.0], [-1.0]],
+                                         device="cuda")
+            t0, i0 = ti.closest_hit_classic_plain(o4, d4, bounds, mu, mv, mw)
+            t_r, i_r = float(t0[lanes[0]]), int(i0[lanes[0]])
+            if t_r < ti._MISS and i_r // ti.BT < nc - 1:
+                break
+        mu, mv, mw = mu.clone(), mv.clone(), mw.clone()
+        dst = (nc - 1) * ti.BT + 7
+        for x in (mu, mv, mw):
+            x[:, dst] = x[:, i_r]
+        # On this ray w_d = -mw[2] and t = w_o / mw[2]: nudge w_o's
+        # constant term against mw[2]'s sign until the copy's t is lower.
+        one = (o4[:, lanes[:1]], d4[:, lanes[:1]])
+        step = -1e-7 if float(mw[2, i_r]) > 0 else 1e-7
+        for k in range(1, 64):
+            mw[3, dst] = mw[3, i_r] + k * step
+            u, v, t, _, _ = ti._uvt([dst], mu, mv, mw, tuple(one[0]),
+                                    tuple(one[1]))
+            if float(t) < t_r:
+                break
+        assert 0 < float(t) < t_r and float(u) >= 0 and float(v) >= 0 \
+            and float(u + v) <= 1
+        # The last chunk's raw box: R's tmin (oz - box max z, in float32)
+        # is exactly t_r.
+        oz, tr = np.float32(r_o[2].item()), np.float32(t_r)
+        z = np.float32(oz - tr)
+        for _ in range(64):
+            if np.float32(oz - z) == tr:
+                break
+            z = np.nextafter(z, np.float32(-10.0 if np.float32(oz - z) < tr
+                                           else 10.0))
+        assert np.float32(oz - z) == tr
+        bounds[0:3, nc - 1] = torch.tensor(
+            [r_o[0].item() - 0.01, r_o[1].item() - 0.01, float(z) - 1.0],
+            device="cuda")
+        bounds[3:6, nc - 1] = torch.tensor(
+            [r_o[0].item() + 0.01, r_o[1].item() + 0.01, float(z)],
+            device="cuda")
+        focus = (lanes, i_r, dst)
+        return (o4, d4, bounds.contiguous(), mu, mv, mw), focus
+    o4, d4 = _packed(o, d, n)
+    return (o4, d4, bounds.contiguous(), mu, mv, mw), focus
+
+
+@pytest.mark.parametrize("n", [256, 262144])
+@pytest.mark.parametrize("kind", ["ties", "tmin_at_best", "one_live",
+                                  "no_need", "dense"])
+def test_closest_hit_classic_kernel_adversarial(scene, kind, n):
+    """Kernel 8 (the flat cooperative walk with the strict gate over the raw
+    boxes) against its plain version on the adversarial sets of
+    _classic_set: t bit for bit, idx equal; tied triangles go to the lower
+    index across chunks too; a chunk whose tmin equals a ray's best t is
+    not swept; blocks that need nothing find nothing; dense blocks sweep
+    on their rays' own threads."""
+    s, prep = _demo_cuda(scene)
+    args, focus = _classic_set(s, prep, kind, n)
+    before = ti.closest_hit_classic.launches
+    t, idx = ti.closest_hit_classic(*args)
+    torch.cuda.synchronize()
+    assert ti.closest_hit_classic.launches == before + 1
+    counts = {}
+    want_t, want_i = ti.closest_hit_classic_plain(*args, counts=counts)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(idx, want_i)
+    assert bool((t < ti._MISS).any())
+    assert bool((t[args[0][0] > 1e8] == ti._MISS).all())
+    if kind == "ties":
+        lower = {1 * ti.BT + 10, 2 * ti.BT + 30}
+        won = idx[:n // 2][t[:n // 2] < ti._MISS].tolist()
+        assert sum(i in lower for i in won) > 0.8 * len(won)
+        assert not any(i in (1 * ti.BT + 200,
+                             (args[2].shape[1] - 1) * ti.BT + 100)
+                       for i in won)
+    elif kind == "tmin_at_best":
+        lanes, i_r, dst = focus
+        assert bool((idx[lanes] == i_r).all())
+        # Were the chunk swept, the copy would win: grow its box.
+        grown = args[2].clone()
+        grown[0:3, -1] -= 10.0
+        grown[3:6, -1] += 10.0
+        _, i_g = ti.closest_hit_classic_plain(args[0], args[1],
+                                              grown.contiguous(), *args[3:])
+        assert bool((i_g[lanes] == dst).all())
+    elif kind == "no_need":
+        away = (torch.arange(n, device="cuda") // ti.BN) % 2 == 1
+        assert bool((t[away] == ti._MISS).all())
+    elif kind == "dense":
+        assert counts["slots"] <= 1.05 * counts["tests"]
+
+
+@pytest.fixture(scope="module")
+def bvh_scenes():
+    """The demo and the bench grid (n=10) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from gdpathtracing_torch.scene.demo import (build_sphere_grid,
+                                                grid_camera)
+    return {"demo": (build_demo_scene(texture_resolution=8, sphere_detail=6,
+                                      device="cuda"), demo_camera(1920, 1080)),
+            "grid": (build_sphere_grid(n=10, sphere_detail=16,
+                                       device="cuda"),
+                     grid_camera(1920, 1080, n=10))}
+
+
+@pytest.mark.parametrize("tile", ["primary", "bounce 1",
+                                  "primary, max_stack 2",
+                                  "primary, max_stack 96", "axis-aligned"])
+@pytest.mark.parametrize("where", ["demo", "grid"])
+def test_trace_bvh_kernel_matches_plain(bvh_scenes, where, tile):
+    """The BVH kernel against trace_bvh_plain on the card, bit for bit (t,
+    u, v, tri, inst, front, steps), on ops/tiles.py's BVH tiles of 4096
+    rays: camera rays with the default stack of 64, one bounce with the
+    active mask, a stack of 2 (overflowing, capped at 256 pops) and of 96
+    (the kernel's device-memory stack), and axis-aligned rays on box
+    planes (1/d = inf; the slab test's NaN must miss the box)."""
+    from gdpathtracing_torch.ops import tiles as kt
+    from gdpathtracing_torch.render.traverse import trace_bvh, trace_bvh_plain
+    s, cam = bvh_scenes[where]
+    bt = kt.bvh_tiles(s, cam, RenderConfig(tile_rays=4096))[tile]
+    before = trace_bvh.launches
+    got = trace_bvh(s, bt.ray, bt.active, bt.max_stack, bt.max_iters)
+    torch.cuda.synchronize()
+    assert trace_bvh.launches == before + 1
+    want = trace_bvh_plain(s, bt.ray, bt.active, bt.max_stack, bt.max_iters)
+    for f in ("t", "u", "v"):
+        assert torch.equal(getattr(got, f).view(torch.int32),
+                           getattr(want, f).view(torch.int32)), f
+    for f in ("tri", "inst", "front", "steps", "eidx"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(want.hit.sum()) > 100
+    if bt.active is not None:
+        assert bool((got.t[~bt.active] == ti._MISS).all())

@@ -286,8 +286,9 @@ def test_regen_gate(scene):
     does: ``regen_march=True`` on the flat demo renders the frame without
     it (march_supported is false); fused NEE on a flat scene and the
     first-chunk key on sorted lanes raise, naming ROADMAP queue 1, item
-    5; a BVH render names item 4 (tests/test_torch_march.py renders the
-    march and the options' fallbacks)."""
+    5; a BVH render with regen=True raises the reference's ValueError
+    (tests/test_torch_march.py renders the march and the options'
+    fallbacks)."""
     cam = demo_camera(8, 8)
     with pytest.raises(ValueError, match="regen"):
         render_radiance(scene, cam, BASE.replace(regen=True,
@@ -295,9 +296,9 @@ def test_regen_gate(scene):
     with pytest.raises(NotImplementedError, match="item 3"):
         render_radiance(scene, cam, BASE.replace(
             regen=True, traversal=Traversal.BRUTE))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="regen requires a primal"):
         render_radiance(scene, cam, BASE.replace(
-            regen=False, traversal=Traversal.BVH))
+            regen=True, traversal=Traversal.BVH))
     for change in (dict(nee=True, regen_fuse_nee=True),
                    dict(regen_sort_key="chunk"),
                    dict(regen_march=True, regen_sort_key="chunk")):

@@ -16,7 +16,10 @@ on and tools/two_level_turns.py times them on, cut small on the CPU:
 - ``soft_shadow_operands`` on the mid grid: kernel 5's shadow rays over
   the soft-inflated boxes;
 - ``classic_tiles`` on the mid grid: kernels 8 and 9's primary and
-  bounce-1 rays over the raw chunk boxes.
+  bounce-1 rays over the raw chunk boxes;
+- ``bvh_tiles`` and ``axis_aligned_rays`` on the demo: the BVH kernel's
+  camera rays, their bounce, the stacks of 2 and 96, and the axis-aligned
+  rays whose slab tests meet 0 * inf.
 
 The tiles hold no kernel of their own, so nothing here runs JAX.
 """
@@ -222,3 +225,43 @@ def test_classic_tiles_on_mid(mid):
     assert torch.equal(bactive, hit.hit)
     assert torch.equal(torch.cat(bargs[:2]),
                        torch.cat(ti.pack_rays(bray, bactive)))
+
+
+def test_bvh_tiles_on_demo():
+    """The BVH tiles: N camera rays around the frame's centre that mostly
+    hit; the bounce from their hits with the hits as its active mask; the
+    same camera rays with stacks of 2 (capped at 256 pops: the stack
+    overflows and some rays reach the cap) and of 96 (the same answer as
+    64); and axis-aligned rays, two components exactly 0, origins on a
+    box plane, so that some slab test of a TLAS box is NaN."""
+    from gdpathtracing_torch.render.traverse import trace_bvh_plain
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6,
+                             device="cpu")
+    tiles = kt.bvh_tiles(scene, demo_camera(kt.W, kt.H), CFG)
+    assert set(tiles) == {"primary", "bounce 1", "primary, max_stack 2",
+                          "primary, max_stack 96", "axis-aligned"}
+    hits = {}
+    for name, bt in tiles.items():
+        assert bt.ray.o.x.shape == (N,)
+        hits[name] = trace_bvh_plain(scene, bt.ray, bt.active, bt.max_stack,
+                                     bt.max_iters)
+    assert int(hits["primary"].hit.sum()) > N // 2
+    assert torch.equal(tiles["bounce 1"].active, hits["primary"].hit)
+    assert tiles["primary, max_stack 2"].max_iters == 256
+    assert int(hits["primary, max_stack 2"].steps.sum()) \
+        != int(hits["primary"].steps.sum())
+    for f in ("t", "tri", "inst", "steps"):
+        assert torch.equal(getattr(hits["primary, max_stack 96"], f),
+                           getattr(hits["primary"], f))
+    ray = tiles["axis-aligned"].ray
+    d = ray.d.to_array()
+    assert ((d == 0.0).sum(dim=1) == 2).all() and (d.abs().sum(dim=1)
+                                                   == 1.0).all()
+    rw = ray.rcp_d()
+    nan = torch.zeros(N, dtype=torch.bool)
+    for k in range(scene.tlas_min.shape[0]):
+        for b in (scene.tlas_min[k], scene.tlas_max[k]):
+            for a, (o, r) in enumerate(zip(ray.o, rw)):
+                nan |= torch.isnan((b[a] - o) * r)
+    assert int(nan.sum()) > N // 4
+    assert int(hits["axis-aligned"].hit.sum()) > N // 10

@@ -37,7 +37,8 @@ launches. The tiles:
   the mid grid's primary rays, over the raw chunk boxes.
 Per tile it also prints the tests the rays need, the thread-slots of one
 thread per ray and of the block-cooperative walks (``ops.intersect.
-two_level_slots``, ``any_hit_slots``), and the bound of chip_smoke.py
+two_level_slots``, ``any_hit_slots``; kernel 8's from
+``closest_hit_classic_plain(counts=)``), and the bound of chip_smoke.py
 (kernels 10 and 11 without their shading operations).
 
 ``--sass`` compares each kernel's SASS (``cuobjdump -sass``) and ptxas'
@@ -557,10 +558,13 @@ def main() -> None:
                 n, e = tens[0].shape[1], prep.mu.shape[1]
                 counts = {}
                 want = plain(*tens, counts=counts)
+                coop = name == "closest_hit_classic"  # kernel 8's walk
                 tiles.append((name, label, what, tens,
                               [((n,), torch.float32), ((n,), torch.int32)],
                               (n, e), (), list(want), counts["tests"],
-                              float(n * (e // ti.BT)), None, None))
+                              float(n * (e // ti.BT)),
+                              counts["slots"] if coop else None,
+                              counts["thread_slots"] if coop else None))
 
     for name in args.only:
         if name == "soft_occlusion":

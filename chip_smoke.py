@@ -59,6 +59,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      on the mid grid's, with the share of rays on which they find the
      default traversal's winners, and kernel 8's thread-slots on its
      block-cooperative walk against one thread per ray's;
+   - UNIT (render/intersect.py trace_unit, the plain oracle; no TPU
+     kernel) against kernel 1 on the middle demo tile's primary and
+     bounce-1 rays: the share of rays with kernel 1's winner (>= 0.999);
+     on those, UNIT's epilogue over the kernel's own unfused K = 4 sums
+     within the pinned tolerance of kernel 1's t on every ray, and UNIT's
+     t (cuBLAS) within two roundings of that contraction;
    - the BVH traversal (render/traverse.py trace_bvh, no TPU kernel: the
      reference's is a plain-XLA loop) on the demo and the grid: the 262144
      camera rays around the frame's centre, one bounce from their hits,
@@ -79,9 +85,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
    mid grid (n=4), with and without the march, and on the n=14 grid, with
    and without regen_march=True (there over the 8 MiB threshold, so
    ignored); the path kernels' traversals: MEGA, MEGA + NEE and FUSED
-   on the demo, FUSED on the mid grid; and RenderConfig()'s BVH traversal
+   on the demo, FUSED on the mid grid; RenderConfig()'s BVH traversal
    (the standard loop, one trace_bvh launch a tile and bounce, two with
-   NEE) on the demo, the demo with NEE and the grid. Each
+   NEE) on the demo, the demo with NEE and the grid; the rest of the
+   primal transport on the demo: BRUTE and UNIT (plain torch, no kernel
+   launch), UNIT with NEE, UNIT with regen=True (which must equal the
+   UNIT frame at the same frame index: radiance and depth within 1e-6,
+   segments exact), the PALLAS standard loop and regen with rr_start=2
+   (the same rule between them) and RenderConfig(rr_start=2) (BVH); and
+   a glass room (the demo room with a clear glass sphere) through PALLAS
+   regen, the PALLAS standard loop with NEE (kernel 4) and UNIT. BRUTE
+   on the grid is left out: ~10^12 ray-triangle tests a frame. Each
    regen_march=True frame comes right after its no-march counterpart at
    the same frame index and must equal it in radiance, depth and
    segments. Checks the launches against
@@ -93,7 +107,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
    intervals), the share of it in each traversal kernel, the largest other
-   kernels, and the device's idle share of the median frame;
+   kernels, and the device's idle share of the median frame; each
+   path also prints its peak device memory. Then Engine.step: 4 steps
+   with PROGRESSIVE accumulation under a still camera and 4 with
+   TEMPORAL reprojection under an orbiting one, each with the spatial
+   denoiser, over the PALLAS regen frame: ms per step, the post passes'
+   share of it (timed alone on the same frame), launches, and one
+   profiled step;
 3b. takes fwd+bwd steps of the differentiable path at 1920x1080 (1 spp,
    5 bounces), each an image MSE against a zero target and its backward
    pass: the demo's albedo gradient without and with per-bounce
@@ -103,11 +123,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
    gradient, prints ms per step, Msegments/s (forward segments), peak
    device memory, and one more step under torch.profiler;
 4. renders 64x48 on the GPU and on the CPU for each demo path (MEGA with
-   and without NEE, FUSED and BVH among them) and for the grid's regen
+   and without NEE, FUSED, BVH, BRUTE, UNIT ± NEE and the Russian
+   roulette paths among them), each glass-room path, and the grid's regen
    with and without NEE and with and without the march and its BVH path,
    and compares each pair;
    the same for the differentiable demo's albedo gradient and its
-   soft-shadow transform gradient;
+   soft-shadow transform gradient on PALLAS (kernel 5) and on UNIT
+   (occlusion_soft), and for the second frame of a temporal Engine under
+   an orbiting camera;
 5. runs the GPU-only tests (``pytest -m cuda tests/test_torch_cuda.py``),
    among them kernels 1, 3, 6 and 7 against their plain versions on
    adversarial ray sets and queues of the bench grid and at exact ties,
@@ -173,6 +196,8 @@ OPS_PER_SOFT_TEST = 59
 SOFT_EPS = 0.02
 # fwd+bwd steps of each differentiable path (the first is not timed).
 DIFF_STEPS = 3
+# Engine steps a denoising mode (the first is not timed).
+ENGINE_STEPS = 4
 # Float operations of the path kernels' shading per ray (kernel 10) or per
 # ray and bounce (kernel 11), counted from csrc/path_common.cuh and
 # mega_step.cu (transcendentals as one): shading from the winner row ~60,
@@ -308,6 +333,44 @@ def compare_frames(a, b, what: str, seg_share: float = 1.0):
     check(np.allclose(da, db, rtol=1e-5, atol=0), f"{what}: depth differs")
 
 
+def glass_room(device="cuda"):
+    """tests/test_golden.py's glass scene: the demo's Cornell room (its
+    light, box and materials) with a clear glass sphere (transmission 1,
+    ior 1.5) in it."""
+    import numpy as np
+    from gdpathtracing_torch.scene import demo
+    from gdpathtracing_torch.scene.materials import Material
+    from gdpathtracing_torch.scene.primitives import (cornell_box,
+                                                      plane_mesh, uv_sphere)
+    from gdpathtracing_torch.scene.scene import SceneBuilder
+    b = SceneBuilder()
+    light = b.add_mesh(plane_mesh(size=2.0))
+    box = b.add_mesh(cornell_box(size=5.0))
+    sphere = b.add_mesh(uv_sphere(radius=1.2, rings=8, segments=16))
+    b.add_instance(light, demo._affine([1, 0, 0, 0, -1, 0, 0, 0, -1],
+                                       (0, 2.95581, 0)),
+                   materials=[demo.LIGHT_MAT])
+    b.add_instance(box, demo._affine([-2.6e-08, 0, -0.6, 0, 0.6, 0, 0.6, 0,
+                                      -2.6e-08], (0, 0, 0)),
+                   materials=[demo.BOX_GREY, demo.BOX_RED, demo.BOX_GREEN])
+    b.add_instance(sphere, np.eye(4, dtype=np.float32)[:3],
+                   materials=[Material(albedo=(1.0, 0.9, 0.9),
+                                       transmission=1.0, ior=1.5,
+                                       roughness=0.05)])
+    return b.build(device)
+
+
+def orbit_camera(k: int, width: int, height: int):
+    """Step k of a camera orbiting the demo room from the demo camera's
+    place (a moving camera for temporal reprojection)."""
+    import math
+    from gdpathtracing_torch.render.camera import Camera
+    a = 0.03 * k
+    return Camera.looking_at((9.7694 * math.sin(a), 0.1 * k,
+                              9.7694 * math.cos(a)), (0.0, 0.0, 0.0),
+                             fov_deg=79.5, width=width, height=height)
+
+
 def main() -> None:
     import torch
 
@@ -323,7 +386,9 @@ def main() -> None:
           f"imported gdpathtracing_torch from {gdpathtracing_torch.__file__}"
           f", not from {HERE}")
 
-    from gdpathtracing_torch.config import RenderConfig, Traversal
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.config import (DenoisingMode, RenderConfig,
+                                            Traversal)
     from gdpathtracing_torch.core import rng
     from gdpathtracing_torch.diff import (image_mse, replace_albedo,
                                           replace_instance_transforms)
@@ -332,6 +397,12 @@ def main() -> None:
     from gdpathtracing_torch.ops import megakernel as mk
     from gdpathtracing_torch.ops import tiles as kt
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
+    from gdpathtracing_torch.post.denoise import atrous_denoise
+    from gdpathtracing_torch.post.display import display_transform
+    from gdpathtracing_torch.post.progressive import progressive_update
+    from gdpathtracing_torch.post.temporal import (nonlinear_depth,
+                                                   temporal_update)
+    from gdpathtracing_torch.render.intersect import trace_unit
     from gdpathtracing_torch.render.regen import render_radiance_regen
     from gdpathtracing_torch.render.renderer import render_radiance
     from gdpathtracing_torch.render.traverse import trace_bvh, trace_bvh_plain
@@ -434,8 +505,53 @@ def main() -> None:
 
     # The middle tile's primary hits, their shading and one bounce: kernel
     # 4's operands.
-    _, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile, mid_tile)
+    ray0, hit, s, seed = kt.middle_rays(scene, cam, prep, cfg, tile,
+                                        mid_tile)
     bounce, _ = kt.bounce_rays(s, hit, seed, cfg)
+
+    # UNIT (render/intersect.py trace_unit, the plain oracle; no TPU
+    # kernel) against kernel 1 on the same tile's primary and bounce-1
+    # rays: the share of rays with kernel 1's winner (>= 0.999). On those,
+    # t: UNIT's contraction is a library product (cuBLAS on the card, a
+    # BLAS on the CPU), which sums in its own order and with fused
+    # multiply-adds where the kernel (-fmad=false) rounds each product in
+    # a fixed order, and t = -w_o / w_d cancels terms of |m|·|o|, so two
+    # roundings part by more than the pinned tolerance (rtol 1e-6 + atol
+    # 5e-6) on some grazing rays. The witness (ops/tiles.py unit_t_witness): UNIT's
+    # epilogue on the kernel's unfused sums meets the pinned tolerance on
+    # every ray, and UNIT's t lies within the bound of two roundings of
+    # the contraction (ROADMAP §3).
+    for name, (r, act) in (("primary", (ray0, None)),
+                           ("bounce-1", (bounce, hit.hit))):
+        unit = trace_unit(scene, r, act)
+        k1 = ti.trace_pallas(scene, r, act, prep)
+        same = unit.eidx == k1.eidx
+        both = same & k1.hit
+        t_k1, t_u = k1.t[both], unit.t[both]
+        t_w, t_bound = (x[both] for x in kt.unit_t_witness(
+            scene, r, k1.eidx, k1.t))
+        w_ok = bool(torch.isclose(t_w, t_k1, rtol=1e-6, atol=5e-6).all())
+        gap = (t_u - t_k1).abs().double()
+        in_bound = bool((gap <= t_bound).all())
+        share = float(same.double().mean())
+        t_share = float(torch.isclose(t_u, t_k1, rtol=1e-6, atol=5e-6)
+                        .double().mean())
+        u_ms = cuda_ms(lambda: trace_unit(scene, r, act), 3, torch)
+        log(f"UNIT vs kernel 1, {name} rays ({r.o.x.shape[0]}, "
+            f"{int(both.sum())} hit with kernel 1's winner): eidx equal on "
+            f"{share:.6f} of rays; UNIT's t within the pinned tolerance on "
+            f"{t_share:.6f} of those (max |diff| {float(gap.max()):.3g}, "
+            f"at most {float((gap / t_bound).max()):.3g} of the rounding "
+            f"bound); unfused witness within the pinned tolerance on all: "
+            f"{w_ok} (max |diff| "
+            f"{float((t_w - t_k1).abs().max()):.3g}); trace_unit "
+            f"{u_ms:.2f} ms a call on {card}")
+        check(share >= 0.999, f"UNIT's winners differ from kernel 1's on "
+              f"the {name} rays")
+        check(w_ok, f"UNIT's epilogue on unfused sums misses kernel 1's t "
+              f"on the {name} rays")
+        check(in_bound, f"UNIT's t lies beyond two roundings of kernel 1's "
+              f"on the {name} rays")
 
     # Kernel 4 at the same tile: its bounce-1 launch, which resolves the
     # shadow queries posted from the primary hits.
@@ -954,8 +1070,15 @@ def main() -> None:
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
     # config, timed frames)])
     mega, fused = Traversal.MEGA, Traversal.FUSED
+    brute, unit = Traversal.BRUTE, Traversal.UNIT
     march = cfg.replace(regen_march=True)
     default = RenderConfig()  # Traversal.BVH, the standard loop
+    # The glass room: the demo's Cornell room with a clear glass sphere
+    # (tests/test_golden.py's glass scene), so every path through it takes
+    # the dielectric lobe.
+    glass, glass_cam = glass_room(), cam
+    # BRUTE on the grid is left out: 96256 triangles against ~8.3 million
+    # segments a frame is ~10^12 ray-triangle tests.
     runs = [
         ("demo", scene, cam, "closest_hit_rows", [
             ("standard loop", cfg.replace(regen=False), 2),
@@ -966,7 +1089,20 @@ def main() -> None:
             ("MEGA + NEE", cfg.replace(traversal=mega, nee=True), 2),
             ("FUSED", cfg.replace(traversal=fused), 2),
             ("BVH (RenderConfig())", default, 2),
-            ("BVH + NEE", default.replace(nee=True), 2)]),
+            ("BVH + NEE", default.replace(nee=True), 2),
+            ("BRUTE", RenderConfig(traversal=brute), 2),
+            ("UNIT", RenderConfig(traversal=unit), 2),
+            ("UNIT + NEE", RenderConfig(traversal=unit, nee=True), 2),
+            ("UNIT, regen=True", RenderConfig(traversal=unit, regen=True),
+             2),
+            ("standard loop, rr_start=2", cfg.replace(regen=False,
+                                                      rr_start=2), 2),
+            ("regen, rr_start=2", cfg.replace(rr_start=2), 2),
+            ("BVH, RenderConfig(rr_start=2)", RenderConfig(rr_start=2), 2)]),
+        ("glass", glass, glass_cam, "closest_hit_rows", [
+            ("regen", cfg, 2),
+            ("standard loop + NEE", cfg.replace(nee=True, regen=False), 2),
+            ("UNIT", RenderConfig(traversal=unit), 2)]),
         ("grid", grid, grid_cam, "closest_hit_sc_lite", [
             ("regen", cfg, 2),
             ("regen + NEE", cfg.replace(nee=True), 2),
@@ -1061,14 +1197,25 @@ def main() -> None:
     paths = [(f"{label}, {name}", pscene, pcam, trace, pcfg, frames)
              for label, pscene, pcam, trace, group in runs
              for name, pcfg, frames in group]
+    # A regen path's frames must equal, at the same frame index, those of
+    # the standard loop rendered just before it: radiance and depth within
+    # 1e-6, segments exact (tests/test_regen.py's comparison).
+    same_as = {"demo, UNIT, regen=True": "demo, UNIT",
+               "demo, regen, rr_start=2": "demo, standard loop, rr_start=2"}
+    kept = {}
     for name, pscene, pcam, trace, pcfg, frames in paths:
-        # The reference's auto policy: regen renders only PALLAS.
-        regen = pcfg.regen is not False and pcfg.traversal == Traversal.PALLAS
+        # The reference's auto policy: regen renders only PALLAS; BRUTE and
+        # UNIT take it when asked.
+        regen = pcfg.regen is True or (pcfg.regen is None and
+                                       pcfg.traversal == Traversal.PALLAS)
         # A march path renders, in turns, its no-march counterpart at the
         # same frame index (outside the counts), and must equal it.
         march_flag = pcfg.regen_march is True
         got, iters = dict.fromkeys(kernels, 0), 0
         frame_s, segs, ref_s = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
         for f in range(frames):
             if march_flag:
                 torch.cuda.synchronize()
@@ -1099,12 +1246,30 @@ def main() -> None:
                     check(torch.equal(getattr(aovs, a), getattr(ref, a)),
                           f"{name}, frame {f}: {a} differs from the frame "
                           f"without the march")
+            if name in same_as.values():
+                kept.setdefault(name, []).append(aovs)
+            if name in same_as:
+                std = kept[same_as[name]][f]
+                rad_err = float((aovs.radiance - std.radiance).abs().max())
+                check(torch.allclose(aovs.radiance, std.radiance, rtol=1e-6,
+                                     atol=1e-6)
+                      and torch.allclose(aovs.depth, std.depth, rtol=1e-6,
+                                         atol=0)
+                      and torch.equal(aovs.segments, std.segments),
+                      f"{name}, frame {f}: differs from {same_as[name]}")
+                log(f"  frame {f}: equals {same_as[name]}'s (radiance max "
+                    f"|diff| {rad_err:.3g}, depth within 1e-6, segments "
+                    f"equal)")
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        kept.pop(same_as.get(name), None)
         check(iters > 0 if regen else iters == 0,
               f"{name}: render_radiance ran {iters} regen iterations")
         nee = pcfg.nee
         want = dict.fromkeys(kernels, 0)
         per_tile = frames * n_tiles
-        if pcfg.traversal == mega:  # one launch a tile and bounce
+        if pcfg.traversal in (brute, unit):  # plain torch: no kernel
+            pass
+        elif pcfg.traversal == mega:  # one launch a tile and bounce
             want["mega_step"] = per_tile * pcfg.bounces
         elif pcfg.traversal == fused:  # one launch a tile
             want["fused_paths"] = per_tile
@@ -1140,12 +1305,80 @@ def main() -> None:
             f"{frames - 1} {steady * 1e3:.1f} ms/frame, "
             f"{statistics.median(segs[1:]) / steady / 1e6:.2f} "
             f"Msegments/s; radiance mean {float(aovs.radiance.mean()):.5f};"
-            f" on {card}")
+            f" peak memory {peak / 2 ** 30:.2f} GiB above the scene; on "
+            f"{card}")
 
         # One more frame under torch.profiler: where the device time goes.
         profile_step(name, lambda: render_radiance(pscene, pcam, pcfg,
                                                    frames),
                      torch, steady * 1e3, kernel_symbols)
+
+    # Engine (the frame loop users drive): 4 steps of PROGRESSIVE
+    # accumulation under a still camera, then 4 of TEMPORAL reprojection
+    # under an orbiting one, each with the spatial denoiser, over the
+    # default PALLAS regen frame; the post passes (accumulation, à-trous
+    # denoiser, display transform) timed alone on the same frame.
+    ecfg = cfg.replace(spatial_denoise=True)
+    for mode in (DenoisingMode.PROGRESSIVE, DenoisingMode.TEMPORAL):
+        name = f"demo, Engine.step, {mode.name} + denoiser"
+        eng = Engine(scene, ecfg.replace(denoising=mode))
+        cams = [cam if mode == DenoisingMode.PROGRESSIVE
+                else orbit_camera(k, W, H) for k in range(ENGINE_STEPS + 1)]
+        for fn in kernels.values():
+            fn.launches = 0
+        render_radiance_regen.iterations = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        step_s = []
+        for c in cams[:ENGINE_STEPS]:
+            t0 = time.perf_counter()
+            img = eng.step(c)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            check(img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+                  and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                  f"{name}: the image is not finite in [0, 1]")
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        iters = render_radiance_regen.iterations
+        got = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        want["closest_hit_rows"] = iters
+        log(f"{name}: launches {got}, {iters} regen iterations")
+        check(iters > 0 and got == want,
+              f"{name}: launches {got}, expected {want}")
+        check(eng.frame_index == int(eng._state.frame_count)
+              == ENGINE_STEPS, f"{name}: the state did not advance")
+        for k in kernels:
+            launches[k] += got[k]
+        # The post passes alone, on the last step's frame and state.
+        aovs = render_radiance(scene, cams[0], ecfg, 0)
+        state0 = eng._state
+
+        def post():
+            if mode == DenoisingMode.PROGRESSIVE:
+                lin, _ = progressive_update(state0, aovs.radiance,
+                                            cams[0].transform.to(dev))
+            else:
+                lin, _ = temporal_update(
+                    state0, aovs.radiance, nonlinear_depth(
+                        aovs.depth, cams[0].near, cams[0].far),
+                    cams[0].to(dev).vp(), ecfg.temporal_blend,
+                    ecfg.temporal_depth_eps)
+            return display_transform(atrous_denoise(
+                lin, aovs.normal, aovs.depth, ecfg.denoise_iterations), ecfg)
+
+        post_ms = cuda_ms(post, 3, torch)
+        steady = statistics.median(step_s[1:])
+        for f, t in enumerate(step_s):
+            log(f"  step {f}: {t * 1e3:.1f} ms")
+        log(f"1080p {name}: median of steps 1-{ENGINE_STEPS - 1} "
+            f"{steady * 1e3:.1f} ms/step; the post passes alone "
+            f"{post_ms:.2f} ms ({post_ms / (steady * 1e3):.3f} of a step); "
+            f"peak memory {peak / 2 ** 30:.2f} GiB above the scene; on "
+            f"{card}")
+        profile_step(name, lambda: eng.step(cams[ENGINE_STEPS]), torch,
+                     steady * 1e3, kernel_symbols)
 
     # -- 3b. the differentiable path at 1080p: fwd+bwd steps ----------------
     phase("3b. the differentiable path at 1080p")
@@ -1228,6 +1461,7 @@ def main() -> None:
     # -- 4. GPU against CPU at 64x48 ----------------------------------------
     phase("4. GPU against CPU at 64x48")
     small = {"demo": demo_camera(SMALL_W, SMALL_H),
+             "glass": demo_camera(SMALL_W, SMALL_H),
              "grid": grid_camera(SMALL_W, SMALL_H, n=10)}
     for name, pscene, _, _, pcfg, _ in paths:
         label = name.split(",")[0]
@@ -1248,7 +1482,12 @@ def main() -> None:
     # component (about 1% of pixels take another path after the card's
     # other sqrt/sin/cos rounding, and each moves these image-wide sums).
     small_cam = small["demo"]
-    for name, pscene, _, param, pcfg, _ in (diff_paths[0], diff_paths[3]):
+    unit_soft = ("demo, UNIT, soft shadows + NEE, instance transforms", scene,
+                 None, "transforms", RenderConfig(
+                     traversal=unit, differentiable=True, nee=True,
+                     soft_shadows=SOFT_EPS), None)
+    for name, pscene, _, param, pcfg, _ in (diff_paths[0], diff_paths[3],
+                                            unit_soft):
         out = []
         for dscene in (pscene, pscene.to("cpu")):
             base = dscene.mat_albedo if param == "albedo" \
@@ -1268,6 +1507,23 @@ def main() -> None:
             f"component")
         check(bool(torch.isfinite(ga).all()) and rel <= 0.05,
               f"{what}: the {param} gradients differ by {rel:.3g}")
+
+    # One temporal Engine frame with the denoiser, GPU against CPU: the
+    # second step of an orbit (the first leaves the history to reproject),
+    # within 2e-3 on >= 95% of pixels (the denoiser spreads a pixel whose
+    # path took another way over its neighbours).
+    tcfg = cfg.replace(denoising=DenoisingMode.TEMPORAL, spatial_denoise=True)
+    imgs = []
+    for escene in (scene, scene.to("cpu")):
+        eng = Engine(escene, tcfg)
+        for k in range(2):
+            img = eng.step(orbit_camera(k, SMALL_W, SMALL_H))
+        imgs.append(img.cpu())
+    ok = torch.isclose(imgs[0], imgs[1], rtol=2e-3, atol=2e-3).all(dim=-1)
+    frac = float(ok.double().mean())
+    log(f"{SMALL_W}x{SMALL_H} demo, Engine.step, TEMPORAL + denoiser, frame "
+        f"1, cuda vs cpu: within 2e-3 on {frac:.4f} of pixels")
+    check(frac >= 0.95, f"the temporal Engine frame differs: {frac:.4f}")
 
     # -- 5. the GPU-only tests -----------------------------------------------
     # Among them kernels 1, 3, 6 and 7 on adversarial ray sets of the bench

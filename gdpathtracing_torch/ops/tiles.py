@@ -15,7 +15,8 @@ those of regen's frontier march: the lanes in its sort order, queued by
 its own candidate scan and block queues. The BVH traversal's tiles
 (:func:`bvh_tiles`) add rays that meet its corner cases: axis-aligned rays
 on box planes (:func:`axis_aligned_rays`) and stacks too shallow for the
-scene.
+scene. :func:`unit_t_witness` holds the UNIT oracle's t to kernel 1's
+on such tiles.
 """
 
 from __future__ import annotations
@@ -71,6 +72,29 @@ def bounce_rays(s, hit, seed, cfg: RenderConfig):
     (r1, r2), _ = rng.pcg2d(seed)
     return Ray(s.position + s.normal * cfg.ray_eps,
                brdf.sample_brdf(s, r1, r2)), hit.hit
+
+
+def unit_t_witness(scene, ray: Ray, eidx, t):
+    """For rays whose winner is expanded triangle ``eidx`` at kernel 1's
+    ``t``: (t_w, bound), each (N,). t_w is the UNIT oracle's epilogue,
+    -w_o * (1 / w_d), on w_o and w_d summed as the kernels sum them, each
+    product and sum rounded: ((x m0 + y m1) + z m2) + m3, no fused
+    multiply-add. bound (f64) is what two roundings of that K = 4
+    contraction can put between two such t, to first order: each sum lies
+    within 4 units of 2^-24 times the sum S of its terms' magnitudes, t =
+    -w_o / w_d moves by (dw_o + t dw_d) / |w_d|, and 4 units of t cover the
+    division's rounding."""
+    m = scene.isect_mw[:, eidx.long()]
+    to = (ray.o.x * m[0], ray.o.y * m[1], ray.o.z * m[2], m[3])
+    td = (ray.d.x * m[0], ray.d.y * m[1], ray.d.z * m[2])
+    w_o = ((to[0] + to[1]) + to[2]) + to[3]
+    w_d = (td[0] + td[1]) + td[2]
+    t_w = -w_o * torch.where(w_d.abs() > 1e-12, 1.0 / w_d, 0.0)
+    s_o = sum(x.double().abs() for x in to)
+    s_d = sum(x.double().abs() for x in td)
+    t = t.double()
+    return t_w, 2.0 ** -24 * (8.0 * (s_o + t * s_d) / w_d.double().abs()
+                              + 4.0 * t)
 
 
 def rows_tiles(scene, cam, prep: ti.TracePrep, cfg: RenderConfig

@@ -1,8 +1,11 @@
 """Camera: pose, intrinsics and primary-ray generation.
 
-Port of gdpathtracing_tpu/render/camera.py (``generate_rays``). The pinhole
-unprojection is written out term by term in float32 — no matrix product, so
-TF32 cannot enter — in the same order as the JAX version.
+Port of gdpathtracing_tpu/render/camera.py: ``generate_rays`` and the
+matrices ``projection``, ``view``, ``vp`` and ``ivp`` (the temporal
+reprojection reads ``vp``). The pinhole unprojection is written out term
+by term in float32 — no matrix product, so TF32 cannot enter — in the same
+order as the JAX version; the matrices are built from the camera's tensors
+with stack, so they are differentiable with respect to transform and FOV.
 """
 
 from __future__ import annotations
@@ -63,6 +66,54 @@ class Camera:
     def aspect(self) -> float:
         return self.width / self.height
 
+    def _half_tan(self) -> torch.Tensor:
+        """tan of the float32 half-angle, evaluated in float64 and rounded:
+        the correctly rounded float32 value on every device."""
+        return torch.tan((self.fov_deg * (math.pi / 180.0) * 0.5)
+                         .double()).float()
+
+    def projection(self) -> torch.Tensor:
+        """(4, 4) GL-style perspective (core/math3d.py ``perspective``)."""
+        f = 1.0 / self._half_tan()
+        n, fa = self.near, self.far
+        zero, one = torch.zeros_like(f), torch.ones_like(f)
+        return torch.stack([
+            torch.stack([f / self.aspect, zero, zero, zero]),
+            torch.stack([zero, f, zero, zero]),
+            torch.stack([zero, zero, (fa + n) / (n - fa) * one,
+                         2 * fa * n / (n - fa) * one]),
+            torch.stack([zero, zero, -one, zero])])
+
+    def view(self) -> torch.Tensor:
+        """(4, 4) camera-from-world: the affine inverse of ``transform``."""
+        r_inv = torch.linalg.inv(self.transform[:, :3])
+        top = torch.cat([r_inv, -(r_inv @ self.transform[:, 3:])], dim=1)
+        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]],
+                              device=self.transform.device)
+        return torch.cat([top, bottom])
+
+    def vp(self) -> torch.Tensor:
+        """(4, 4) view-projection, ``projection() @ view()``."""
+        return self.projection() @ self.view()
+
+    def ivp(self) -> torch.Tensor:
+        """(4, 4) inverse view-projection in closed form (world-from-camera
+        times the inverse perspective), which avoids inverting the badly
+        conditioned ``vp``."""
+        f = 1.0 / self._half_tan()
+        n, fa = self.near, self.far
+        a = (fa + n) / (n - fa)
+        b = 2.0 * fa * n / (n - fa)
+        zero, one = torch.zeros_like(f), torch.ones_like(f)
+        p_inv = torch.stack([
+            torch.stack([self.aspect / f, zero, zero, zero]),
+            torch.stack([zero, 1.0 / f, zero, zero]),
+            torch.stack([zero, zero, zero, -one]),
+            torch.stack([zero, zero, one / b, a / b * one])])
+        t4 = torch.cat([self.transform, torch.tensor(
+            [[0.0, 0.0, 0.0, 1.0]], device=self.transform.device)])
+        return t4 @ p_inv
+
     def generate_rays(self, pixel_ids: torch.Tensor, seed,
                       config: RenderConfig):
         """Primary rays for flat row-major pixel indices. Returns
@@ -92,10 +143,7 @@ class Camera:
                           device=px.device)
         sx = (px + 0.5 + jx) / wh[0] * 2.0 - 1.0
         sy = (py + 0.5 + jy) / wh[1] * 2.0 - 1.0
-        # tan of the float32 half-angle, evaluated in float64 and rounded:
-        # the correctly rounded float32 value on every device.
-        half_tan = torch.tan((self.fov_deg * (math.pi / 180.0) * 0.5)
-                             .double()).float()
+        half_tan = self._half_tan()
         cx = sx * (half_tan * self.aspect)
         cy = -sy * half_tan
         cz = -torch.ones_like(sx)

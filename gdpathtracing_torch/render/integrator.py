@@ -1,25 +1,31 @@
 """The path-tracing integrator: bounce loop over a ray wavefront.
 
-Port of the standard loop of gdpathtracing_tpu/render/integrator.py for
-``Traversal.PALLAS`` and ``Traversal.BVH`` (the two backends of the
-reference's ``get_trace_fn`` that the port has: ops/intersect.py
-``trace_pallas``, or render/traverse.py ``trace_bvh`` with
-``config.max_stack``): ``lax.fori_loop`` becomes a Python loop over
-bounces, and the reference's reorderings are kept: on large PALLAS scenes
-a per-bounce stable sort of the wavefront by the Morton cell of the ray
-origin and the octant of its direction (or wherever ``sort_rays=True``
+Port of the standard loop of gdpathtracing_tpu/render/integrator.py, with
+the reference's traversals (``get_trace_fn``): ``Traversal.PALLAS``
+(ops/intersect.py ``trace_pallas``), ``Traversal.BVH`` (render/traverse.py
+``trace_bvh`` with ``config.max_stack``) and the plain oracles
+``Traversal.BRUTE`` and ``Traversal.UNIT`` (render/intersect.py
+``trace_brute``, ``trace_unit``). ``lax.fori_loop`` becomes a Python loop
+over bounces, and the reference's reorderings are kept: on large PALLAS
+scenes a per-bounce stable sort of the wavefront by the Morton cell of the
+ray origin and the octant of its direction (or wherever ``sort_rays=True``
 asks for it), otherwise, on PALLAS, group-granular survivor compaction,
 each with the final unsort. Light transport is the reference's: BRDF
 importance sampling, ``radiance += throughput * emission`` per segment, sky
 on a miss, a hard bounce cap and a ray-origin offset along the shading
 normal. With ``config.nee`` each hit also samples an emitter (next-event
 estimation) and the two strategies are weighted by the power heuristic
-(MIS).
+(MIS). On a scene with transmission a dielectric delta lobe is picked with
+probability ``transmission`` (Fresnel picks reflection or refraction), and
+with ``rr_start > 0`` Russian roulette ends paths from that bounce on; each
+draws its random numbers only when on, so neither moves another stream.
 
-With BVH, as in the reference, a hit is shaded by triangle and instance
-(render/shading.py's gather path) and NEE's shadow query is a closest hit
-of its own, visible where nothing is hit before the light (``t <
-dist·(1 - 1e-3)`` fails), with or without ``soft_shadows``.
+With BVH, BRUTE and UNIT, as in the reference, NEE's shadow query is a
+closest hit of its own, visible where nothing is hit before the light
+(``t < dist·(1 - 1e-3)`` fails); BVH and BRUTE shade a hit by triangle and
+instance (render/shading.py's gather path), UNIT and PALLAS by the
+expanded-triangle index. With ``soft_shadows``, BRUTE and UNIT take
+``occlusion_soft`` and PALLAS kernel 5; BVH keeps its hard query.
 
 On a flat PALLAS scene NEE runs the reference's fused form: bounce i's
 shadow query only gates an additive radiance term, so it is resolved by
@@ -32,9 +38,10 @@ rays are resolved at once by their own any-hit launch.
 
 With ``config.differentiable`` the loop runs the same transport as the
 reference's differentiable one: the kernels find hits on detached inputs,
-the hit records are recomputed from the live scene, sampling decisions are
-detached (unless ``grad_attached``), and autograd differentiates the rest;
-each bounce may run under ``torch.utils.checkpoint`` (``bwd_checkpoint``).
+the hit records are recomputed from the live scene (BRUTE and UNIT are
+plain torch, differentiated as they run), sampling decisions are detached
+(unless ``grad_attached``), and autograd differentiates the rest; each
+bounce may run under ``torch.utils.checkpoint`` (``bwd_checkpoint``).
 ``soft_shadows`` and ``soft_primary`` add the reference's differentiable
 silhouette relaxations.
 """
@@ -48,7 +55,7 @@ import torch.utils.checkpoint
 
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
-from gdpathtracing_torch.core.vec import Vec3, where as vwhere
+from gdpathtracing_torch.core.vec import Vec3, reflect, where as vwhere
 from gdpathtracing_torch.ops.fused import fused_supported, path_trace_fused
 from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                prepare_trace_inputs,
@@ -59,6 +66,8 @@ from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                trace_pallas_diff)
 from gdpathtracing_torch.ops.megakernel import mega_supported, path_trace_mega
 from gdpathtracing_torch.render import brdf, lights
+from gdpathtracing_torch.render.intersect import (occlusion_soft,
+                                                  trace_brute, trace_unit)
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.traverse import trace_bvh
@@ -100,16 +109,12 @@ def check_path_kernel(scene: Scene, config: RenderConfig) -> None:
 
 
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """The transport the frame loops render: ``Traversal.PALLAS`` or
-    ``Traversal.BVH`` (primal only) without Russian roulette or
-    transmission, or the path kernels (MEGA, FUSED) within their gates
-    (:func:`check_path_kernel`; MEGA runs Russian roulette in its
-    kernel)."""
+    """Raise where the frame loops cannot render ``config``: the path
+    kernels (MEGA, FUSED) outside their gates (:func:`check_path_kernel`),
+    and a differentiable BVH render."""
     if config.traversal in (Traversal.MEGA, Traversal.FUSED):
         check_path_kernel(scene, config)
         return
-    if config.traversal in (Traversal.BRUTE, Traversal.UNIT):
-        not_ported(f"Traversal.{config.traversal.name}", 3)
     if config.traversal == Traversal.BVH and config.differentiable:
         raise ValueError(
             "BVH traversal has no gradient in this port (its kernel is not "
@@ -118,10 +123,93 @@ def check_supported(scene: Scene, config: RenderConfig) -> None:
             "lax.while_loop raises there (reverse-mode differentiation does "
             "not work for lax.while_loop), and only material gradients "
             "pass; use PALLAS with differentiable=True")
+
+
+def get_trace_fn(config: RenderConfig):
+    """The closest-hit traversal of ``config`` as ``trace(scene, ray,
+    active, prep)``: ``trace_pallas`` (``trace_pallas_diff`` when
+    differentiable), ``trace_bvh``, ``trace_brute`` or ``trace_unit``, as
+    the reference's ``get_trace_fn`` picks them. ``prep`` is PALLAS's
+    :func:`prepare_trace_inputs`; the others ignore it."""
+    t = config.traversal
+    if t == Traversal.PALLAS:
+        return trace_pallas_diff if config.differentiable else trace_pallas
+    if t == Traversal.BVH:
+        return lambda scene, ray, active, prep: trace_bvh(
+            scene, ray, active, max_stack=config.max_stack)
+    if t == Traversal.BRUTE:
+        return lambda scene, ray, active, prep: trace_brute(scene, ray,
+                                                            active)
+    if t == Traversal.UNIT:
+        return lambda scene, ray, active, prep: trace_unit(scene, ray,
+                                                           active)
+    raise ValueError(f"{t} has no closest-hit traversal of its own")
+
+
+def hit_visibility(trace, scene: Scene, prep):
+    """NEE visibility through a closest-hit traversal ``trace`` (BVH,
+    BRUTE, UNIT): ``visibility(shadow ray, tmax, active)``, 1 where nothing
+    is hit before ``tmax``."""
+    def visibility(shadow, tmax, active):
+        return (~(trace(scene, shadow, active, prep).t < tmax)).to(
+            torch.float32)
+    return visibility
+
+
+def continue_path(s: ShadingInfo, hit: HitInfo, r: Ray, throughput: Vec3,
+                  is_hit, seed, config: RenderConfig, has_transmission: bool,
+                  bounce):
+    """The next segment of each path: the BRDF sample (one PCG2D draw),
+    on a scene with transmission the dielectric delta lobe (one more), and
+    with ``rr_start > 0`` Russian roulette (one more) from ``bounce`` (an
+    int or a per-lane tensor) on, in the reference's draw order. Returns
+    (origin, direction, throughput, survive, prev_pdf value, seed): the
+    caller keeps its own state where ``survive`` is false. The sampled
+    direction and pdf are detached unless ``grad_attached``, the survival
+    probability always (regen, primal only, leaves it attached in the
+    reference, which changes no value)."""
+    sampled = _sampled(config)
+    (r1, r2), seed = rng.pcg2d(seed)
+    new_dir = sampled(brdf.sample_brdf(s, r1, r2))
+    pdf = sampled(brdf.brdf_pdf(s, new_dir))
+    lambert_in = s.normal.dot(new_dir)
+    f = brdf.eval_brdf(s, new_dir)
+    scale = torch.where(pdf > 1e-12,
+                        lambert_in / torch.clamp(pdf, min=1e-12), 0.0)
+    mult = f * scale
+    survive = is_hit & (lambert_in > 0.0) & (pdf > 1e-12)
+    offset = s.normal * config.ray_eps
+    prev_pdf = pdf
+    if has_transmission:
+        # The dielectric delta lobe, picked with probability
+        # `transmission`: Fresnel picks reflection or refraction, the
+        # albedo tints, a refracted ray leaves from the other side.
+        (r3, r4), seed = rng.pcg2d(seed)
+        pick_t = r3 < s.transmission
+        eta = torch.where(hit.front, 1.0 / s.ior, s.ior)
+        fres = brdf.fresnel_dielectric(s.lambert_out, eta)
+        refr_dir, tir = brdf.refract(r.d, s.normal, eta)
+        do_reflect = (r4 < fres) | tir
+        delta_dir = vwhere(do_reflect, reflect(r.d, s.normal), refr_dir)
+        new_dir = vwhere(pick_t, delta_dir, new_dir)
+        mult = vwhere(pick_t, s.albedo, mult)
+        survive = torch.where(pick_t, is_hit, survive)
+        offset = vwhere(pick_t & ~do_reflect, -offset, offset)
+        prev_pdf = torch.where(pick_t, -1.0, prev_pdf)
+    new_tp = throughput * mult
     if config.rr_start > 0:
-        not_ported("Russian roulette (rr_start > 0)", 3)
-    if scene.has_transmission:
-        not_ported("dielectric transmission", 3)
+        # Russian roulette: from bounce rr_start on a path continues with
+        # probability p, the next throughput's largest component clamped,
+        # and is weighted by 1/p.
+        (r5, _), seed = rng.pcg2d(seed)
+        p = torch.clamp(torch.maximum(new_tp.x, torch.maximum(new_tp.y,
+                                                               new_tp.z)),
+                        config.rr_min_p, 1.0).detach()
+        do_rr = torch.as_tensor(bounce >= config.rr_start,
+                                device=p.device)
+        survive = survive & torch.where(do_rr, r5 < p, True)
+        new_tp = new_tp * torch.where(do_rr, 1.0 / p, 1.0)
+    return s.position + offset, new_dir, new_tp, survive, prev_pdf, seed
 
 
 def morton_frame(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
@@ -274,8 +362,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
                far: float = 1000.0) -> PathTraceResult:
     """Trace one path per ray; all rays advance in lockstep through the
     bounce loop under an `active` mask. ``prep`` is the scene's
-    :func:`prepare_trace_inputs` (built here when not given; BVH needs
-    none).
+    :func:`prepare_trace_inputs` (built here when not given; only PALLAS
+    and the path kernels read it).
 
     With ``config.differentiable`` the kernels find hits on detached inputs
     and the hit records are recomputed from the live scene
@@ -284,9 +372,11 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     and pdfs are detached unless ``config.grad_attached``. With
     ``bwd_checkpoint`` (see :func:`checkpoint_bounces`) each bounce runs
     under ``torch.utils.checkpoint``: the backward pass recomputes it, the
-    kernel launch included. ``soft_shadows > 0`` takes shadow visibility
-    from kernel 5 (``soft_occluded_pallas``) and turns NEE fusion off;
-    ``soft_primary > 0`` relaxes the primary hit's silhouette.
+    kernel launch included; BRUTE and UNIT are differentiated as they run.
+    ``soft_shadows > 0`` takes shadow visibility from kernel 5
+    (``soft_occluded_pallas``) or, with BRUTE and UNIT, ``occlusion_soft``,
+    and turns NEE fusion off; ``soft_primary > 0`` relaxes the primary
+    hit's silhouette.
 
     ``Traversal.FUSED`` and ``Traversal.MEGA`` go to their path kernels
     (ops/fused.py ``path_trace_fused``, ops/megakernel.py
@@ -297,8 +387,9 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         return path_trace_fused(scene, ray, seed, config, prep, far=far)
     if config.traversal == Traversal.MEGA:
         return path_trace_mega(scene, ray, seed, config, prep, far=far)
+    pallas = config.traversal == Traversal.PALLAS
     bvh = config.traversal == Traversal.BVH
-    if prep is None and not bvh:
+    if prep is None and pallas:
         prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
@@ -306,28 +397,22 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     use_nee = config.nee and scene.n_lights > 0
     # BVH resolves shadows with its hard closest-hit query, soft or not.
     soft_shadows = config.soft_shadows > 0.0 and not bvh
-    fuse_nee = use_nee and not bvh and not prep.superchunks \
+    fuse_nee = use_nee and pallas and not prep.superchunks \
         and not soft_shadows
     # The differentiable path reads emitters from the live scene, so light
     # sampling and the MIS weights carry emission and geometry gradients.
-    table = (lights.build_light_table(scene) if diff or bvh
-             else prep.lights) if use_nee else None
-    if bvh:
-        def trace(scene, ray, active, prep):
-            return trace_bvh(scene, ray, active, max_stack=config.max_stack)
-    else:
-        trace = trace_pallas_diff if diff else trace_pallas
+    table = (prep.lights if pallas and not diff
+             else lights.build_light_table(scene)) if use_nee else None
+    trace = get_trace_fn(config)
     trace_occlude = trace_occlude_pallas_diff if diff \
         else trace_occlude_pallas
-    sampled = _sampled(config)
 
     def soft_visibility(shadow, tmax, active):
-        return soft_occluded_pallas(scene, shadow, tmax, active,
-                                    config.soft_shadows, prep)
-
-    def bvh_visibility(shadow, tmax, active):
-        return (~(trace(scene, shadow, active, prep).t < tmax)).to(
-            torch.float32)
+        if pallas:
+            return soft_occluded_pallas(scene, shadow, tmax, active,
+                                        config.soft_shadows, prep)
+        return occlusion_soft(scene, shadow, tmax, active,
+                              edge_eps=config.soft_shadows)
 
     # Per-bounce sort (large PALLAS scenes, where the per-block culling
     # needs coherent blocks after a diffuse bounce; any traversal where
@@ -338,13 +423,13 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     # depend on the order.
     sort_rays = config.sort_rays
     if sort_rays is None:
-        sort_rays = not bvh and scene.isect_mu.shape[1] > 128 * 256
+        sort_rays = pallas and scene.isect_mu.shape[1] > 128 * 256
     compact = config.compact_rays
     if compact is None:
         compact = not sort_rays and n >= 65536
     cg = _compaction_group(n)
     compact = bool(compact) and not sort_rays and cg is not None \
-        and not bvh
+        and pallas
     reorder = bool(sort_rays) or compact
     if sort_rays:
         cell_lo, cell_span = morton_frame(scene.detach())
@@ -407,7 +492,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         steps = steps + torch.where(active, hit.steps, 0)
         segments = segments + active.to(torch.int32)
 
-        s = get_shading_data(scene, hit, r, fast=not bvh)
+        s = get_shading_data(scene, hit, r, fast=config.traversal in (
+            Traversal.PALLAS, Traversal.UNIT))
         sky = sample_sky(ray_d, config, scene)
         if config.soft_primary > 0.0 and i == 0:
             # The primary silhouette relaxed (SoftRas-style): the winner's
@@ -439,11 +525,13 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
             dl, seed = sample_direct(
                 s, throughput, is_hit, seed, table, config,
                 soft_visibility if soft_shadows
-                else bvh_visibility if bvh else None)
+                else None if pallas else hit_visibility(trace, scene, prep))
+            if scene.has_transmission:
+                dl = dl._replace(direct=dl.direct * (1.0 - s.transmission))
             segments = segments + dl.active.to(torch.int32)
             if fuse_nee:
                 pend = dl
-            elif soft_shadows or bvh:
+            elif soft_shadows or not pallas:
                 radiance = vwhere(active, radiance + dl.direct, radiance)
             else:
                 # Hard visibility has no derivative almost everywhere: the
@@ -458,19 +546,12 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
             depth = torch.where(is_hit, dist, depth)
             normal = vwhere(is_hit, s.normal, normal)
 
-        # Next segment: BRDF sampling.
-        (r1, r2), seed = rng.pcg2d(seed)
-        new_dir = sampled(brdf.sample_brdf(s, r1, r2))
-        pdf = sampled(brdf.brdf_pdf(s, new_dir))
-        lambert_in = s.normal.dot(new_dir)
-        f = brdf.eval_brdf(s, new_dir)
-        scale = torch.where(pdf > 1e-12,
-                            lambert_in / torch.clamp(pdf, min=1e-12), 0.0)
-        survive = is_hit & (lambert_in > 0.0) & (pdf > 1e-12)
-        new_o = s.position + s.normal * config.ray_eps
+        new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+            s, hit, r, throughput, is_hit, seed, config,
+            scene.has_transmission, i)
         return _Carry(vwhere(survive, new_o, ray_o),
                       vwhere(survive, new_dir, ray_d),
-                      vwhere(survive, throughput * (f * scale), throughput),
+                      vwhere(survive, new_tp, throughput),
                       radiance, survive, seed, depth, steps, segments,
                       torch.where(survive, pdf, -1.0), normal, src, pend)
 

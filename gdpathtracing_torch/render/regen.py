@@ -1,7 +1,8 @@
 """Path-regeneration frame loop: a persistent, always-full wavefront.
 
 Port of gdpathtracing_tpu/render/regen.py, the default frame loop of every
-primal ``Traversal.PALLAS`` render. Instead of letting the lanes of dead
+primal ``Traversal.PALLAS`` render, and the loop of ``Traversal.BRUTE`` and
+``Traversal.UNIT`` with ``regen=True``. Instead of letting the lanes of dead
 paths idle until the last bounce, every iteration refills them with the
 next unstarted paths of the frame's pool: a fresh camera ray is pure
 arithmetic of its path id (pixel = id % n_pix, sample = id // n_pix, the
@@ -11,16 +12,19 @@ standard loop (render/integrator.py), and the frame equals that loop's.
 
 One iteration traces one segment of every live lane (kernel 1, or on a
 scene of more than 16 chunks a superchunk kernel; with NEE also one shadow
-query per lane, kernel 2), shades it and samples the next
-direction. With ``regen_march=True`` on a superchunk scene that kernel 3
+query per lane, kernel 2; BRUTE and UNIT trace both with their plain
+oracles), shades it and samples the next direction (with the dielectric
+lobe and Russian roulette of the standard loop). With ``regen_march=True`` on a superchunk scene that kernel 3
 takes, an iteration is one round of the frontier march instead (kernel 7,
 :func:`ops.intersect.march_sweep`): each 256-lane block sweeps the <= QL
 superchunks its lanes want next, from each lane's carried best, and only
 the lanes whose segment resolved shade; the others keep their state, RNG
 stream position included, for the next round. Then the lanes are
 permuted: live lanes sorted by the Morton cell of their origin and the
-octant of their direction (blocks of similar rays sweep fewer chunks; the
-march sorts by the next two superchunks instead), then this iteration's
+octant of their direction on PALLAS or where ``sort_rays=True`` (blocks
+of similar rays sweep fewer chunks; the march sorts by the next two
+superchunks instead), else survivors first in lane order, then this
+iteration's
 dead, then the lanes that were dead before. Finished paths are retired by
 one contiguous append to a column-major log (or,
 ``regen_retire="scatter"``, written to their pixel at once), and the dead
@@ -52,15 +56,17 @@ from gdpathtracing_torch.ops.intersect import (BIG_E, BN, TracePrep,
                                                march_next_candidates,
                                                march_supported, march_sweep,
                                                occluded_pallas,
-                                               prepare_trace_inputs,
-                                               trace_pallas)
-from gdpathtracing_torch.render import brdf
+                                               prepare_trace_inputs)
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.integrator import (check_supported,
+                                                   continue_path,
+                                                   get_trace_fn,
+                                                   hit_visibility,
                                                    mis_emission,
                                                    morton_frame,
                                                    morton_octant_key,
                                                    not_ported, sample_direct)
+from gdpathtracing_torch.render.lights import build_light_table
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.types import MISS_T, Ray
@@ -94,28 +100,38 @@ def regen_auto(scene: Scene, config: RenderConfig) -> bool:
             and regen_supported(scene, config))
 
 
-def use_march(config: RenderConfig, prep: TracePrep) -> bool:
+def use_march(config: RenderConfig, prep: TracePrep | None) -> bool:
     """Whether regen marches (the reference's rule): ``regen_march=True``
-    on a scene :func:`ops.intersect.march_supported` takes. Elsewhere the
-    flag is ignored and the frame is the one without it."""
-    return config.regen_march is True and march_supported(prep)
+    on a PALLAS render of a scene :func:`ops.intersect.march_supported`
+    takes (``prep`` is PALLAS's, None for the oracles). Elsewhere the flag
+    is ignored and the frame is the one without it."""
+    return config.regen_march is True and prep is not None \
+        and march_supported(prep)
+
+
+def sorts_lanes(config: RenderConfig) -> bool:
+    """Whether regen sorts its lanes by a spatial key (the reference's
+    rule): ``sort_rays``, by default on PALLAS only, and only where the
+    lanes are permuted at all (``compact_rays`` not False)."""
+    sort = config.sort_rays
+    if sort is None:
+        sort = config.traversal == Traversal.PALLAS
+    return bool(sort) and config.compact_rays is not False
 
 
 def check_regen_supported(scene: Scene, config: RenderConfig,
-                          prep: TracePrep) -> None:
+                          prep: TracePrep | None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item (queue 1), for a
     regen option outside the ported slice, where the reference would use
-    it: fused NEE on a flat scene (it renders unfused NEE on a superchunk
-    one), and the first-chunk sort key where lanes are sorted without the
-    march (compaction on, ``sort_rays`` not False; the march's key takes
+    it: fused NEE on a flat PALLAS scene (it renders unfused NEE on a
+    superchunk one, and with BRUTE and UNIT), and the first-chunk sort key
+    where lanes are sorted without the march (the march's key takes
     precedence)."""
     check_supported(scene, config)
     if config.nee and scene.n_lights > 0 and config.regen_fuse_nee \
-            and not prep.superchunks:
+            and prep is not None and not prep.superchunks:
         not_ported("regen's fused NEE (regen_fuse_nee=True)", 5)
-    compact = config.compact_rays is not False
-    if config.regen_sort_key == "chunk" and compact \
-            and config.sort_rays is not False \
+    if config.regen_sort_key == "chunk" and sorts_lanes(config) \
             and not use_march(config, prep):
         not_ported("regen's first-chunk lane sort key "
                    "(regen_sort_key='chunk')", 5)
@@ -163,7 +179,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     ``render_radiance_regen.iterations``."""
     from gdpathtracing_torch.render.renderer import FrameAOVs
 
-    prep = prepare_trace_inputs(scene)
+    pallas = config.traversal == Traversal.PALLAS
+    prep = prepare_trace_inputs(scene) if pallas else None
     check_regen_supported(scene, config, prep)
     march = use_march(config, prep)
     if march:
@@ -179,7 +196,10 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     use_nee = config.nee and scene.n_lights > 0
     compact = config.compact_rays is not False
     use_log = config.regen_retire == "log" and compact
-    sort_lanes = (config.sort_rays is not False) and compact
+    sort_lanes = sorts_lanes(config)
+    table = None if not use_nee else prep.lights if pallas \
+        else build_light_table(scene)
+    trace = get_trace_fn(config)
     cell_lo, cell_span = morton_frame(scene)
 
     def spawn(path_id):
@@ -311,7 +331,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                 hit = lite_epilogue(scene, prep, r, shade, b_t,
                                     b_e.to(torch.int32))
             else:
-                hit = trace_pallas(scene, r, active, prep)
+                hit = trace(scene, r, active, prep)
                 shade, tsteps = active, hit.steps
             if return_stats:
                 it = min(iters, MAX_IT - 1)
@@ -326,44 +346,47 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             is_hit = hit.hit & shade
             segs = segs + shade.to(torch.int64)
 
-            s = get_shading_data(scene, hit, r)
+            s = get_shading_data(scene, hit, r, fast=config.traversal
+                                 != Traversal.BRUTE)
             sky = sample_sky(ray_d, config, scene)
             emission = vwhere(is_hit, s.emission, sky)
             if use_nee:
-                emission = mis_emission(scene, prep.lights, hit, r.d,
-                                        emission, is_hit, prev_pdf)
+                emission = mis_emission(scene, table, hit, r.d, emission,
+                                        is_hit, prev_pdf)
             rad = vwhere(shade, rad + tp * emission, rad)
 
             if use_nee:
-                dl, seed = sample_direct(s, tp, is_hit, seed, prep.lights,
-                                         config)
-                occ = occluded_pallas(scene, dl.shadow, dl.tmax, dl.active,
-                                      prep)
+                # PALLAS: one any-hit launch (kernel 2); the oracles: a
+                # closest hit of their own, visible where nothing is hit
+                # before the light.
+                dl, seed = sample_direct(
+                    s, tp, is_hit, seed, table, config, None if pallas
+                    else hit_visibility(trace, scene, prep))
+                direct = dl.direct
+                if pallas:
+                    occ = occluded_pallas(scene, dl.shadow, dl.tmax,
+                                          dl.active, prep)
+                    direct = direct * (~occ).to(torch.float32)
+                if scene.has_transmission:
+                    direct = direct * (1.0 - s.transmission)
                 segs = segs + dl.active.to(torch.int64)
-                rad = vwhere(active, rad + dl.direct
-                             * (~occ).to(torch.float32), rad)
+                rad = vwhere(active, rad + direct, rad)
 
             first = (bounce == 0) & is_hit
             depth1 = torch.where(first, (s.position - ray_o).length(),
                                  depth1)
             normal1 = vwhere(first, s.normal, normal1)
 
-            (r1, r2), seed = rng.pcg2d(seed)
-            new_dir = brdf.sample_brdf(s, r1, r2)
-            pdf = brdf.brdf_pdf(s, new_dir)
-            lambert_in = s.normal.dot(new_dir)
-            f = brdf.eval_brdf(s, new_dir)
-            scale = torch.where(pdf > 1e-12,
-                                lambert_in / torch.clamp(pdf, min=1e-12), 0.0)
-            survive = is_hit & (lambert_in > 0.0) & (pdf > 1e-12)
+            new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+                s, hit, r, tp, is_hit, seed, config, scene.has_transmission,
+                bounce)
             if march:
                 # A pending lane keeps its stream position.
                 seed = (torch.where(shade, seed[0], seed_before[0]),
                         torch.where(shade, seed[1], seed_before[1]))
-            ray_o = vwhere(survive, s.position + s.normal * config.ray_eps,
-                           ray_o)
+            ray_o = vwhere(survive, new_o, ray_o)
             ray_d = vwhere(survive, new_dir, ray_d)
-            tp = vwhere(survive, tp * (f * scale), tp)
+            tp = vwhere(survive, new_tp, tp)
             if march:
                 prev_pdf = torch.where(survive, pdf,
                                        torch.where(shade, -1.0, prev_pdf))

@@ -1,18 +1,22 @@
-"""Top-level render functions — port of ``render_radiance`` and ``render``
-of gdpathtracing_tpu/render/renderer.py.
+"""Top-level render functions — port of ``render_radiance``, ``render``,
+``init_post_state`` and ``render_frame`` of
+gdpathtracing_tpu/render/renderer.py.
 
 ``render_radiance`` traces one frame on the scene's device and returns the
 same AOVs as the JAX version: through the path-regeneration loop
-(render/regen.py) when ``config.regen`` asks for it or, as ``None``, by the
-reference's auto policy (every primal PALLAS render); otherwise through the
-standard loop in tiles of ``config.tile_rays`` rays (``lax.map`` over tiles
-becomes a Python loop), where each tile's ``path_trace`` runs the PALLAS or
-BVH bounce loop (BVH, the default ``RenderConfig()``'s traversal, always
-takes the standard loop) or, for ``Traversal.MEGA`` and
-``Traversal.FUSED``, the path kernels (one launch a bounce, or one a
-tile). A differentiable render
+(render/regen.py) when ``config.regen`` asks for it (PALLAS, BRUTE, UNIT)
+or, as ``None``, by the reference's auto policy (every primal PALLAS
+render); otherwise through the standard loop in tiles of
+``config.tile_rays`` rays (``lax.map`` over tiles becomes a Python loop),
+where each tile's ``path_trace`` runs the bounce loop of its traversal
+(PALLAS, BVH, the default ``RenderConfig()``'s, or the plain oracles BRUTE
+and UNIT) or, for ``Traversal.MEGA`` and ``Traversal.FUSED``, the path
+kernels (one launch a bounce, or one a tile). A differentiable render
 always takes the standard loop; its radiance carries the autograd graph
-back to the scene and camera tensors. ``render`` adds the ACES tonemap.
+back to the scene and camera tensors. ``render`` adds the ACES tonemap;
+``render_frame`` adds the post passes (progressive or temporal
+accumulation, the à-trous denoiser, the display transform) over a post
+state that ``init_post_state`` makes.
 """
 
 from __future__ import annotations
@@ -21,8 +25,15 @@ from typing import NamedTuple
 
 import torch
 
-from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.config import DenoisingMode, RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
+from gdpathtracing_torch.post.denoise import atrous_denoise
+from gdpathtracing_torch.post.display import display_transform
+from gdpathtracing_torch.post.progressive import (ProgressiveState,
+                                                  progressive_init,
+                                                  progressive_update)
+from gdpathtracing_torch.post.temporal import (TemporalState, nonlinear_depth,
+                                               temporal_init, temporal_update)
 from gdpathtracing_torch.post.tonemap import aces_film
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.ops.intersect import prepare_trace_inputs
@@ -42,11 +53,11 @@ class FrameAOVs(NamedTuple):
 
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
-    """Trace the full frame on ``scene.device``. Only the ported slice
-    renders (``Traversal.PALLAS``, ``BVH``, ``MEGA`` and ``FUSED``, see
-    ROADMAP); any other config raises NotImplementedError naming its
-    ROADMAP item, and MEGA or FUSED outside their gates, a differentiable
-    BVH render and ``regen=True`` with BVH raise ValueError."""
+    """Trace the full frame on ``scene.device``. Regen's fused NEE on a
+    flat scene and its first-chunk sort key raise NotImplementedError
+    naming their ROADMAP item; MEGA or FUSED outside their gates, a
+    differentiable BVH render and ``regen=True`` outside PALLAS, BRUTE and
+    UNIT (or with a differentiable or soft render) raise ValueError."""
     if config.regen is not False:
         if config.regen and not regen_supported(scene, config):
             raise ValueError("config.regen requires a primal "
@@ -73,8 +84,8 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
             bwd_checkpoint=resid > config.bwd_resid_budget)
 
     pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
-    prep = None if config.traversal == Traversal.BVH \
-        else prepare_trace_inputs(scene)
+    prep = prepare_trace_inputs(scene) if config.traversal in (
+        Traversal.PALLAS, Traversal.MEGA, Traversal.FUSED) else None
     frame_index = int(frame_index)
 
     outs = []
@@ -122,3 +133,43 @@ def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,
     config = config or RenderConfig()
     aovs = render_radiance(scene, camera, config, frame_index)
     return aces_film(aovs.radiance)
+
+
+def init_post_state(camera: Camera, config: RenderConfig, device="cuda"):
+    """The post state ``config.denoising`` accumulates in, at the camera's
+    resolution on ``device`` (the card unless the caller asks for
+    another): a ProgressiveState, a TemporalState, or None."""
+    if config.denoising == DenoisingMode.PROGRESSIVE:
+        return progressive_init(camera.width, camera.height, device)
+    if config.denoising == DenoisingMode.TEMPORAL:
+        return temporal_init(camera.width, camera.height, device)
+    return None
+
+
+def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
+                 state, frame_index: int = 0):
+    """One step of the frame loop: trace, accumulate (progressive or
+    temporal, by ``config.denoising``), denoise (``spatial_denoise``) and
+    the display transform. Returns (image in [0, 1] (H, W, 3), new
+    state)."""
+    aovs = render_radiance(scene, camera, config, frame_index)
+    camera = camera.to(scene.device)
+    if config.denoising == DenoisingMode.PROGRESSIVE:
+        if not isinstance(state, ProgressiveState):
+            raise TypeError("PROGRESSIVE denoising needs a ProgressiveState")
+        linear, state = progressive_update(state, aovs.radiance,
+                                           camera.transform)
+    elif config.denoising == DenoisingMode.TEMPORAL:
+        if not isinstance(state, TemporalState):
+            raise TypeError("TEMPORAL denoising needs a TemporalState")
+        depth_nl = nonlinear_depth(aovs.depth, camera.near, camera.far)
+        linear, state = temporal_update(state, aovs.radiance, depth_nl,
+                                        camera.vp(),
+                                        blend=config.temporal_blend,
+                                        depth_eps=config.temporal_depth_eps)
+    else:
+        linear = aovs.radiance
+    if config.spatial_denoise:
+        linear = atrous_denoise(linear, aovs.normal, aovs.depth,
+                                iterations=config.denoise_iterations)
+    return display_transform(linear, config), state

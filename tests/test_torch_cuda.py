@@ -1563,3 +1563,142 @@ def test_trace_bvh_kernel_matches_plain(bvh_scenes, where, tile):
     assert int(want.hit.sum()) > 100
     if bt.active is not None:
         assert bool((got.t[~bt.active] == ti._MISS).all())
+
+
+# ---- the plain oracles, transport and the frame loop on the card ---------
+
+def _tile_rays(s, cam, n=4096):
+    """Camera rays of the middle 1080p tile's first n pixels and one
+    BRDF-sampled bounce from their hits: {name: (Ray, active)}."""
+    from gdpathtracing_torch.ops import tiles as kt
+    cfg = RenderConfig(traversal=Traversal.PALLAS)
+    prep = ti.prepare_trace_inputs(s)
+    ray, hit, sh, seed = kt.middle_rays(s, cam, prep, cfg, n,
+                                        kt.middle_tile(cfg))
+    return {"primary": (ray, None),
+            "bounce 1": kt.bounce_rays(sh, hit, seed, cfg)}
+
+
+@pytest.mark.parametrize("tile", ["primary", "bounce 1"])
+@pytest.mark.parametrize("where", ["demo", "grid"])
+def test_unit_matches_kernel_1_and_brute_matches_bvh(bvh_scenes, where,
+                                                     tile):
+    """On the card, the plain oracles against the kernels: UNIT's winner
+    (eidx) is kernel 1's (or the superchunk kernel's) on >= 99.9% of the
+    rays; on those, UNIT's epilogue over the kernels' unfused sums
+    (ops/tiles.py unit_t_witness) gives t within the pinned tolerance
+    (rtol 1e-6 + atol 5e-6) on every ray, and UNIT's own t (a cuBLAS
+    product, summed with fused multiply-adds) lies within two roundings of
+    that contraction (ROADMAP §3); BRUTE's triangle and instance are the
+    BVH kernel's on >= 99.9%, t within the pinned tolerance on all of
+    those; on the demo each equals its CPU run there."""
+    from gdpathtracing_torch.ops import tiles as kt
+    from gdpathtracing_torch.render.intersect import trace_brute, trace_unit
+    from gdpathtracing_torch.render.traverse import trace_bvh
+    s, cam = bvh_scenes[where]
+    ray, active = _tile_rays(s, cam)[tile]
+    prep = ti.prepare_trace_inputs(s)
+    unit = trace_unit(s, ray, active)
+    k1 = ti.trace_pallas(s, ray, active, prep)
+    same = unit.eidx == k1.eidx
+    assert float(same.double().mean()) >= 0.999
+    both = same & k1.hit
+    assert int(both.sum()) > 1000
+    t_w, bound = (x[both] for x in kt.unit_t_witness(s, ray, k1.eidx,
+                                                       k1.t))
+    assert bool(torch.isclose(t_w, k1.t[both], rtol=1e-6, atol=5e-6).all())
+    assert bool(((unit.t[both] - k1.t[both]).abs().double() <= bound).all())
+    brute = trace_brute(s, ray, active)
+    bvh = trace_bvh(s, ray, active)
+    same = (brute.tri == bvh.tri) & (brute.inst == bvh.inst)
+    assert float(same.double().mean()) >= 0.999
+    on = same & bvh.hit
+    assert bool(torch.isclose(brute.t[on], bvh.t[on], rtol=1e-6,
+                              atol=5e-6).all())
+    if where != "demo":
+        return
+    cpu = ray.__class__(*(type(v)(*(x.cpu() for x in v)) for v in ray))
+    cact = None if active is None else active.cpu()
+    for got, fn in ((unit, trace_unit), (brute, trace_brute)):
+        want = fn(s.to("cpu"), cpu, cact)
+        eq = (got.tri.cpu() == want.tri) & (got.inst.cpu() == want.inst)
+        assert float(eq.double().mean()) >= 0.999
+
+
+def test_oracles_take_the_first_of_equal_hits_on_the_card():
+    """torch.argmin on CUDA returns the first index of equal minima, as
+    on the CPU: four copies of a quad at one place, every ray's winner
+    the lowest instance (BRUTE) and expanded index (UNIT)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from gdpathtracing_torch.render.intersect import trace_brute, trace_unit
+    from gdpathtracing_torch.render.types import Ray
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.scene.materials import Material
+    from gdpathtracing_torch.scene.primitives import quad_ccw
+    from gdpathtracing_torch.scene.scene import SceneBuilder
+    b = SceneBuilder()
+    mesh = b.add_mesh([quad_ccw([-1, -1, 0], [1, -1, 0], [1, 1, 0],
+                                [-1, 1, 0])])
+    for k in range(4):
+        b.add_instance(mesh, np.eye(4, dtype=np.float32)[:3],
+                       materials=[Material(albedo=(0.2 * k, 0.5, 0.5))])
+    s = b.build("cuda")
+    g = np.random.default_rng(5)
+    n = 65536
+    o = torch.from_numpy(np.stack([g.uniform(-0.7, 0.7, n),
+                                   g.uniform(-0.7, 0.7, n),
+                                   np.full(n, 2.0)]).astype(np.float32))
+    d = torch.from_numpy(np.stack([g.uniform(-0.1, 0.1, n),
+                                   g.uniform(-0.1, 0.1, n),
+                                   -np.ones(n)]).astype(np.float32))
+    for dev in ("cuda", "cpu"):
+        ray = Ray(Vec3(*o.to(dev)), Vec3(*d.to(dev)))
+        sd = s.to(dev)
+        assert bool((trace_brute(sd, ray).inst == 0).all())
+        unit = trace_unit(sd, ray)
+        first = torch.stack([torch.nonzero(sd.isect_tri == t)[0, 0]
+                             for t in range(2)])
+        assert torch.equal(unit.eidx.long(), first[unit.tri.long()])
+
+
+@pytest.mark.parametrize("change", [
+    dict(traversal=Traversal.BRUTE, rr_start=2, bounces=5),
+    dict(traversal=Traversal.UNIT, nee=True, soft_shadows=0.05),
+    dict(traversal=Traversal.UNIT, regen=True, nee=True)],
+    ids=["brute_rr", "unit_soft", "unit_regen_nee"])
+def test_oracle_render_cuda_matches_cpu(scene, change):
+    """BRUTE with Russian roulette, UNIT with soft shadows and UNIT regen
+    with NEE at 32x24 on the card and on the CPU: radiance within 1e-4 on
+    >= 99% of the pixels (the card rounds sqrt, sin and cos as IEEE and
+    CUDA do; ROADMAP §3), segments equal there."""
+    cam = demo_camera(32, 24)
+    cfg = RenderConfig(**{"bounces": 3, **change})
+    a = render_radiance(scene.to("cuda"), cam, cfg, 2)
+    b = render_radiance(scene, cam, cfg, 2)
+    assert a.radiance.device.type == "cuda"
+    ok = (torch.abs(a.radiance.cpu() - b.radiance) <= 1e-4).all(dim=-1)
+    assert float(ok.double().mean()) >= 0.99
+    assert torch.equal(a.segments.cpu()[ok], b.segments[ok])
+
+
+def test_engine_on_the_card_matches_cpu(scene):
+    """Four Engine steps with temporal accumulation and the denoiser under
+    a moving camera, on the card and on the CPU: the state stays on the
+    card, the images agree within 2e-3 on >= 95% of the pixels."""
+    from gdpathtracing_torch import DenoisingMode, Engine
+    from gdpathtracing_torch.render.camera import Camera
+    cfg = RenderConfig(traversal=Traversal.UNIT, bounces=2,
+                       denoising=DenoisingMode.TEMPORAL, spatial_denoise=True)
+    gpu, cpu = Engine(scene.to("cuda"), cfg), Engine(scene, cfg)
+    for k in range(4):
+        a = 0.08 * k
+        cam = Camera.looking_at((9.7694 * np.sin(a), 0.3 * k,
+                                 9.7694 * np.cos(a)), (0, 0, 0),
+                                fov_deg=79.5, width=32, height=24)
+        x, y = gpu.step(cam), cpu.step(cam)
+        assert x.device.type == "cuda"
+        ok = torch.isclose(x.cpu(), y, rtol=2e-3, atol=2e-3).all(dim=-1)
+        assert float(ok.double().mean()) >= 0.95
+    assert all(t.device.type == "cuda" for t in gpu._state)
+    assert gpu.to_uint8(x).shape == (24, 32, 3)

@@ -5,7 +5,9 @@ gdpathtracing_torch (diff/ and scene/dynamic.py among them) and renders
 a differentiable render with soft shadows through diff/'s re-posed
 instances, whose transform gradient it takes, and the path kernels'
 traversals (MEGA with NEE, FUSED); and a 16x12 frame of the mid grid
-through regen's frontier march (kernel 7's plain version)."""
+through regen's frontier march (kernel 7's plain version); the oracles
+BRUTE (with Russian roulette) and UNIT (regen, with NEE), and two Engine
+steps with temporal accumulation and the denoiser."""
 
 from __future__ import annotations
 
@@ -66,6 +68,19 @@ ti.march_step_sc_plain = lambda *a: rounds.append(1) or plain(*a)
 m = render_radiance(mid, grid_camera(16, 12, n=4), march)
 assert rounds and bool(torch.isfinite(m.radiance).all())
 assert int(m.segments.sum()) >= 16 * 12
+for cfg in (RenderConfig(traversal=Traversal.BRUTE, bounces=4, rr_start=2),
+            RenderConfig(traversal=Traversal.UNIT, bounces=2, nee=True,
+                         regen=True)):
+    o = render_radiance(scene, demo_camera(16, 16), cfg)
+    assert bool(torch.isfinite(o.radiance).all())
+    assert int(o.segments.sum()) >= 16 * 16
+from gdpathtracing_torch import DenoisingMode, Engine
+eng = Engine(scene, RenderConfig(traversal=Traversal.UNIT, bounces=2,
+                                 denoising=DenoisingMode.TEMPORAL,
+                                 spatial_denoise=True))
+for _ in range(2):
+    img = eng.step(demo_camera(16, 16))
+assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jaxlib",)
           or (m.startswith("gdpathtracing_tpu") and sys.modules[m] is not None)]
 assert not leaked, leaked

@@ -24,7 +24,7 @@ from gdpathtracing_tpu.scene.demo import (build_demo_scene as jax_demo_scene,
 
 from gdpathtracing_torch.config import Jitter, RenderConfig, Traversal
 from gdpathtracing_torch.ops import intersect as ti
-from gdpathtracing_torch.render import regen
+from gdpathtracing_torch.render import integrator, regen
 from gdpathtracing_torch.render.regen import MAX_IT, render_radiance_regen
 from gdpathtracing_torch.render.renderer import render_radiance
 from gdpathtracing_torch.scene.demo import (build_demo_scene,
@@ -159,7 +159,7 @@ def test_regen_sweep_stats_are_the_rows_counters(scene, monkeypatch, where):
         pscene, cam = _mid_grid()
         monkeypatch.setattr(ti, "_SC_LITE", where == "lite")
     calls = []
-    trace = regen.trace_pallas
+    trace = integrator.trace_pallas
 
     def recording(*a):
         hit = trace(*a)
@@ -169,7 +169,7 @@ def test_regen_sweep_stats_are_the_rows_counters(scene, monkeypatch, where):
                                                dim=1).tolist())))
         return hit
 
-    monkeypatch.setattr(regen, "trace_pallas", recording)
+    monkeypatch.setattr(integrator, "trace_pallas", recording)
     _, stats = render_radiance_regen(pscene, cam,
                                      BASE.replace(regen_wavefront=256), 1,
                                      return_stats=True)
@@ -199,7 +199,7 @@ def test_regen_sweep_stats_sum_each_blocks_first_lane(scene, monkeypatch):
     on a block's first lane, 1e6 on the others), through 512 lanes and a
     drain stage of 256: an iteration of b blocks sums 1000 * b(b+1)/2 and
     7b, whatever the other lanes hold."""
-    trace = regen.trace_pallas
+    trace = integrator.trace_pallas
     sizes = []
 
     def hand_set(*a):
@@ -211,7 +211,7 @@ def test_regen_sweep_stats_sum_each_blocks_first_lane(scene, monkeypatch):
         sizes.append(rows.shape[1] // ti.BN)
         return hit._replace(rows=rows)
 
-    monkeypatch.setattr(regen, "trace_pallas", hand_set)
+    monkeypatch.setattr(integrator, "trace_pallas", hand_set)
     _, stats = render_radiance_regen(
         scene, demo_camera(W, H),
         BASE.replace(regen_wavefront=512, regen_drain=True,
@@ -293,9 +293,13 @@ def test_regen_gate(scene):
     with pytest.raises(ValueError, match="regen"):
         render_radiance(scene, cam, BASE.replace(regen=True,
                                                  differentiable=True))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        render_radiance(scene, cam, BASE.replace(
-            regen=True, traversal=Traversal.BRUTE))
+    # BRUTE takes regen (it raised until item 3 came in): the frame of its
+    # standard loop, bit for bit.
+    brute = BASE.replace(regen=True, traversal=Traversal.BRUTE)
+    for a, b in zip(render_radiance(scene, cam, brute, 2),
+                    render_radiance(scene, cam, brute.replace(regen=False),
+                                    2)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="regen requires a primal"):
         render_radiance(scene, cam, BASE.replace(
             regen=True, traversal=Traversal.BVH))

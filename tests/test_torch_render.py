@@ -163,6 +163,37 @@ def test_render_tonemaps(scene):
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
 
 
+def _jax_frame(change: dict, w: int, h: int, frame: int = 0):
+    """JAX's render_radiance of SLICE.replace(**change) on the demo (the
+    PALLAS kernels in interpret mode)."""
+    kw = dict(traversal=JTraversal.PALLAS, regen=False)
+    kw.update({k: getattr(JTraversal, v.name) if isinstance(v, Traversal)
+               else v for k, v in change.items()})
+    old = jip._FORCE_INTERPRET
+    jip._FORCE_INTERPRET = True
+    try:
+        return jax_render_radiance(
+            jax_demo_scene(texture_resolution=8, sphere_detail=6),
+            jax_demo_camera(w, h), JRenderConfig(**kw), frame)
+    finally:
+        jip._FORCE_INTERPRET = old
+
+
+def _matches_jax(got, ref):
+    """Radiance within test_golden.py's 2e-3 on >= 99% of pixels, segments
+    equal there."""
+    ok = np.isclose(got.radiance.numpy(), np.asarray(ref.radiance),
+                    rtol=2e-3, atol=2e-3).all(axis=-1)
+    assert ok.mean() >= MIN_PIXELS_OK, (~ok).sum()
+    np.testing.assert_array_equal(got.segments.numpy()[ok],
+                                  np.asarray(ref.segments)[ok])
+
+
+# Item 5 of ROADMAP queue 1: regen's fused NEE on a flat scene and its
+# first-chunk sort key on sorted lanes still raise.
+ITEM_5 = ("regen_fuse_nee", "regen_sort_key")
+
+
 @pytest.mark.parametrize("change", [
     dict(traversal=Traversal.BVH, rr_start=2),
     dict(regen=True, nee=True, regen_fuse_nee=True),
@@ -173,17 +204,36 @@ def test_render_tonemaps(scene):
     dict(traversal=Traversal.BRUTE), dict(rr_start=2),
     dict(traversal=Traversal.UNIT)])
 def test_outside_the_slice_raises(scene, change):
+    """Regen's item-5 options raise, naming the ROADMAP; what item 3
+    brought in (BRUTE, UNIT, Russian roulette on PALLAS and BVH) renders:
+    finite, on the scene's device, and equal to JAX's frame at 16x16
+    (3 bounces; 5 with Russian roulette, which starts at bounce 2)."""
     cfg = SLICE.replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_radiance(scene, demo_camera(8, 8), cfg)
+    if any(k in change for k in ITEM_5):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_radiance(scene, demo_camera(8, 8), cfg)
+        return
+    bounces = 5 if "rr_start" in change else 3
+    got = render_radiance(scene, demo_camera(16, 16),
+                          cfg.replace(bounces=bounces), 1)
+    assert got.radiance.device == scene.device
+    assert bool(torch.isfinite(got.radiance).all())
+    _matches_jax(got, _jax_frame(dict(change, bounces=bounces), 16, 16, 1))
 
 
 def test_default_config_raises(scene):
-    """The default config (Traversal.BVH) renders (tests/test_torch_bvh.py);
-    what it still refuses names its ROADMAP item: Russian roulette and
-    transmission (item 3)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        render(scene, demo_camera(8, 8), RenderConfig(rr_start=2))
+    """The default config (Traversal.BVH) with Russian roulette renders
+    (it raised until item 3 came in): ``render`` tonemaps it, and the
+    linear frame equals JAX's at 16x16, 5 bounces."""
+    cfg = RenderConfig(rr_start=2, bounces=5)
+    img = render(scene, demo_camera(16, 16), cfg, 2)
+    lin = render_radiance(scene, demo_camera(16, 16), cfg, 2)
+    assert torch.equal(img, aces_film(lin.radiance))
+    assert img.device == scene.device
+    assert bool(torch.isfinite(img).all())
+    _matches_jax(lin, jax_render_radiance(
+        jax_demo_scene(texture_resolution=8, sphere_detail=6),
+        jax_demo_camera(16, 16), JRenderConfig(rr_start=2, bounces=5), 2))
 
 
 @pytest.mark.parametrize("lite", [True, False], ids=["lite", "rows"])

@@ -122,6 +122,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the grid's albedo gradient; checks the launches of each step and the
    gradient, prints ms per step, Msegments/s (forward segments), peak
    device memory, and one more step under torch.profiler;
+3c. the last modules, at 1920x1080 (1 spp, 5 bounces): regen's fused NEE
+   (kernel 4 once an iteration, the shadow queries deferred one
+   iteration) against its unfused NEE (kernels 1 and 2), in turns, on the
+   demo and the glass room, each fused frame equal to the standard loop +
+   NEE frame (segments equal, radiance within 1e-4) and at 64x48 to its
+   CPU render; the first-chunk lane key (``regen_sort_key="chunk"``)
+   against the default key, in turns, on the demo (8 chunk boxes) and the
+   grid (47 superchunk boxes), every frame equal to the default key's;
+   the command line in a subprocess (``python3 -m gdpathtracing_torch
+   render demo`` at 1080p, 8 frames, then ``info demo``): exit code, PNG
+   signature, JSON keys, the steady fps it prints; a JSON scene with OBJ
+   meshes and a PNG texture and a GLB of the demo room, written from
+   built-in geometry, loaded on the card, rendered at 1080p and held at
+   64x48 against their CPU renders; the native BVH builder against the
+   NumPy builder on the grid's 96004 world-space triangles as one mesh
+   (bit-identical trees, both host times); the demo frame sharded over
+   ``torch.cuda.device_count()`` ranks on NCCL (PALLAS standard loop,
+   with and without NEE) bit-equal to the single-device frame, and the
+   sharded albedo gradient within rtol 1e-5 of the single one; a NaN tile
+   and a dropped tile injected into a 1080p PALLAS frame, each healed by
+   ``render_with_retry`` with one retry, bit-identical to the clean frame;
 4. renders 64x48 on the GPU and on the CPU for each demo path (MEGA with
    and without NEE, FUSED, BVH, BRUTE, UNIT ± NEE and the Russian
    roulette paths among them), each glass-room path, and the grid's regen
@@ -221,9 +242,12 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, torch) -> float:
-    """Mean milliseconds per call, by CUDA events around `iters` calls."""
-    fn()
+def cuda_ms(fn, iters: int, torch, warm: bool = True) -> float:
+    """Mean milliseconds per call, by CUDA events around `iters` calls,
+    after one untimed call unless ``warm`` is false (a plain version that
+    its check has just called on the same inputs)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -371,6 +395,480 @@ def orbit_camera(k: int, width: int, height: int):
                              fov_deg=79.5, width=width, height=height)
 
 
+def write_obj(path: Path, surfaces) -> None:
+    """A Wavefront OBJ of ``surfaces`` (bvh.blas.Surface), one ``usemtl``
+    group each, with positions, uvs and normals per corner."""
+    lines, n = [], 0
+    for k, s in enumerate(surfaces):
+        lines.append(f"usemtl s{k}")
+        for tri, nrm, uv in zip(s.positions, s.normals, s.uvs):
+            for p, q, t in zip(tri, nrm, uv):
+                lines += [f"v {p[0]:.9g} {p[1]:.9g} {p[2]:.9g}",
+                          f"vt {t[0]:.9g} {t[1]:.9g}",
+                          f"vn {q[0]:.9g} {q[1]:.9g} {q[2]:.9g}"]
+            lines.append("f " + " ".join(f"{i}/{i}/{i}"
+                                         for i in (n + 1, n + 2, n + 3)))
+            n += 3
+    path.write_text("\n".join(lines) + "\n")
+
+
+def write_glb(path: Path, meshes, nodes) -> None:
+    """A binary glTF: ``meshes`` a list of [(Surface, Material)] (one
+    primitive each, non-indexed POSITION, NORMAL, TEXCOORD_0),
+    ``nodes`` a list of (mesh index, (3, 4) affine)."""
+    import struct
+    import numpy as np
+    blob, views, accessors, prims, materials = b"", [], [], [], []
+
+    def add(arr, kind):
+        nonlocal blob
+        arr = np.ascontiguousarray(arr, np.float32)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": arr.nbytes})
+        accessors.append({"bufferView": len(views) - 1,
+                          "componentType": 5126, "count": len(arr),
+                          "type": kind})
+        blob += arr.tobytes()
+        return len(accessors) - 1
+
+    for mesh in meshes:
+        ps = []
+        for s, m in mesh:
+            materials.append({
+                "pbrMetallicRoughness": {
+                    "baseColorFactor": [*m.albedo, 1.0],
+                    "metallicFactor": m.metallic,
+                    "roughnessFactor": m.roughness},
+                "emissiveFactor": [e * m.emission_energy
+                                   for e in m.emission]})
+            ps.append({"attributes": {
+                "POSITION": add(s.positions.reshape(-1, 3), "VEC3"),
+                "NORMAL": add(s.normals.reshape(-1, 3), "VEC3"),
+                "TEXCOORD_0": add(s.uvs.reshape(-1, 2), "VEC2")},
+                "material": len(materials) - 1})
+        prims.append({"primitives": ps})
+    gl_nodes = []
+    for mesh, affine in nodes:
+        m4 = np.eye(4, dtype=np.float64)
+        m4[:3] = affine
+        gl_nodes.append({"mesh": mesh, "matrix": m4.T.ravel().tolist()})
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(gl_nodes)))}],
+           "nodes": gl_nodes, "meshes": prims, "materials": materials,
+           "accessors": accessors, "bufferViews": views,
+           "buffers": [{"byteLength": len(blob)}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\x00" * (-len(blob) % 4)
+    path.write_bytes(struct.pack("<III", 0x46546C67, 2,
+                                 12 + 8 + len(js) + 8 + len(blob))
+                     + struct.pack("<II", len(js), 0x4E4F534A) + js
+                     + struct.pack("<II", len(blob), 0x004E4942) + blob)
+
+
+def world_triangles(scene):
+    """(T, 3, 3) float32: every instance's triangles in world space."""
+    import numpy as np
+    tp = scene.tri_pos.cpu().numpy()
+    tf = scene.inst_transform.cpu().numpy()
+    return np.concatenate([
+        tp[f:f + c] @ tf[i, :, :3].T + tf[i, :, 3]
+        for i, (f, c) in enumerate(zip(scene.inst_tri_first,
+                                       scene.inst_tri_count))]
+    ).astype(np.float32)
+
+
+def shard_inputs(device: str):
+    """What each rank of phase 3c's sharded render renders: the demo scene
+    on ``device``, the 1080p camera, the frames' configs (PALLAS, standard
+    loop, ± NEE) and the gradient's config. Rank 0 and the shard workers
+    all take theirs from here, so every rank renders the same frame."""
+    from gdpathtracing_torch.config import RenderConfig, Traversal
+    from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+    std = RenderConfig(traversal=Traversal.PALLAS, regen=False)
+    return (build_demo_scene(device=device), demo_camera(W, H),
+            [std, std.replace(nee=True)], std.replace(differentiable=True))
+
+
+def sharded_sequence(scene, cam, frames, grad_cfg):
+    """The collective calls of one rank in phase 3c: the sharded frame of
+    each config in ``frames``, then the gradient of a sharded
+    differentiable render's image MSE against a zero target with respect
+    to ``mat_albedo``. Returns (frames' AOVs, gradient, seconds each)."""
+    import torch
+    from gdpathtracing_torch.diff import image_mse, replace_albedo
+    from gdpathtracing_torch.parallel import render_radiance_sharded
+    out, secs = [], []
+    for c in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(render_radiance_sharded(scene, cam, c, 1))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    albedo = scene.mat_albedo.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    aovs = render_radiance_sharded(replace_albedo(scene, albedo), cam,
+                                   grad_cfg, 0)
+    image_mse(aovs.radiance, torch.zeros_like(aovs.radiance)).backward()
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    return out, albedo.grad, secs
+
+
+def shard_worker(rank: int, world: int, port: int) -> None:
+    """Rank ``rank`` > 0 of phase 3c's NCCL group, on card ``rank``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(HERE))
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    inputs = shard_inputs(f"cuda:{rank}")
+    for _ in range(2):  # as rank 0: once to warm up, once timed
+        sharded_sequence(*inputs)
+    dist.destroy_process_group()
+
+
+def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
+                 cfg, grid, grid_cam, glass) -> None:
+    """Phase 3c: regen's fused NEE and first-chunk key, the command line,
+    loaded scenes, the native builder, sharding and fault recovery."""
+    import socket
+    import numpy as np
+    import torch.distributed as dist
+    from gdpathtracing_torch.bvh import native
+    from gdpathtracing_torch.bvh.blas import BLASBuilder, Surface
+    from gdpathtracing_torch.cli import write_png
+    from gdpathtracing_torch.ops.build import BUILD_DIR
+    from gdpathtracing_torch.parallel import (inject_tile_fault,
+                                              render_with_retry,
+                                              tile_health)
+    from gdpathtracing_torch.render.regen import render_radiance_regen
+    from gdpathtracing_torch.render.renderer import render_radiance
+    from gdpathtracing_torch.scene import demo
+    from gdpathtracing_torch.scene.demo import demo_camera
+    from gdpathtracing_torch.scene.gltfloader import load_gltf_scene
+    from gdpathtracing_torch.scene.primitives import cornell_box, uv_sphere
+    from gdpathtracing_torch.scene.sceneformat import load_scene_file
+
+    def counted(fn):
+        """(fn(), its launches of each kernel, its regen iterations, its
+        seconds), every count set to 0 just before; the launches are
+        added to the kernels line's."""
+        for f in kernels.values():
+            f.launches = 0
+        render_radiance_regen.iterations = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: f.launches for k, f in kernels.items()}
+        for k, v in got.items():
+            launches[k] += v
+        return out, got, render_radiance_regen.iterations, secs
+
+    def nonzero(got):
+        return {k: v for k, v in got.items() if v}
+
+    def equal_frames(a, b):
+        """Every AOV of two frames equal bit for bit, on one device."""
+        return all(x.dtype == y.dtype and x.device == y.device and (
+            torch.equal(x.view(torch.int32), y.view(torch.int32))
+            if x.dtype == torch.float32 else torch.equal(x, y))
+            for x, y in zip(a, b))
+
+    def in_turns(what, pscene, pcam, variants, want, rounds=3):
+        """Render each (label, config) of ``variants`` in turns, rounds + 1
+        times (the first untimed), at frame index r in round r; checks
+        each frame's launches against ``want(label, iters)``; returns
+        {label: [frames]}, after printing the medians and one profiled
+        frame each."""
+        frames = {lab: [] for lab, _ in variants}
+        secs = {lab: [] for lab, _ in variants}
+        for r in range(rounds + 1):
+            for lab, c in variants:
+                aovs, got, iters, s = counted(
+                    lambda: render_radiance(pscene, pcam, c, r))
+                check(bool(torch.isfinite(aovs.radiance).all())
+                      and int(aovs.segments.sum()) >= W * H,
+                      f"{what}, {lab}, frame {r}: not finite or too few "
+                      f"segments")
+                check(nonzero(got) == want(lab, iters),
+                      f"{what}, {lab}: launches {nonzero(got)}, expected "
+                      f"{want(lab, iters)}")
+                frames[lab].append(aovs)
+                if r:
+                    secs[lab].append(s)
+                if r == rounds:
+                    log(f"{what}, {lab}: launches {nonzero(got)}, {iters} "
+                        f"regen iterations a frame")
+        for lab, c in variants:
+            med = statistics.median(secs[lab])
+            log(f"1080p {what}, {lab}, in turns: frames "
+                + ", ".join(f"{s * 1e3:.1f}" for s in secs[lab])
+                + f" ms, median {med * 1e3:.1f} ms; on {card}")
+            profile_step(f"{what}, {lab}", lambda: render_radiance(
+                pscene, pcam, c, rounds + 1), torch, med * 1e3,
+                kernel_symbols)
+        return frames
+
+    # Regen's fused NEE (kernel 4 once an iteration, no kernel 2) against
+    # its unfused NEE (kernels 1 and 2 once an iteration), in turns, on the
+    # demo and the glass room (both flat); the fused frame must equal the
+    # standard loop + NEE frame (segments equal, radiance within 1e-4).
+    nee = cfg.replace(nee=True)
+
+    def nee_launches(lab, iters):
+        if lab == "fused":
+            return {"closest_hit_rows_nee": iters}
+        return {"closest_hit_rows": iters, "occluded": iters}
+
+    for what, pscene in (("demo, regen + NEE", scene),
+                         ("glass, regen + NEE", glass)):
+        frames = in_turns(what, pscene, cam, [
+            ("unfused", nee), ("fused", nee.replace(regen_fuse_nee=True))],
+            nee_launches)
+        std = render_radiance(pscene, cam, nee.replace(regen=False), 3)
+        got = frames["fused"][3]
+        err = float((got.radiance - std.radiance).abs().max())
+        same = equal_frames(got, frames["unfused"][3])
+        log(f"{what}, fused, frame 3: radiance max |diff| {err:.3g} from "
+            f"the standard loop + NEE frame, segments "
+            f"{'equal' if torch.equal(got.segments, std.segments) else 'DIFFER'}"
+            f"; {'bit-equal to' if same else 'differs from'} the unfused "
+            f"frame")
+        check(torch.equal(got.segments, std.segments) and err <= 1e-4,
+              f"{what}: the fused frame differs from the standard loop's")
+        fused = nee.replace(regen_fuse_nee=True)
+        compare_frames(*(render_radiance(sc, demo_camera(SMALL_W, SMALL_H),
+                                         fused, SMALL_FRAME)
+                         for sc in (pscene, pscene.to("cpu"))),
+                       f"{SMALL_W}x{SMALL_H} {what}, fused, cuda vs cpu")
+
+    # The first-chunk lane key against the default (Morton) key, in turns:
+    # the demo's 8 chunk boxes, the grid's 47 superchunk boxes; each frame
+    # must equal the default key's.
+    for what, pscene, pcam, trace in (
+            ("demo, regen", scene, cam, "closest_hit_rows"),
+            ("grid, regen", grid, grid_cam, "closest_hit_sc_lite")):
+        frames = in_turns(what, pscene, pcam, [
+            ("default key", cfg), ("chunk key",
+                                   cfg.replace(regen_sort_key="chunk"))],
+            lambda lab, iters, trace=trace: {trace: iters})
+        for r, (a, b) in enumerate(zip(frames["chunk key"],
+                                       frames["default key"])):
+            check(equal_frames(a, b), f"{what}, frame {r}: the chunk key's "
+                  f"frame differs from the default key's")
+        log(f"{what}: the chunk key's frames equal the default key's")
+
+    # The command line, as a user starts it: 8 frames of the demo at 1080p
+    # (Engine, progressive, ACES) to a PNG, and `info`.
+    out_png = BUILD_DIR / "cli.png"
+    out_png.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gdpathtracing_torch", "render", "demo",
+         "--width", str(W), "--height", str(H), "--frames", "8", "--out",
+         str(out_png)], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI's render failed "
+          f"(rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    check(out_png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n",
+          "the CLI wrote no PNG")
+    fps = re.search(r"(\d+) frames in ([\d.]+)s \(([\d.]+) fps\)",
+                    proc.stderr)
+    first = re.search(r"first frame[^:]*: ([\d.]+)s", proc.stderr)
+    check(fps is not None and first is not None,
+          f"the CLI printed no timing: {proc.stderr[-1000:]}")
+    log(f"CLI: python3 -m gdpathtracing_torch render demo --width {W} "
+        f"--height {H} --frames 8: exit 0 in {cli_s:.1f} s, first frame "
+        f"{first.group(1)} s, then {fps.group(1)} frames in "
+        f"{fps.group(2)} s ({fps.group(3)} fps steady); on {card}")
+    proc = subprocess.run([sys.executable, "-m", "gdpathtracing_torch",
+                           "info", "demo"], cwd=HERE, capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"the CLI's info failed: {proc.stderr}")
+    info = json.loads(proc.stdout)
+    check(sorted(info) == ["blas_nodes", "expanded_triangles", "instances",
+                           "materials", "textures", "tlas_nodes",
+                           "triangles"] and info["triangles"] == 980,
+          f"the CLI's info: {info}")
+    log(f"CLI: info demo: {json.dumps(info)}")
+
+    # Loaded scenes, written here from built-in geometry: a JSON scene
+    # with OBJ meshes and a PNG texture, and a GLB of the demo room's
+    # geometry; each rendered at 1080p (PALLAS regen) and held at 64x48
+    # against its CPU render.
+    d = BUILD_DIR / "loaded_scenes"
+    d.mkdir(parents=True, exist_ok=True)
+    write_obj(d / "room.obj", cornell_box(size=5.0))
+    write_obj(d / "ball.obj", uv_sphere(radius=1.0, rings=12, segments=24))
+    checker = np.kron((np.indices((8, 8)).sum(axis=0) % 2)[..., None],
+                      np.ones((16, 16, 1))) * np.array([200, 60, 40]) + 40
+    write_png(d / "checker.png", checker.astype(np.uint8))
+    (d / "scene.json").write_text(json.dumps({
+        "meshes": {"room": {"obj": "room.obj"}, "ball": {"obj": "ball.obj"},
+                   "light": {"primitive": "plane", "size": 2.0}},
+        "materials": {
+            "grey": {"albedo": [1, 1, 1], "roughness": 0.6},
+            "red": {"albedo": [1.0, 0.16, 0.16]},
+            "green": {"albedo": [0.42, 1.0, 0.13]},
+            "lamp": {"emission": [1, 1, 1], "emission_energy": 10},
+            "checker": {"albedo_texture": "checker.png",
+                        "roughness": 0.5}},
+        "instances": [
+            {"mesh": "light", "materials": "lamp",
+             "transform": {"position": [0, 2.95, 0],
+                           "rotation_deg": [180, 0, 0]}},
+            {"mesh": "room", "materials": ["grey", "red", "green"],
+             "transform": {"rotation_deg": [0, 90, 0], "scale": 0.6}},
+            {"mesh": "ball", "material_override": "checker",
+             "transform": {"position": [0.3, -0.9, -0.5],
+                           "rotation_deg": [20, 30, 0]}}],
+        "camera": {"position": [0, 0, 9.77], "look_at": [0, 0, 0],
+                   "fov": 79.5}}))
+    light, box, mirror = demo.LIGHT_MAT, demo.BOX_GREY, demo.MIRROR_MAT
+    from gdpathtracing_torch.scene.primitives import plane_mesh
+    write_glb(d / "demo_room.glb", [
+        [(s, light) for s in plane_mesh(size=2.0)],
+        list(zip(demo.load_demo_geometry("cornell"),
+                 [box, demo.BOX_RED, demo.BOX_GREEN])),
+        [(s, mirror) for s in demo.load_demo_geometry("suzanne")]],
+        [(k, scene.inst_transform[i].cpu().numpy())
+         for i, k in enumerate((0, 1, 2, 2))])
+    loaders = {
+        "JSON scene (OBJ meshes, PNG texture)": lambda device, w, h:
+            load_scene_file(d / "scene.json", width=w, height=h,
+                            device=device),
+        "GLB (the demo room)": lambda device, w, h:
+            (load_gltf_scene(d / "demo_room.glb", device=device),
+             demo_camera(w, h))}
+    for what, load in loaders.items():
+        t0 = time.perf_counter()
+        lscene, lcam = load("cuda", W, H)
+        load_s = time.perf_counter() - t0
+        check(lscene.device.type == "cuda", f"{what}: not on the card")
+        aovs, got, iters, s = counted(
+            lambda: render_radiance(lscene, lcam, cfg, 1))
+        check(nonzero(got) == {"closest_hit_rows": iters},
+              f"{what}: launches {nonzero(got)}")
+        check(bool(torch.isfinite(aovs.radiance).all())
+              and int(aovs.segments.sum()) >= W * H,
+              f"{what}: not finite or too few segments")
+        log(f"{what}: {lscene.n_tris} triangles, {lscene.n_instances} "
+            f"instances, {tuple(lscene.textures.shape)} textures, loaded "
+            f"in {load_s:.2f} s; 1080p PALLAS regen {s * 1e3:.1f} ms "
+            f"(first frame), {iters} regen iterations; on {card}")
+        small = [load(device, SMALL_W, SMALL_H) for device in ("cuda",
+                                                               "cpu")]
+        compare_frames(*(render_radiance(sc, c, cfg, SMALL_FRAME)
+                         for sc, c in small),
+                       f"{SMALL_W}x{SMALL_H} {what}, cuda vs cpu")
+
+    # The native BVH builder (native/bvh_builder.cpp through bvh/native.py,
+    # built into build/gdpathtracing_torch/) against the NumPy builder on
+    # the grid's world-space triangles as one mesh: bit-identical trees.
+    soup = world_triangles(grid)
+    check(native.available(), "the native BVH builder does not build")
+    trees, secs = [], []
+    for backend in ("native", "numpy"):
+        t0 = time.perf_counter()
+        b = BLASBuilder(backend=backend)
+        b.build_mesh([Surface(positions=soup)])
+        trees.append(b.finalize())
+        secs.append(time.perf_counter() - t0)
+    for k in ("node_min", "node_max", "node_left", "node_right",
+              "node_first", "node_count", "tri_pos", "tri_slot"):
+        check(np.array_equal(getattr(trees[0], k), getattr(trees[1], k)),
+              f"the native builder's {k} differs from the NumPy builder's")
+    log(f"native BVH builder, the n=10 grid's {len(soup)} world-space "
+        f"triangles as one mesh: native {secs[0]:.3f} s, NumPy "
+        f"{secs[1]:.3f} s on the host, {len(trees[0].node_min)} nodes, "
+        f"bit-identical trees")
+
+    # Sharding: one rank a card on NCCL; the sharded 1080p demo frame
+    # (PALLAS, standard loop, ± NEE) must equal the single-device frame bit
+    # for bit, and the sharded albedo gradient the single one (rtol 1e-5).
+    world = torch.cuda.device_count()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    workers = [subprocess.Popen([sys.executable, str(Path(__file__)),
+                                 "--shard-worker", str(r), str(world),
+                                 str(port)], cwd=HERE)
+               for r in range(1, world)]
+    try:
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=world)
+        sscene, scam, sframes, grad_cfg = shard_inputs("cuda")
+        # Once to warm up (the group's first collectives), once timed.
+        for _ in range(2):
+            (sharded, g_sh, sh_s), got, _, _ = counted(
+                lambda: sharded_sequence(sscene, scam, sframes, grad_cfg))
+        dist.destroy_process_group()
+    finally:
+        for p in workers:
+            p.wait(timeout=600)
+    check(all(p.returncode == 0 for p in workers), "a shard worker failed")
+    per_rank = -(-(W * H) // world)
+    tiles = -(-per_rank // grad_cfg.tile_rays)
+    want = {"closest_hit_rows": 2 * tiles * grad_cfg.bounces,
+            "closest_hit_rows_nee": tiles * grad_cfg.bounces,
+            "occluded": tiles}
+    check(nonzero(got) == want, f"sharded: launches {nonzero(got)}, "
+          f"expected {want}")
+    for c, aovs in zip(sframes, sharded):
+        single = render_radiance(sscene, scam, c, 1)
+        check(equal_frames(aovs, single),
+              f"the sharded frame (nee={c.nee}) differs from the "
+              f"single-device frame")
+    albedo = sscene.mat_albedo.clone().requires_grad_(True)
+    from gdpathtracing_torch.diff import image_mse, replace_albedo
+    one = render_radiance(replace_albedo(sscene, albedo), scam, grad_cfg, 0)
+    image_mse(one.radiance, torch.zeros_like(one.radiance)).backward()
+    g_err = float(((g_sh - albedo.grad).abs()
+                   / albedo.grad.abs().clamp(min=1e-30)).max())
+    check(torch.allclose(g_sh, albedo.grad, rtol=1e-5, atol=1e-7)
+          and float(g_sh.abs().max()) > 0,
+          f"the sharded albedo gradient differs from the single one "
+          f"(relative {g_err:.3g})")
+    log(f"sharded over {world} card(s) on NCCL: 1080p demo frames, PALLAS "
+        f"standard loop, {sh_s[0] * 1e3:.1f} ms, + NEE {sh_s[1] * 1e3:.1f} "
+        f"ms (second calls), bit-equal to the single-device frames; "
+        f"fwd+bwd {sh_s[2] * 1e3:.1f} ms, the albedo gradient within "
+        f"{g_err:.3g} (relative) of the single one; launches {want}; on "
+        f"{card}")
+
+    # Fault recovery: a NaN tile and a dropped tile injected into a 1080p
+    # PALLAS frame (standard loop); render_with_retry must heal each with
+    # one retry, bit-identical to the clean frame.
+    std = cfg.replace(regen=False)
+    clean = render_radiance(scene, cam, std, 2)
+    ty, tx = H // 2 // 64, W // 2 // 64  # the tile at the frame's centre
+    for kind in ("nan", "drop"):
+        def faulty(s_, c_, g_, f_, kind=kind):
+            return inject_tile_fault(render_radiance(s_, c_, g_, f_), ty, tx,
+                                     64, kind)
+        retries = []
+        (healed, recovered), got, _, s = counted(lambda: render_with_retry(
+            scene, cam, std, 2, faulty, tile=64,
+            on_retry=lambda a, n: retries.append((a, n))))
+        check(recovered == 1 and retries == [(0, 1)]
+              and tile_health(healed, 64).all(),
+              f"fault recovery ({kind}): {recovered} tiles, retries "
+              f"{retries}")
+        check(equal_frames(healed, clean),
+              f"fault recovery ({kind}): the healed frame differs from the "
+              f"clean one")
+        log(f"fault recovery, a {kind} tile (64x64) in a 1080p PALLAS "
+            f"frame: healed with 1 retry in {s * 1e3:.1f} ms (the faulty "
+            f"frame included), bit-identical to the clean frame; launches "
+            f"{nonzero(got)}; on {card}")
+
+
 def main() -> None:
     import torch
 
@@ -493,7 +991,7 @@ def main() -> None:
         needed = float(want[45].sum())
         k = cuda_ms(lambda: ti.closest_hit_rows(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.closest_hit_rows_plain(*args), PLAIN_ITERS,
-                    torch)
+                    torch, warm=False)
         log(f"  {needed:.4g} ray-triangle tests needed, "
             f"{counts['slots']:.4g} thread-slots swept "
             f"({needed / max(counts['slots'], 1.0):.3f} useful; a thread per "
@@ -573,7 +1071,7 @@ def main() -> None:
     needed = counts["tests"]
     k = cuda_ms(lambda: ti.closest_hit_rows_nee(*args), KERNEL_ITERS, torch)
     p = cuda_ms(lambda: ti.closest_hit_rows_nee_plain(*args), PLAIN_ITERS,
-                torch)
+                torch, warm=False)
     # Thread-slots of both block-cooperative walks (the flat closest hit's
     # and the any-hit's), beside a thread per ray's (every lane of a block
     # on each chunk some ray of it needs, in each walk).
@@ -613,7 +1111,8 @@ def main() -> None:
         spent_1 = counts["thread_slots"]
         k = cuda_ms(lambda: ti.occluded(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.occluded_plain(*args),
-                    PLAIN_ITERS if onc <= 16 else GRID_PLAIN_ITERS, torch)
+                    PLAIN_ITERS if onc <= 16 else GRID_PLAIN_ITERS, torch,
+                    warm=False)
         slabs = counts["slab_tests"]
         n_bytes = 10 * 4 * n + (3 * 4 * oprep.mu.shape[1] + 8 * onc
                                 + 8 * ti.SUB * onc) * 4
@@ -701,7 +1200,8 @@ def main() -> None:
             spent = float(work.slots[::ti.BN].sum())
             spent_1 = float(work.chunk_sweeps[::ti.BN].sum()) * ti.BN * ti.BT
             k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
-            p = cuda_ms(lambda: pfn(*args), GRID_PLAIN_ITERS, torch)
+            p = cuda_ms(lambda: pfn(*args), GRID_PLAIN_ITERS, torch,
+                        warm=False)
             log(f"  {needed:.4g} ray-triangle tests and {slabs:.4g} slab "
                 f"tests needed, {spent:.4g} thread-slots swept "
                 f"({needed / max(spent, 1.0):.3f} useful; a thread per "
@@ -787,7 +1287,7 @@ def main() -> None:
         needed = float(once[2].sum())
         k = cuda_ms(lambda: ti.march_step_sc(*args), KERNEL_ITERS, torch)
         p = cuda_ms(lambda: ti.march_step_sc_plain(*args), GRID_PLAIN_ITERS,
-                    torch)
+                    torch, warm=False)
         log(f"  {needed:.4g} ray-triangle tests and "
             f"{counts['slab_tests']:.4g} slab tests needed (the round "
             f"swept {float(want[2].sum()):.4g} with the repeats); "
@@ -858,7 +1358,8 @@ def main() -> None:
         spent = float(want.slots[::ti.BN].sum())
         spent_1 = float(want.sweeps[::ti.BN].sum()) * ti.BN * ti.BT
         k = cuda_ms(lambda: ti.soft_occluded(*args), KERNEL_ITERS, torch)
-        p = cuda_ms(lambda: ti.soft_occluded_plain(*args), iters, torch)
+        p = cuda_ms(lambda: ti.soft_occluded_plain(*args), iters, torch,
+                    warm=False)
         log(f"  {needed:.4g} candidate tests needed "
             f"({needed / max(n_q, 1):.1f} per query), {spent:.4g} "
             f"thread-slots swept ({needed / max(spent, 1.0):.3f} useful; a "
@@ -901,7 +1402,7 @@ def main() -> None:
             k = cuda_ms(lambda: mk.mega_step(*state, *geo, b, mcfg),
                         KERNEL_ITERS, torch)
             p = cuda_ms(lambda: mk.mega_step_plain(*state, *geo, b, mcfg),
-                        PLAIN_ITERS, torch)
+                        PLAIN_ITERS, torch, warm=False)
             log(f"  {counts['tests']:.4g} ray-triangle tests needed "
                 f"(both walks), {counts['slots']:.4g} thread-slots swept "
                 f"({counts['tests'] / max(counts['slots'], 1.0):.3f} useful;"
@@ -936,7 +1437,8 @@ def main() -> None:
         check(differ == 0, f"kernel 11, {label}: {differ} rays differ from "
               f"the plain version")
         k = cuda_ms(lambda: fu.fused_paths(*args, fcfg), KERNEL_ITERS, torch)
-        p = cuda_ms(lambda: fu.fused_paths_plain(*args, fcfg), iters, torch)
+        p = cuda_ms(lambda: fu.fused_paths_plain(*args, fcfg), iters, torch,
+                    warm=False)
         # Thread-slots over the bounces: the block-cooperative walk's, and
         # a thread per ray's (dead paths included, as they sit in blocks).
         log(f"  {counts['tests']:.4g} ray-triangle tests needed "
@@ -984,7 +1486,7 @@ def main() -> None:
                   and torch.equal(idx, want_i),
                   f"{kname}, {label}: differs from its plain version")
             k = cuda_ms(lambda: kfn(*args), KERNEL_ITERS, torch)
-            p = cuda_ms(lambda: pfn(*args), iters, torch)
+            p = cuda_ms(lambda: pfn(*args), iters, torch, warm=False)
             log(f"  {counts['tests']:.4g} ray-triangle tests swept, "
                 f"{counts['slots']:.4g} thread-slots "
                 f"({counts['tests'] / max(counts['slots'], 1.0):.3f} useful;"
@@ -1039,7 +1541,8 @@ def main() -> None:
             check(not bool(differ.any()), f"trace_bvh, {label} {name}: "
                   f"differs from its plain version")
             k = cuda_ms(lambda: trace_bvh(*bargs), KERNEL_ITERS, torch)
-            p = cuda_ms(lambda: trace_bvh_plain(*bargs), 1, torch)
+            p = cuda_ms(lambda: trace_bvh_plain(*bargs), 1, torch,
+                        warm=False)
             log(f"  {counts['pops']:.4g} pops ({counts['pops'] / n:.1f} a "
                 f"ray), {counts['inner']:.4g} inner nodes, "
                 f"{counts['blas']:.4g} object-space rays, "
@@ -1455,6 +1958,11 @@ def main() -> None:
                                              DIFF_STEPS),
                      torch, steady * 1e3, kernel_symbols)
 
+    # -- 3c. the last modules ------------------------------------------------
+    phase("3c. the last modules")
+    last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
+                 cfg, grid, grid_cam, glass)
+
     for k, n_launch in launches.items():
         check(n_launch > 0, f"{k} was not launched on the main paths")
 
@@ -1579,4 +2087,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-worker"]:
+        shard_worker(*map(int, sys.argv[2:5]))
+    else:
+        main()

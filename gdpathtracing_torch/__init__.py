@@ -27,13 +27,23 @@ kernels of the reference are in CUDA (``ops/intersect.py``,
 occlusion, the two fused, the two-level closest hit with and without
 winner rows, the soft-shadow top-1 blocker, one round of the march, the
 classic (t, idx) closest hit and its block-gated loop form, MEGA's
-per-bounce megakernel and FUSED's all-bounces kernel. Scenes are built on
-the GPU unless the caller asks for another device. Regen's two options of
-ROADMAP queue 1, item 5 raise NotImplementedError naming it.
+per-bounce megakernel and FUSED's all-bounces kernel. Regen renders its
+options too: fused NEE (``regen_fuse_nee=True``, kernel 4 once an
+iteration) and the first-chunk lane key (``regen_sort_key="chunk"``).
+Scenes are built on the GPU unless the caller asks for another device, in
+code (``SceneBuilder``, ``scene/demo.py``) or from files: OBJ
+(``scene/objloader.py``), Radiance HDR environments (``scene/hdr.py``),
+glTF and GLB (``scene/gltfloader.py``) and the JSON scene format
+(``scene/sceneformat.py``); the BLAS builder takes the C++ core of
+``native/bvh_builder.cpp`` where it builds (``bvh/native.py``).
+``parallel/`` strides a frame's rays over the ranks of a
+``torch.distributed`` group (``render_radiance_sharded``) and heals faulty
+tiles (``render_with_retry``).
 
 Entry points: ``render.renderer.render_radiance``, ``render.renderer.render``
 (not re-exported here, where its name would shadow the ``render``
-subpackage), ``render_frame`` and ``Engine``.
+subpackage), ``render_frame``, ``Engine``, and the command line
+``python -m gdpathtracing_torch render <scene.json|demo>`` / ``info``.
 """
 
 import torch

@@ -1,9 +1,10 @@
 """Binned-SAH BLAS (bottom-level BVH) builder over triangle meshes.
 
-Port of gdpathtracing_tpu/bvh/blas.py, NumPy path only: the native C++
-builder stays with the JAX package and is bit-identical to this one. The BLAS
-triangle order fixes the global triangle ids of the scene's intersection
-arrays, so this builder is what makes the port's ``tri``/``eidx`` match.
+Port of gdpathtracing_tpu/bvh/blas.py: the NumPy builder, and with
+``backend`` the C++ core of ``native/bvh_builder.cpp`` (bvh/native.py), the
+same algorithm with bit-identical trees. The BLAS triangle order fixes the
+global triangle ids of the scene's intersection arrays, so this builder is
+what makes the port's ``tri``/``eidx`` match.
 
 Host-side NumPy implementation of the same algorithm family as the
 reference's C++ builder (src/bvh/bvh.cpp:24-262): top-down recursion,
@@ -98,10 +99,20 @@ class BLASArrays:
 
 class BLASBuilder:
     """Shared-pool builder. One ``build_mesh`` call per unique mesh;
-    ``finalize`` emits the flat arrays."""
+    ``finalize`` emits the flat arrays.
 
-    def __init__(self, max_leaf_tris: int = MAX_LEAF_TRIS):
+    ``backend``: 'auto' takes the native C++ core (bvh/native.py) where it
+    builds and the NumPy builder otherwise; 'native' (raises where the core
+    does not build) and 'numpy' force one. The trees are the same.
+    """
+
+    def __init__(self, max_leaf_tris: int = MAX_LEAF_TRIS,
+                 backend: str = "auto"):
+        if backend not in ("auto", "native", "numpy"):
+            raise ValueError(f"backend must be 'auto', 'native' or 'numpy', "
+                             f"not {backend!r}")
         self.max_leaf_tris = max_leaf_tris
+        self.backend = backend
         self._pos: List[np.ndarray] = []
         self._nrm: List[np.ndarray] = []
         self._uv: List[np.ndarray] = []
@@ -124,6 +135,11 @@ class BLASBuilder:
             raise ValueError("mesh has no triangles")
 
         tri_base = sum(len(p) for p in self._pos)
+
+        if self.backend != "numpy":
+            from gdpathtracing_torch.bvh import native
+            if self.backend == "native" or native.available():
+                return self._build_mesh_native(pos, nrm, uv, slot, tri_base)
 
         centroids = pos.mean(axis=1)
         tri_min = pos.min(axis=1)
@@ -187,6 +203,32 @@ class BLASBuilder:
         self.mesh_root_aabbs.append((rmin.copy(), rmax.copy()))
         self.mesh_tri_ranges.append((tri_base, n))
         return root
+
+    def _build_mesh_native(self, pos, nrm, uv, slot, tri_base) -> int:
+        """Build through the C++ core and splice into the shared pools
+        (subtree-local node and triangle indices get the pool offsets)."""
+        from gdpathtracing_torch.bvh import native
+
+        (nmin, nmax, left, right, first, count, order) = \
+            native.build_blas_native(pos, self.max_leaf_tris)
+        node_base = len(self._nodes)
+        internal = count == 0
+        for i in range(len(nmin)):
+            if internal[i]:
+                self._nodes.append((nmin[i], nmax[i],
+                                    int(left[i]) + node_base,
+                                    int(right[i]) + node_base, 0, 0))
+            else:
+                self._nodes.append((nmin[i], nmax[i], 0, 0,
+                                    int(first[i]) + tri_base, int(count[i])))
+        self._pos.append(pos[order])
+        self._nrm.append(nrm[order])
+        self._uv.append(uv[order])
+        self._slot.append(slot[order])
+        self.mesh_roots.append(node_base)
+        self.mesh_root_aabbs.append((nmin[0].copy(), nmax[0].copy()))
+        self.mesh_tri_ranges.append((tri_base, len(pos)))
+        return node_base
 
     def _find_sah_split(self, cent, tmin, tmax, bmin, bmax):
         """8-bin SAH sweep over 3 axes (bvh.cpp:39-106). Returns

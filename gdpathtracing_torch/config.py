@@ -2,9 +2,10 @@
 
 The port keeps its own copy because importing ``gdpathtracing_tpu`` pulls in
 JAX. Every field, type and default equals the JAX ``RenderConfig``
-(tests/test_torch_config.py holds the two together). Which fields the torch
-port actually renders is decided by ``render.renderer``: anything outside the
-ported slice raises ``NotImplementedError`` naming its ROADMAP item.
+(tests/test_torch_config.py holds the two together), and the port renders
+every field as the reference does (``render.renderer``, ``render.regen``),
+regen's ``regen_fuse_nee`` and ``regen_sort_key="chunk"`` among them; the
+path kernels' traversals raise ValueError outside the reference's gates.
 """
 
 from __future__ import annotations

@@ -75,14 +75,6 @@ from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
 
 
-def not_ported(what: str, item: int):
-    """Raise NotImplementedError for ``what``, naming the ROADMAP item
-    (queue 1) that ports it."""
-    raise NotImplementedError(
-        f"{what} is not ported to gdpathtracing_torch yet "
-        f"(ROADMAP queue 1, item {item})")
-
-
 def check_path_kernel(scene: Scene, config: RenderConfig) -> None:
     """Raise ValueError where ``Traversal.MEGA`` or ``Traversal.FUSED``
     cannot render: outside the reference's gates (its texts), or with

@@ -37,10 +37,26 @@ end.
 the log append and the loop condition need with one small ``.tolist()``.
 Lane state is carried as an (17, nw) float32 and a (6, nw) int64 stack, so
 the permute is two gathers; the PCG2D seeds ride the int64 stack as they
-are, and the march adds its cursor and running best (2 rows to each).
-Regen's fused NEE (on flat scenes), the first-chunk sort key (where lanes
-are sorted without the march) and the TPU package's timing hooks are not
-ported (see check_regen_supported).
+are, the march adds its cursor and running best (2 rows to each), and
+fused NEE the shadow queries just posted (10 float rows, 1 int64 row).
+
+With ``regen_sort_key="chunk"`` the sorted lanes (without the march, whose
+key takes precedence) are keyed on the first chunk each ray enters, or on a
+scene of more than 64 chunks the first superchunk (:func:`first_chunk_key`),
+in place of the Morton cell of their origin.
+
+With ``regen_fuse_nee=True`` on a flat PALLAS scene with NEE, an
+iteration's shadow queries ride the next iteration's closest-hit launch
+(kernel 4, :func:`ops.intersect.trace_occlude_pallas`: phase A this
+iteration's closest hit, phase B the queries posted the iteration before).
+Each pending query carries the id of the path that posted it (lanes are
+permuted and refilled in between): where the lane still holds that path,
+the resolved direct term adds to its radiance; where the path retired right
+after posting, its row was retired without the term (logged or scattered
+as unfused NEE retires it) and the term is added to that row in place. The
+loop runs until the last pending queries are resolved, with no drain
+stage. On a superchunk scene regen renders unfused NEE, as the
+reference does. The TPU package's timing hooks (``_DEBUG``) are not ported.
 """
 
 from __future__ import annotations
@@ -50,13 +66,14 @@ import torch
 from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
-from gdpathtracing_torch.ops.intersect import (BIG_E, BN, TracePrep,
+from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
                                                lite_epilogue,
                                                march_block_queue,
                                                march_next_candidates,
                                                march_supported, march_sweep,
                                                occluded_pallas,
-                                               prepare_trace_inputs)
+                                               prepare_trace_inputs,
+                                               trace_occlude_pallas)
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.integrator import (check_supported,
                                                    continue_path,
@@ -65,7 +82,7 @@ from gdpathtracing_torch.render.integrator import (check_supported,
                                                    mis_emission,
                                                    morton_frame,
                                                    morton_octant_key,
-                                                   not_ported, sample_direct)
+                                                   sample_direct)
 from gdpathtracing_torch.render.lights import build_light_table
 from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
@@ -80,7 +97,15 @@ _MT, _BT = 17, 18                       # the march's (m_t, b_t)
 # ... and of the int64 lane stack.
 _SEED, _PID, _BOUNCE, _STEPS, _SEGS = 0, 2, 3, 4, 5
 _MSC, _BE = 6, 7                        # the march's (m_sc, b_e)
+_NF, _NI = 17, 6                        # lane rows of both (no march)
+# ... and of the fused NEE's posted queries, carried after the lane rows
+# through the permutation: float rows [shadow o3 d3 tmax direct3], int64
+# row [query posted].
+_P_O, _P_D, _P_TMAX, _P_DIRECT = 0, 3, 6, 7
 _STEPS_MAX = (1 << 19) - 1  # the log path clamps steps (as the reference)
+# Up to this many chunks the first-chunk key tests chunk boxes, above it
+# superchunk boxes of SCC chunks (the reference's rule).
+KEY_MAX_CHUNKS = 64
 MAX_IT = 96  # slots of the per-iteration stats; later iterations share the
 #              last one (as the reference)
 
@@ -119,22 +144,14 @@ def sorts_lanes(config: RenderConfig) -> bool:
     return bool(sort) and config.compact_rays is not False
 
 
-def check_regen_supported(scene: Scene, config: RenderConfig,
-                          prep: TracePrep | None) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item (queue 1), for a
-    regen option outside the ported slice, where the reference would use
-    it: fused NEE on a flat PALLAS scene (it renders unfused NEE on a
-    superchunk one, and with BRUTE and UNIT), and the first-chunk sort key
-    where lanes are sorted without the march (the march's key takes
-    precedence)."""
-    check_supported(scene, config)
-    if config.nee and scene.n_lights > 0 and config.regen_fuse_nee \
-            and prep is not None and not prep.superchunks:
-        not_ported("regen's fused NEE (regen_fuse_nee=True)", 5)
-    if config.regen_sort_key == "chunk" and sorts_lanes(config) \
-            and not use_march(config, prep):
-        not_ported("regen's first-chunk lane sort key "
-                   "(regen_sort_key='chunk')", 5)
+def fuses_nee(scene: Scene, config: RenderConfig,
+              prep: TracePrep | None) -> bool:
+    """Whether regen fuses its shadow queries into the next closest-hit
+    launch (the reference's rule): ``regen_fuse_nee`` with NEE on a flat
+    PALLAS scene (``prep`` is PALLAS's, None for the oracles); a superchunk
+    scene renders unfused NEE."""
+    return bool(config.nee and scene.n_lights > 0 and config.regen_fuse_nee
+                and prep is not None and not prep.superchunks)
 
 
 def _drain_sizes(config: RenderConfig, nw: int, n_paths: int,
@@ -162,6 +179,62 @@ def march_lane_key(d: Vec3, s0, s1, nsc: int) -> torch.Tensor:
             + torch.clamp(s1, 0, nsc)) * 8 + octant
 
 
+def chunk_key_bounds(chunk_bounds: torch.Tensor) -> torch.Tensor:
+    """The boxes :func:`first_chunk_key` tests: the scene's (8, nc) chunk
+    boxes (``Scene.isect_chunk_bounds``) up to ``KEY_MAX_CHUNKS`` chunks;
+    above that one box per superchunk of ``SCC`` chunks (the superchunk
+    kernels' unit of work, and nc slab tests a lane would cost too much),
+    the pad chunks at 1e30 left out of each box's maxima."""
+    nc = chunk_bounds.shape[1]
+    if nc <= KEY_MAX_CHUNKS:
+        return chunk_bounds
+    cbp = torch.nn.functional.pad(chunk_bounds, (0, (-nc) % SCC), value=1e30)
+    nsc = cbp.shape[1] // SCC
+    lo = cbp[0:3].reshape(3, nsc, SCC).amin(dim=2)
+    hi = cbp[3:6].reshape(3, nsc, SCC)
+    hi = torch.where(hi > 1e29, -1e30, hi).amax(dim=2)
+    return torch.cat([lo, hi, cbp.new_zeros((2, nsc))])
+
+
+def first_chunk_key(o: Vec3, d: Vec3, alive, fresh,
+                    bounds: torch.Tensor) -> torch.Tensor:
+    """The first-chunk lane key (``regen_sort_key="chunk"``): for live
+    lanes, the index of the box of ``bounds`` (:func:`chunk_key_bounds`)
+    the ray enters first (the least entry max(slab tmin, 0) over the boxes
+    its slab test passes, the lowest index at a tie; the box count where it
+    passes none) * 8 + the octant of its direction, so a block's rays want
+    the same sweeps; then this iteration's dead (``fresh``, 1 << 14), then
+    the lanes dead before (1 << 15). int64."""
+    def rcp(x):
+        return (1.0 / torch.where(x.abs() < 1e-30, 1e-30, x))[:, None]
+
+    def slab(k, ok, rk):
+        return (bounds[k][None, :] - ok[:, None]) * rk, \
+            (bounds[k + 3][None, :] - ok[:, None]) * rk
+
+    (tx1, tx2), (ty1, ty2), (tz1, tz2) = (slab(0, o.x, rcp(d.x)),
+                                          slab(1, o.y, rcp(d.y)),
+                                          slab(2, o.z, rcp(d.z)))
+    tmin = torch.maximum(torch.maximum(torch.minimum(tx1, tx2),
+                                       torch.minimum(ty1, ty2)),
+                         torch.minimum(tz1, tz2))
+    tmax = torch.minimum(torch.minimum(torch.maximum(tx1, tx2),
+                                       torch.maximum(ty1, ty2)),
+                         torch.maximum(tz1, tz2))
+    entry = torch.clamp(tmin, min=0.0)
+    # The reference's scan keeps a box whose entry is strictly below the
+    # best so far: the first of the least finite entries.
+    cand = torch.where((tmax >= tmin) & (tmax > 0.0) & (entry < torch.inf),
+                       entry, torch.inf)
+    nc = bounds.shape[1]
+    best_c = torch.where(cand.amin(dim=1) < torch.inf, cand.argmin(dim=1),
+                         nc)
+    octant = (d.x > 0.0).to(torch.int64) * 4 \
+        + (d.y > 0.0).to(torch.int64) * 2 + (d.z > 0.0).to(torch.int64)
+    return torch.where(alive, best_c * 8 + octant,
+                       torch.where(fresh, 1 << 14, 1 << 15))
+
+
 def render_radiance_regen(scene: Scene, camera: Camera,
                           config: RenderConfig, frame_index: int = 0,
                           return_stats: bool = False):
@@ -181,8 +254,9 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
     pallas = config.traversal == Traversal.PALLAS
     prep = prepare_trace_inputs(scene) if pallas else None
-    check_regen_supported(scene, config, prep)
+    check_supported(scene, config)
     march = use_march(config, prep)
+    fuse = fuses_nee(scene, config, prep)
     if march:
         QL, MK = int(config.regen_march_ql), int(config.regen_march_k)
         nsc = prep.sc_bounds.shape[1]
@@ -197,6 +271,10 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     compact = config.compact_rays is not False
     use_log = config.regen_retire == "log" and compact
     sort_lanes = sorts_lanes(config)
+    if config.regen_sort_key == "chunk" and sort_lanes and not march:
+        key_bounds = chunk_key_bounds(scene.isect_chunk_bounds.detach())
+    else:
+        key_bounds = None
     table = None if not use_nee else prep.lights if pallas \
         else build_light_table(scene)
     trace = get_trace_fn(config)
@@ -213,8 +291,11 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
     def lane_sort_key(o: Vec3, d: Vec3, alive, fresh):
         """Morton(origin cell, 8^3) * 8 + octant(direction) for live
-        lanes; then this iteration's dead (the log appends them as one
-        block), then the lanes that were dead before."""
+        lanes (or the first-chunk key); then this iteration's dead (the log
+        appends them as one block), then the lanes that were dead
+        before."""
+        if key_bounds is not None:
+            return first_chunk_key(o, d, alive, fresh, key_bounds)
         return torch.where(alive,
                            morton_octant_key(o, d, cell_lo, cell_span),
                            torch.where(fresh, 1 << 14, 1 << 15))
@@ -273,7 +354,14 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                             device=dev)
         out_i = torch.zeros((2, n_paths + 1), dtype=torch.int64, device=dev)
 
-    stages = [nw] + _drain_sizes(config, nw, n_paths, compact)
+    if fuse:  # no query is pending at the start
+        pend_f = torch.zeros((_P_DIRECT + 3, nw), dtype=torch.float32,
+                             device=dev)
+        p_sh = torch.zeros(nw, dtype=torch.bool, device=dev)
+        p_pid = torch.zeros(nw, dtype=torch.int64, device=dev)
+    n_pend = n_last = dstart = last_log = 0
+
+    stages = [nw] + _drain_sizes(config, nw, n_paths, compact and not fuse)
     iters = lane_slots = 0
     if return_stats:
         it_alive = torch.zeros(MAX_IT, dtype=torch.int32, device=dev)
@@ -286,7 +374,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             queue = march_block_queue(ss, nsc, QL)[0]
         threshold = stages[k + 1] if k + 1 < len(stages) else 0
         lane = torch.arange(size, device=dev)
-        while next_path < n_paths or nact > threshold:
+        while next_path < n_paths or nact > threshold or n_pend:
             ray_o = Vec3(*fs[_O:_O + 3])
             ray_d = Vec3(*fs[_D:_D + 3])
             tp = Vec3(*fs[_TP:_TP + 3])
@@ -330,6 +418,32 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     & ((rem_s >= nsc) | (rem_e > b_t))
                 hit = lite_epilogue(scene, prep, r, shade, b_t,
                                     b_e.to(torch.int32))
+            elif fuse:
+                # Phase A: this iteration's closest hit; phase B: the
+                # shadow queries posted the iteration before.
+                hit, p_occ = trace_occlude_pallas(
+                    scene, r, active, Ray(Vec3(*pend_f[_P_O:_P_O + 3]),
+                                          Vec3(*pend_f[_P_D:_P_D + 3])),
+                    pend_f[_P_TMAX], p_sh, prep)
+                shade, tsteps = active, hit.steps
+                # Fold each resolved direct term into its path: the lane if
+                # it still holds the posting path (path ids are never
+                # reused), else the row the path retired with the iteration
+                # before (late).
+                contrib = Vec3(*pend_f[_P_DIRECT:_P_DIRECT + 3]) \
+                    * (~p_occ).to(torch.float32)
+                own = p_sh & (p_pid == pid) & active
+                rad = vwhere(own, rad + contrib, rad)
+                late = p_sh & ~own
+                contrib = torch.stack([*contrib])
+                if use_log:  # the block appended last, whose lanes follow
+                    #          the survivors of the last permutation
+                    rows = slice(dstart, dstart + n_last)
+                    v = log_f[0:3, last_log:last_log + n_last]
+                    v.copy_(torch.where(late[rows], v + contrib[:, rows], v))
+                else:  # the lanes that retire nothing write the extra column
+                    slot = torch.where(late, p_pid, n_paths)
+                    out_f[0:3, slot] = out_f[0:3, slot] + contrib
             else:
                 hit = trace(scene, r, active, prep)
                 shade, tsteps = active, hit.steps
@@ -363,14 +477,15 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     s, tp, is_hit, seed, table, config, None if pallas
                     else hit_visibility(trace, scene, prep))
                 direct = dl.direct
-                if pallas:
+                if pallas and not fuse:
                     occ = occluded_pallas(scene, dl.shadow, dl.tmax,
                                           dl.active, prep)
                     direct = direct * (~occ).to(torch.float32)
                 if scene.has_transmission:
                     direct = direct * (1.0 - s.transmission)
                 segs = segs + dl.active.to(torch.int64)
-                rad = vwhere(active, rad + direct, rad)
+                if not fuse:  # fused: resolves in the next launch
+                    rad = vwhere(active, rad + direct, rad)
 
             first = (bounce == 0) & is_hit
             depth1 = torch.where(first, (s.position - ray_o).length(),
@@ -403,13 +518,21 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                 bounce = bounce + active.to(torch.int64)
                 alive = active & survive & (bounce < config.bounces)
             dead_now = active & ~alive
-            n_alive, n_fresh = torch.stack(
-                [alive.sum(), dead_now.sum()]).tolist()
+            counts = [alive.sum(), dead_now.sum()]
+            if fuse:
+                counts.append(dl.active.sum())
+            n_alive, n_fresh, *n_posted = torch.stack(counts).tolist()
 
+            # Fused: the queries just posted ride the permutation after
+            # the lane rows; each resolves in the next launch.
             fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
-                              *normal1] + ([m_t, b_t] if march else []))
+                              *normal1] + ([m_t, b_t] if march else [])
+                             + ([*dl.shadow.o, *dl.shadow.d, dl.tmax,
+                                 *direct] if fuse else []))
             ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
-                               + ([m_sc, b_e] if march else []))
+                               + ([m_sc, b_e] if march else [])
+                               + ([dl.active.to(torch.int64)] if fuse
+                                  else []))
             if not use_log:  # retire finished paths to their slot at once
                 slot = torch.where(dead_now, pid, n_paths)
                 out_f[:, slot] = fs[_LOG_F]
@@ -437,7 +560,13 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     perm[dest] = lane
                 fs, ints = fs[:, perm], ints[:, perm]
                 alive = lane < n_alive
+            if fuse:  # the queries, apart from the lanes (views: the
+                #       refill below writes new stacks)
+                pend_f, p_sh, p_pid = fs[_NF:], ints[_NI].bool(), ints[_PID]
+                fs, ints = fs[:_NF], ints[:_NI]
+                n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
             if use_log:  # the freshly dead block, appended in one copy
+                last_log = retired
                 fresh = slice(n_alive, n_alive + n_fresh)
                 log_f[:, retired:retired + n_fresh] = fs[_LOG_F, fresh]
                 log_i[0, retired:retired + n_fresh] = torch.clamp(

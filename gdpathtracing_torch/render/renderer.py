@@ -6,9 +6,9 @@ gdpathtracing_tpu/render/renderer.py.
 same AOVs as the JAX version: through the path-regeneration loop
 (render/regen.py) when ``config.regen`` asks for it (PALLAS, BRUTE, UNIT)
 or, as ``None``, by the reference's auto policy (every primal PALLAS
-render); otherwise through the standard loop in tiles of
-``config.tile_rays`` rays (``lax.map`` over tiles becomes a Python loop),
-where each tile's ``path_trace`` runs the bounce loop of its traversal
+render); otherwise through the standard loop (``trace_pixels``) in tiles
+of ``config.tile_rays`` rays, where each tile's ``path_trace`` runs the
+bounce loop of its traversal
 (PALLAS, BVH, the default ``RenderConfig()``'s, or the plain oracles BRUTE
 and UNIT) or, for ``Traversal.MEGA`` and ``Traversal.FUSED``, the path
 kernels (one launch a bounce, or one a tile). A differentiable render
@@ -53,11 +53,10 @@ class FrameAOVs(NamedTuple):
 
 def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                     frame_index: int = 0) -> FrameAOVs:
-    """Trace the full frame on ``scene.device``. Regen's fused NEE on a
-    flat scene and its first-chunk sort key raise NotImplementedError
-    naming their ROADMAP item; MEGA or FUSED outside their gates, a
-    differentiable BVH render and ``regen=True`` outside PALLAS, BRUTE and
-    UNIT (or with a differentiable or soft render) raise ValueError."""
+    """Trace the full frame on ``scene.device``. MEGA or FUSED outside
+    their gates, a differentiable BVH render and ``regen=True`` outside
+    PALLAS, BRUTE and UNIT (or with a differentiable or soft render) raise
+    ValueError."""
     if config.regen is not False:
         if config.regen and not regen_supported(scene, config):
             raise ValueError("config.regen requires a primal "
@@ -65,64 +64,67 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                              "shadows/soft primary)")
         if config.regen or regen_auto(scene, config):
             return render_radiance_regen(scene, camera, config, frame_index)
-    check_supported(scene, config)
-    dev = scene.device
-    camera = camera.to(dev)
     w, h = camera.width, camera.height
     n_pix = w * h
-    tile = min(config.tile_rays, n_pix)
-    n_tiles = -(-n_pix // tile)
-    padded = n_tiles * tile
-
     if config.differentiable and config.bwd_checkpoint is None:
         # The auto checkpoint rule at frame scope: without checkpoints the
         # residuals of every tile and sample stay alive until the backward
         # pass, so the estimate counts them all, not one call's wavefront.
+        tile = min(config.tile_rays, n_pix)
+        padded = -(-n_pix // tile) * tile
         resid = (padded * config.spp * config.bounces
                  * config.bwd_resid_bytes_per_seg)
         config = config.replace(
             bwd_checkpoint=resid > config.bwd_resid_budget)
+    rgb, depth, steps, segments, normal = trace_pixels(
+        scene, camera, torch.arange(n_pix, device=scene.device),
+        frame_index, config)
+    return FrameAOVs(radiance=rgb.reshape(h, w, 3),
+                     depth=depth.reshape(h, w),
+                     steps=steps.reshape(h, w),
+                     segments=segments.reshape(h, w),
+                     normal=normal.reshape(h, w, 3))
 
-    pixel_ids = torch.arange(padded, dtype=torch.int64, device=dev) % n_pix
+
+def trace_pixels(scene: Scene, camera: Camera, pids: torch.Tensor,
+                 frame_index, config: RenderConfig):
+    """The standard loop over a flat batch of pixel ids, on
+    ``scene.device``: ``path_trace`` in tiles of ``config.tile_rays`` rays
+    (``lax.map`` over tiles becomes a Python loop) → (rgb (n, 3), depth
+    (n,), steps (n,), segments (n,), normal (n, 3)), the samples of a pixel
+    averaged, depth their minimum, normal the first sample's. A ray's
+    result does not depend on the batch it is traced in, so any batch of
+    pixels (a rank's share, a re-rendered tile) gives the full frame's
+    pixels bit for bit."""
+    check_supported(scene, config)
+    dev = scene.device
+    camera = camera.to(dev)
+    pids = pids.to(dev)
     prep = prepare_trace_inputs(scene) if config.traversal in (
         Traversal.PALLAS, Traversal.MEGA, Traversal.FUSED) else None
     frame_index = int(frame_index)
-
     outs = []
-    for k in range(n_tiles):
-        pids = pixel_ids[k * tile:(k + 1) * tile]
-        px = pids % w
-        py = torch.div(pids, w, rounding_mode="floor")
-        acc_r = acc_g = acc_b = torch.zeros(tile, dtype=torch.float32,
-                                            device=dev)
+    for k in range(0, pids.shape[0], config.tile_rays):
+        ids = pids[k:k + config.tile_rays]
+        px = ids % camera.width
+        py = torch.div(ids, camera.width, rounding_mode="floor")
+        acc = torch.zeros((ids.shape[0], 3), dtype=torch.float32, device=dev)
         depth = normal = None
-        steps = torch.zeros(tile, dtype=torch.int32, device=dev)
-        segments = torch.zeros(tile, dtype=torch.int32, device=dev)
+        steps = segments = 0
         for s in range(config.spp):
             seed = rng.prng_seed(px, py, frame_index * config.spp + s)
-            ray, seed = camera.generate_rays(pids, seed, config)
-            res = path_trace(scene, ray, seed, config, prep,
-                             far=camera.far)
-            acc_r = acc_r + res.radiance.x
-            acc_g = acc_g + res.radiance.y
-            acc_b = acc_b + res.radiance.z
+            ray, seed = camera.generate_rays(ids, seed, config)
+            res = path_trace(scene, ray, seed, config, prep, far=camera.far)
+            acc = acc + res.radiance.to_array()
             depth = res.depth if depth is None else torch.minimum(depth,
                                                                   res.depth)
             steps = steps + res.steps
             segments = segments + res.segments
             if normal is None:
                 normal = res.normal.to_array()
-        inv = 1.0 / config.spp
-        outs.append((torch.stack([acc_r * inv, acc_g * inv, acc_b * inv],
-                                 dim=-1), depth, steps, segments, normal))
-
-    rgb, depth, steps, segments, normal = (torch.cat(x)[:n_pix]
-                                           for x in zip(*outs))
-    return FrameAOVs(radiance=rgb.reshape(h, w, 3),
-                     depth=depth.reshape(h, w),
-                     steps=steps.reshape(h, w),
-                     segments=segments.reshape(h, w),
-                     normal=normal.reshape(h, w, 3))
+        outs.append((acc * (1.0 / config.spp), depth, steps, segments,
+                     normal))
+    return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,

@@ -1702,3 +1702,59 @@ def test_engine_on_the_card_matches_cpu(scene):
         assert float(ok.double().mean()) >= 0.95
     assert all(t.device.type == "cuda" for t in gpu._state)
     assert gpu.to_uint8(x).shape == (24, 32, 3)
+
+
+def test_fused_regen_nee_kernel_matches_plain(monkeypatch):
+    """Regen's fused NEE at 64x48 on the card (the demo, 5 bounces): one
+    kernel 4 launch an iteration and no kernel 2 launch; the frame bit for
+    bit equal to the same frame with kernel 4's plain version on the card
+    and to regen's unfused NEE frame there, and its segments equal to the
+    standard loop + NEE frame's with radiance within 1e-6."""
+    from gdpathtracing_torch.render import regen
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    cam = demo_camera(64, 48)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, nee=True,
+                       regen_fuse_nee=True)
+    k4, k2 = ti.closest_hit_rows_nee.launches, ti.occluded.launches
+    regen.render_radiance_regen.iterations = 0
+    got = render_radiance(scene, cam, cfg, 3)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations
+    assert ti.closest_hit_rows_nee.launches - k4 == iters > 5
+    assert ti.occluded.launches == k2
+    unfused = render_radiance(scene, cam, cfg.replace(regen_fuse_nee=False),
+                              3)
+    std = render_radiance(scene, cam, cfg.replace(regen=False), 3)
+    monkeypatch.setattr(ti, "closest_hit_rows_nee",
+                        ti.closest_hit_rows_nee_plain)
+    plain = render_radiance(scene, cam, cfg, 3)
+    for a, b, c in zip(got, plain, unfused):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(got.segments, std.segments)
+    assert torch.allclose(got.radiance, std.radiance, rtol=1e-6, atol=1e-6)
+
+
+def test_native_builder_on_the_host():
+    """The native BVH builder builds on the card's host and gives the
+    NumPy builder's tree bit for bit on 20000 random triangles."""
+    from gdpathtracing_torch.bvh import native
+    from gdpathtracing_torch.bvh.blas import BLASBuilder, Surface
+    if not torch.cuda.is_available():
+        pytest.skip("runs on the GPU machine's host")
+    assert native.available()
+    g = np.random.default_rng(11)
+    v0 = g.uniform(-1, 1, (20000, 3))
+    pos = np.stack([v0, v0 + g.uniform(-0.3, 0.3, (20000, 3)),
+                    v0 + g.uniform(-0.3, 0.3, (20000, 3))],
+                   axis=1).astype(np.float32)
+    trees = []
+    for backend in ("native", "numpy"):
+        b = BLASBuilder(backend=backend)
+        b.build_mesh([Surface(positions=pos)])
+        trees.append(b.finalize())
+    for k in ("node_min", "node_max", "node_left", "node_right",
+              "node_first", "node_count", "tri_pos"):
+        assert np.array_equal(getattr(trees[0], k), getattr(trees[1], k)), k

@@ -285,10 +285,12 @@ def test_regen_gate(scene):
     """What regen refuses, and where it ignores an option as the reference
     does: ``regen_march=True`` on the flat demo renders the frame without
     it (march_supported is false); fused NEE on a flat scene and the
-    first-chunk key on sorted lanes raise, naming ROADMAP queue 1, item
-    5; a BVH render with regen=True raises the reference's ValueError
-    (tests/test_torch_march.py renders the march and the options'
-    fallbacks)."""
+    first-chunk key on sorted lanes render (they raised, naming ROADMAP
+    queue 1, item 5, until it was ported): the fused frame equals the
+    standard loop's and regen's unfused NEE frame, the chunk key's the
+    default key's; a BVH render with regen=True raises the reference's
+    ValueError (tests/test_torch_march.py renders the march and the
+    options' fallbacks, tests/test_torch_regen_options.py the options)."""
     cam = demo_camera(8, 8)
     with pytest.raises(ValueError, match="regen"):
         render_radiance(scene, cam, BASE.replace(regen=True,
@@ -303,11 +305,18 @@ def test_regen_gate(scene):
     with pytest.raises(ValueError, match="regen requires a primal"):
         render_radiance(scene, cam, BASE.replace(
             regen=True, traversal=Traversal.BVH))
-    for change in (dict(nee=True, regen_fuse_nee=True),
-                   dict(regen_sort_key="chunk"),
-                   dict(regen_march=True, regen_sort_key="chunk")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            render_radiance(scene, cam, BASE.replace(regen=True, **change))
+    for change, ref in ((dict(nee=True, regen_fuse_nee=True),
+                         dict(nee=True, regen=False)),
+                        (dict(nee=True, regen_fuse_nee=True),
+                         dict(nee=True)),
+                        (dict(regen_sort_key="chunk"), dict()),
+                        (dict(regen_march=True, regen_sort_key="chunk"),
+                         dict())):
+        got = render_radiance(scene, cam, BASE.replace(regen=True, **change),
+                              2)
+        want = render_radiance(scene, cam, BASE.replace(**ref), 2)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     march = render_radiance(scene, cam, BASE.replace(regen_march=True), 1)
     for a, b in zip(march, render_radiance(scene, cam, BASE, 1)):
         assert torch.equal(a, b)

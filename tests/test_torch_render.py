@@ -189,11 +189,6 @@ def _matches_jax(got, ref):
                                   np.asarray(ref.segments)[ok])
 
 
-# Item 5 of ROADMAP queue 1: regen's fused NEE on a flat scene and its
-# first-chunk sort key on sorted lanes still raise.
-ITEM_5 = ("regen_fuse_nee", "regen_sort_key")
-
-
 @pytest.mark.parametrize("change", [
     dict(traversal=Traversal.BVH, rr_start=2),
     dict(regen=True, nee=True, regen_fuse_nee=True),
@@ -204,15 +199,13 @@ ITEM_5 = ("regen_fuse_nee", "regen_sort_key")
     dict(traversal=Traversal.BRUTE), dict(rr_start=2),
     dict(traversal=Traversal.UNIT)])
 def test_outside_the_slice_raises(scene, change):
-    """Regen's item-5 options raise, naming the ROADMAP; what item 3
-    brought in (BRUTE, UNIT, Russian roulette on PALLAS and BVH) renders:
-    finite, on the scene's device, and equal to JAX's frame at 16x16
-    (3 bounces; 5 with Russian roulette, which starts at bounce 2)."""
+    """What items 3 and 5 brought in, which raised until they were ported
+    (regen's fused NEE on a flat scene and its first-chunk sort key on
+    sorted lanes, naming the ROADMAP; BRUTE, UNIT, Russian roulette on
+    PALLAS and BVH), renders: finite, on the scene's device, and equal to
+    JAX's frame at 16x16 (3 bounces; 5 with Russian roulette, which starts
+    at bounce 2)."""
     cfg = SLICE.replace(**change)
-    if any(k in change for k in ITEM_5):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_radiance(scene, demo_camera(8, 8), cfg)
-        return
     bounces = 5 if "rr_start" in change else 3
     got = render_radiance(scene, demo_camera(16, 16),
                           cfg.replace(bounces=bounces), 1)

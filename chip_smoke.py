@@ -107,8 +107,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
    intervals), the share of it in each traversal kernel, the largest other
-   kernels, and the device's idle share of the median frame; each
-   path also prints its peak device memory. Then Engine.step: 4 steps
+   kernels, the device's idle share of the median frame, and each leaf
+   span's host time with the device's idle time inside it (the telemetry
+   module's profiler view); each path also prints its peak device
+   memory. Then Engine.step: 4 steps
    with PROGRESSIVE accumulation under a still camera and 4 with
    TEMPORAL reprojection under an orbiting one, each with the spatial
    denoiser, over the PALLAS regen frame: ms per step, the post passes'
@@ -271,50 +273,37 @@ def bound(tests: float, slabs: float, n_bytes: float,
                                        else "bytes")
 
 
-def busy_ms(events) -> float:
-    """Length of the union of the profiler events' device intervals."""
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in events):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
 def profile_step(name: str, step, torch, steady_ms: float,
                  kernel_symbols: dict) -> None:
-    """Run ``step`` once under torch.profiler and print the device kernels
-    it launched, the device's busy time (the union of their intervals),
-    the share of it in each traversal kernel, the largest other kernels,
-    and the device's idle share of the profiled and of the median step.
-    A busy time longer than the step fails the run."""
-    # Device activity only: the breakdown reads only device events, and
-    # recording every host op of a step (~10^5) costs seconds to collect.
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """Run ``step`` once under the telemetry module's profiler view
+    (utils/telemetry.py ``Profile``: device activity only, the program's
+    spans placed on the trace's clock) and print the device kernels it
+    launched, the device's busy time (the union of their intervals), the
+    share of it in each traversal kernel, the largest other kernels, the
+    device's idle share of the profiled and of the median step, and each
+    leaf span's host time with the device's idle time inside it. A busy
+    time longer than the step fails the run."""
+    from gdpathtracing_torch.utils.telemetry import LEAF_SPANS, Profile
+
+    with Profile("cuda") as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not on_card:
+    sm = prof.summary
+    if not sm.ops:
         log(f"  {name}: the profiler saw no device time; busy time and "
             f"idle share not measured")
         return
-    busy = busy_ms(on_card)
-    log(f"  profiled: {prof_ms:.1f} ms, {len(on_card)} device "
+    busy = sm.busy_s * 1e3
+    log(f"  profiled: {prof_ms:.1f} ms, {sm.ops} device "
         f"kernels, busy {busy:.2f} ms; idle share "
         f"{1.0 - busy / prof_ms:.3f} of the profiled run, "
         f"{1.0 - busy / steady_ms:.3f} of the median")
     # Every kernel ran between the two clock reads around the step.
     check(busy <= prof_ms, f"{name}: the device was busy {busy:.2f} ms "
           f"in a {prof_ms:.1f} ms step: the measurement is broken")
-    by_name = {}
-    for e in on_card:
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
+    by_name = {n: v * 1e3 for n, v in sm.op_s.items()}
     # Whole-word match: occlusion_kernel is also a part of
     # soft_occlusion_kernel.
     pats = {k: re.compile(rf"\b{sym}\b") for k, sym in kernel_symbols.items()}
@@ -326,6 +315,11 @@ def profile_step(name: str, step, torch, steady_ms: float,
         pat.search(n) for pat in pats.values())), reverse=True)
     for v, n in rest[:4]:
         log(f"    {v:8.2f} ms  {n[:100]}")
+    log("    spans (host ms, device idle ms inside): " + ", ".join(
+        f"{n} {sm.spans[n].host_s * 1e3:.1f} / {sm.spans[n].idle_s * 1e3:.1f}"
+        for n in LEAF_SPANS if n in sm.spans)
+        + f"; {sm.leaf_idle_share:.3f} of the idle time inside the outer "
+        f"spans is inside leaf spans")
 
 
 def bit_mismatch(got, want, torch):

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from gdpathtracing_torch.utils.telemetry import SPANS
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gdpathtracing_torch"
 
@@ -73,34 +75,35 @@ def load_libraries(names=KERNELS) -> list[Library]:
     """Build (where needed, in parallel) and load ``csrc/<name>.cu`` for
     each name. Raises with nvcc's output if a build fails, after every
     started nvcc has ended."""
-    todo = [n for n in dict.fromkeys(names) if n not in _loaded]
-    builds = {}
-    for name in todo:
-        so = _library_path(name)
-        if so.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        builds[name] = (proc, tmp, so, time.perf_counter())
-    done, failed = {}, []
-    for name, (proc, tmp, so, t0) in builds.items():
-        log, _ = proc.communicate()
-        done[name] = (time.perf_counter() - t0, log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    for name in todo:
-        so = _library_path(name)
-        seconds, log = done.get(name, (0.0, ""))
-        _loaded[name] = Library(ctypes.CDLL(str(so)), so, seconds, log)
+    with SPANS.kernels_load:
+        todo = [n for n in dict.fromkeys(names) if n not in _loaded]
+        builds = {}
+        for name in todo:
+            so = _library_path(name)
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            builds[name] = (proc, tmp, so, time.perf_counter())
+        done, failed = {}, []
+        for name, (proc, tmp, so, t0) in builds.items():
+            log, _ = proc.communicate()
+            done[name] = (time.perf_counter() - t0, log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in todo:
+            so = _library_path(name)
+            seconds, log = done.get(name, (0.0, ""))
+            _loaded[name] = Library(ctypes.CDLL(str(so)), so, seconds, log)
     return [_loaded[n] for n in names]
 
 

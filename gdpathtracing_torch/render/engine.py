@@ -17,6 +17,7 @@ from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.renderer import init_post_state, render_frame
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import SPANS, Profile
 
 
 class Engine:
@@ -37,11 +38,13 @@ class Engine:
     def step(self, camera: Camera) -> torch.Tensor:
         """Render one frame; returns the display image, (H, W, 3) float32
         in [0, 1] on the scene's device."""
-        if self._state is None:
-            self.reset(camera)
-        image, self._state = render_frame(self.scene, camera, self.config,
-                                          self._state, self.frame_index)
-        self.frame_index += 1
+        with SPANS.engine_step:
+            if self._state is None:
+                self.reset(camera)
+            image, self._state = render_frame(self.scene, camera,
+                                              self.config, self._state,
+                                              self.frame_index)
+            self.frame_index += 1
         return image
 
     def to_uint8(self, image: torch.Tensor) -> np.ndarray:
@@ -49,14 +52,17 @@ class Engine:
         return np.clip(image.detach().cpu().numpy() * 255.0 + 0.5, 0,
                        255).astype(np.uint8)
 
-    def profile(self, logdir: str):
-        """A torch.profiler context for the frame loop that writes a trace
-        to ``logdir`` when it ends (device activity on the card, host
-        activity on the CPU):
-        ``with engine.profile("trace/"): engine.step(camera)``."""
-        act = torch.profiler.ProfilerActivity
-        return torch.profiler.profile(
-            activities=[act.CUDA if self.scene.device.type == "cuda"
-                        else act.CPU],
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                str(logdir)))
+    def profile(self, logdir: str) -> Profile:
+        """A torch.profiler context for the frame loop (device activity on
+        the card, host activity on the CPU) that turns the spans' timeline
+        on and, when it ends, writes one trace to ``logdir`` holding the
+        device operations and the program's spans (category
+        ``program_span``) on one clock, and sets its ``summary``: each
+        span's host seconds and the device's idle seconds inside it
+        (utils/telemetry.py ``ProfileSummary``)::
+
+            with engine.profile("trace/") as prof:
+                engine.step(camera)
+            prof.summary.spans["path_lanes"].idle_s
+        """
+        return Profile(self.scene.device, logdir)

@@ -73,6 +73,7 @@ from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.traverse import trace_bvh
 from gdpathtracing_torch.render.types import HitInfo, Ray, ShadingInfo
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import SPANS
 
 
 def check_path_kernel(scene: Scene, config: RenderConfig) -> None:
@@ -143,8 +144,9 @@ def hit_visibility(trace, scene: Scene, prep):
     BRUTE, UNIT): ``visibility(shadow ray, tmax, active)``, 1 where nothing
     is hit before ``tmax``."""
     def visibility(shadow, tmax, active):
-        return (~(trace(scene, shadow, active, prep).t < tmax)).to(
-            torch.float32)
+        with SPANS.path_trace:
+            return (~(trace(scene, shadow, active, prep).t < tmax)).to(
+                torch.float32)
     return visibility
 
 
@@ -376,13 +378,16 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     dispatches them."""
     check_supported(scene, config)
     if config.traversal == Traversal.FUSED:
-        return path_trace_fused(scene, ray, seed, config, prep, far=far)
+        with SPANS.path_trace:
+            return path_trace_fused(scene, ray, seed, config, prep, far=far)
     if config.traversal == Traversal.MEGA:
-        return path_trace_mega(scene, ray, seed, config, prep, far=far)
+        with SPANS.path_trace:
+            return path_trace_mega(scene, ray, seed, config, prep, far=far)
     pallas = config.traversal == Traversal.PALLAS
     bvh = config.traversal == Traversal.BVH
     if prep is None and pallas:
-        prep = prepare_trace_inputs(scene)
+        with SPANS.render_prepare:
+            prep = prepare_trace_inputs(scene)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     diff = config.differentiable
@@ -393,18 +398,22 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         and not soft_shadows
     # The differentiable path reads emitters from the live scene, so light
     # sampling and the MIS weights carry emission and geometry gradients.
-    table = (prep.lights if pallas and not diff
-             else lights.build_light_table(scene)) if use_nee else None
+    table = None
+    if use_nee:
+        with SPANS.render_prepare:
+            table = prep.lights if pallas and not diff \
+                else lights.build_light_table(scene)
     trace = get_trace_fn(config)
     trace_occlude = trace_occlude_pallas_diff if diff \
         else trace_occlude_pallas
 
     def soft_visibility(shadow, tmax, active):
-        if pallas:
-            return soft_occluded_pallas(scene, shadow, tmax, active,
-                                        config.soft_shadows, prep)
-        return occlusion_soft(scene, shadow, tmax, active,
-                              edge_eps=config.soft_shadows)
+        with SPANS.path_trace:
+            if pallas:
+                return soft_occluded_pallas(scene, shadow, tmax, active,
+                                            config.soft_shadows, prep)
+            return occlusion_soft(scene, shadow, tmax, active,
+                                  edge_eps=config.soft_shadows)
 
     # Per-bounce sort (large PALLAS scenes, where the per-block culling
     # needs coherent blocks after a diffuse bounce; any traversal where
@@ -432,132 +441,141 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
         active, seed, depth, steps = c.active, c.seed, c.depth, c.steps
         segments, prev_pdf, normal, src, pend = (c.segments, c.prev_pdf,
                                                  c.normal, c.src, c.pend)
-        if reorder:
-            if sort_rays:
-                key = torch.where(active, morton_octant_key(
-                    ray_o.detach(), ray_d.detach(), cell_lo, cell_span),
-                    1 << 14)
-                order = torch.argsort(key, stable=True)
+        with SPANS.path_lanes:
+            if reorder:
+                if sort_rays:
+                    key = torch.where(active, morton_octant_key(
+                        ray_o.detach(), ray_d.detach(), cell_lo, cell_span),
+                        1 << 14)
+                    order = torch.argsort(key, stable=True)
 
-                def g(x):
-                    return x[order]
-            else:
-                # A ray whose shadow query is still pending keeps its group
-                # live: the fused launch resolves it this bounce.
-                live = active | pend.active if fuse_nee else active
-                glive = live.view(-1, cg).any(dim=1)
-                ng = glive.shape[0]
-                r_live = torch.cumsum(glive.to(torch.int64), 0)
-                r_dead = torch.cumsum((~glive).to(torch.int64), 0)
-                gdest = torch.where(glive, r_live - 1,
-                                    r_live[-1] + r_dead - 1)
-                gorder = torch.empty(ng, dtype=torch.int64, device=dev)
-                gorder[gdest] = torch.arange(ng, device=dev)
+                    def g(x):
+                        return x[order]
+                else:
+                    # A ray whose shadow query is still pending keeps its
+                    # group live: the fused launch resolves it this bounce.
+                    live = active | pend.active if fuse_nee else active
+                    glive = live.view(-1, cg).any(dim=1)
+                    ng = glive.shape[0]
+                    r_live = torch.cumsum(glive.to(torch.int64), 0)
+                    r_dead = torch.cumsum((~glive).to(torch.int64), 0)
+                    gdest = torch.where(glive, r_live - 1,
+                                        r_live[-1] + r_dead - 1)
+                    gorder = torch.empty(ng, dtype=torch.int64, device=dev)
+                    gorder[gdest] = torch.arange(ng, device=dev)
 
-                def g(x):
-                    return x.view(-1, cg)[gorder].reshape(-1)
+                    def g(x):
+                        return x.view(-1, cg)[gorder].reshape(-1)
 
-            def gv(v):
-                return Vec3(g(v.x), g(v.y), g(v.z))
+                def gv(v):
+                    return Vec3(g(v.x), g(v.y), g(v.z))
 
-            ray_o, ray_d = gv(ray_o), gv(ray_d)
-            throughput, radiance, normal = (gv(throughput), gv(radiance),
-                                            gv(normal))
-            active, depth, steps = g(active), g(depth), g(steps)
-            segments, prev_pdf, src = g(segments), g(prev_pdf), g(src)
-            seed = (g(seed[0]), g(seed[1]))
+                ray_o, ray_d = gv(ray_o), gv(ray_d)
+                throughput, radiance, normal = (gv(throughput), gv(radiance),
+                                                gv(normal))
+                active, depth, steps = g(active), g(depth), g(steps)
+                segments, prev_pdf, src = g(segments), g(prev_pdf), g(src)
+                seed = (g(seed[0]), g(seed[1]))
+                if fuse_nee:
+                    pend = DirectLight(
+                        Ray(gv(pend.shadow.o), gv(pend.shadow.d)),
+                        g(pend.tmax), g(pend.active), gv(pend.direct))
+
+        with SPANS.path_trace:
+            r = Ray(ray_o, ray_d)
             if fuse_nee:
-                pend = DirectLight(Ray(gv(pend.shadow.o), gv(pend.shadow.d)),
-                                   g(pend.tmax), g(pend.active),
-                                   gv(pend.direct))
-
-        r = Ray(ray_o, ray_d)
-        if fuse_nee:
-            hit, occ = trace_occlude(scene, r, active, pend.shadow,
-                                     pend.tmax, pend.active, prep)
-            # direct_i lands here, between emission_i and emission_i+1.
-            radiance = vwhere(pend.active, radiance + pend.direct
-                              * (~occ).to(torch.float32), radiance)
-        else:
-            hit = trace(scene, r, active, prep)
-        is_hit = hit.hit & active
-        steps = steps + torch.where(active, hit.steps, 0)
-        segments = segments + active.to(torch.int32)
-
-        s = get_shading_data(scene, hit, r, fast=config.traversal in (
-            Traversal.PALLAS, Traversal.UNIT))
-        sky = sample_sky(ray_d, config, scene)
-        if config.soft_primary > 0.0 and i == 0:
-            # The primary silhouette relaxed (SoftRas-style): the winner's
-            # margin over its open (silhouette) edges gives a coverage
-            # alpha, 0 on the silhouette and ~1 a few soft_primary inside;
-            # the uncovered share takes the sky, and every surface term of
-            # this bounce scales by alpha. Gradients of alpha flow through
-            # u and v to vertices, poses and the camera. Later bounces
-            # multiply by 1, which the reference does and which changes
-            # nothing.
-            eo = scene.tri_edge_open[hit.tri.long()]  # (N, 3)
-            u, v = hit.u, hit.v
-            margin = torch.minimum(
-                torch.minimum(torch.where(eo[:, 0] > 0, u, 1.0),
-                              torch.where(eo[:, 1] > 0, v, 1.0)),
-                torch.where(eo[:, 2] > 0, 1.0 - u - v, 1.0))
-            alpha = 2.0 * torch.sigmoid(torch.clamp(margin, min=0.0)
-                                        / config.soft_primary) - 1.0
-            radiance = vwhere(is_hit, radiance + throughput * sky
-                              * (1.0 - alpha), radiance)
-            throughput = throughput * torch.where(is_hit, alpha, 1.0)
-        emission = vwhere(is_hit, s.emission, sky)
-        if use_nee:
-            emission = mis_emission(scene, table, hit, r.d, emission,
-                                    is_hit, prev_pdf)
-        radiance = vwhere(active, radiance + throughput * emission, radiance)
-
-        if use_nee:
-            dl, seed = sample_direct(
-                s, throughput, is_hit, seed, table, config,
-                soft_visibility if soft_shadows
-                else None if pallas else hit_visibility(trace, scene, prep))
-            if scene.has_transmission:
-                dl = dl._replace(direct=dl.direct * (1.0 - s.transmission))
-            segments = segments + dl.active.to(torch.int32)
-            if fuse_nee:
-                pend = dl
-            elif soft_shadows or not pallas:
-                radiance = vwhere(active, radiance + dl.direct, radiance)
-            else:
-                # Hard visibility has no derivative almost everywhere: the
-                # kernel sees detached inputs.
-                occ = occluded_pallas(scene, dl.shadow.detach(),
-                                      dl.tmax.detach(), dl.active, prep)
-                radiance = vwhere(active, radiance + dl.direct
+                hit, occ = trace_occlude(scene, r, active, pend.shadow,
+                                         pend.tmax, pend.active, prep)
+                # direct_i lands here, between emission_i and emission_i+1.
+                radiance = vwhere(pend.active, radiance + pend.direct
                                   * (~occ).to(torch.float32), radiance)
+            else:
+                hit = trace(scene, r, active, prep)
+        with SPANS.path_shade:
+            is_hit = hit.hit & active
+            steps = steps + torch.where(active, hit.steps, 0)
+            segments = segments + active.to(torch.int32)
 
-        if i == 0:  # first-hit AOVs
-            dist = (s.position - ray_o).length()
-            depth = torch.where(is_hit, dist, depth)
-            normal = vwhere(is_hit, s.normal, normal)
+            s = get_shading_data(scene, hit, r, fast=config.traversal in (
+                Traversal.PALLAS, Traversal.UNIT))
+            sky = sample_sky(ray_d, config, scene)
+            if config.soft_primary > 0.0 and i == 0:
+                # The primary silhouette relaxed (SoftRas-style): the winner's
+                # margin over its open (silhouette) edges gives a coverage
+                # alpha, 0 on the silhouette and ~1 a few soft_primary inside;
+                # the uncovered share takes the sky, and every surface term of
+                # this bounce scales by alpha. Gradients of alpha flow through
+                # u and v to vertices, poses and the camera. Later bounces
+                # multiply by 1, which the reference does and which changes
+                # nothing.
+                eo = scene.tri_edge_open[hit.tri.long()]  # (N, 3)
+                u, v = hit.u, hit.v
+                margin = torch.minimum(
+                    torch.minimum(torch.where(eo[:, 0] > 0, u, 1.0),
+                                  torch.where(eo[:, 1] > 0, v, 1.0)),
+                    torch.where(eo[:, 2] > 0, 1.0 - u - v, 1.0))
+                alpha = 2.0 * torch.sigmoid(torch.clamp(margin, min=0.0)
+                                            / config.soft_primary) - 1.0
+                radiance = vwhere(is_hit, radiance + throughput * sky
+                                  * (1.0 - alpha), radiance)
+                throughput = throughput * torch.where(is_hit, alpha, 1.0)
+            emission = vwhere(is_hit, s.emission, sky)
+            if use_nee:
+                emission = mis_emission(scene, table, hit, r.d, emission,
+                                        is_hit, prev_pdf)
+            radiance = vwhere(active, radiance + throughput * emission,
+                              radiance)
 
-        new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
-            s, hit, r, throughput, is_hit, seed, config,
-            scene.has_transmission, i)
-        return _Carry(vwhere(survive, new_o, ray_o),
-                      vwhere(survive, new_dir, ray_d),
-                      vwhere(survive, new_tp, throughput),
-                      radiance, survive, seed, depth, steps, segments,
-                      torch.where(survive, pdf, -1.0), normal, src, pend)
+            if use_nee:
+                dl, seed = sample_direct(
+                    s, throughput, is_hit, seed, table, config,
+                    soft_visibility if soft_shadows else None if pallas
+                    else hit_visibility(trace, scene, prep))
+                if scene.has_transmission:
+                    dl = dl._replace(direct=dl.direct
+                                     * (1.0 - s.transmission))
+                segments = segments + dl.active.to(torch.int32)
+                if fuse_nee:
+                    pend = dl
+                elif soft_shadows or not pallas:
+                    radiance = vwhere(active, radiance + dl.direct, radiance)
+                else:
+                    # Hard visibility has no derivative almost everywhere:
+                    # the kernel sees detached inputs.
+                    with SPANS.path_trace:
+                        occ = occluded_pallas(scene, dl.shadow.detach(),
+                                              dl.tmax.detach(), dl.active,
+                                              prep)
+                    radiance = vwhere(active, radiance + dl.direct
+                                      * (~occ).to(torch.float32), radiance)
 
-    zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
-    zero3 = Vec3(zero_n, zero_n, zero_n)
-    carry = _Carry(
-        ray.o, ray.d, Vec3(zero_n + 1.0, zero_n + 1.0, zero_n + 1.0), zero3,
-        torch.ones(n, dtype=torch.bool, device=dev), seed, zero_n + far,
-        torch.zeros(n, dtype=torch.int32, device=dev),
-        torch.zeros(n, dtype=torch.int32, device=dev), zero_n - 1.0, zero3,
-        torch.arange(n, device=dev) if reorder else None,
-        # No shadow query is pending at bounce 0.
-        DirectLight(Ray(zero3, zero3), zero_n,
-                    torch.zeros(n, dtype=torch.bool, device=dev), zero3))
+            if i == 0:  # first-hit AOVs
+                dist = (s.position - ray_o).length()
+                depth = torch.where(is_hit, dist, depth)
+                normal = vwhere(is_hit, s.normal, normal)
+
+            new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+                s, hit, r, throughput, is_hit, seed, config,
+                scene.has_transmission, i)
+            return _Carry(vwhere(survive, new_o, ray_o),
+                          vwhere(survive, new_dir, ray_d),
+                          vwhere(survive, new_tp, throughput),
+                          radiance, survive, seed, depth, steps, segments,
+                          torch.where(survive, pdf, -1.0), normal, src, pend)
+
+    with SPANS.path_lanes:
+        zero_n = torch.zeros(n, dtype=torch.float32, device=dev)
+        zero3 = Vec3(zero_n, zero_n, zero_n)
+        carry = _Carry(
+            ray.o, ray.d, Vec3(zero_n + 1.0, zero_n + 1.0, zero_n + 1.0),
+            zero3, torch.ones(n, dtype=torch.bool, device=dev), seed,
+            zero_n + far, torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev), zero_n - 1.0,
+            zero3,
+            torch.arange(n, device=dev) if reorder else None,
+            # No shadow query is pending at bounce 0.
+            DirectLight(Ray(zero3, zero3), zero_n,
+                        torch.zeros(n, dtype=torch.bool, device=dev), zero3))
     ckpt = diff and checkpoint_bounces(config, n)
     for i in range(config.bounces):
         if ckpt:
@@ -571,23 +589,26 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     if fuse_nee:
         # The last bounce's shadow queries: one trailing any-hit launch, on
         # detached inputs.
-        occ = occluded_pallas(scene, pend.shadow.detach(), pend.tmax.detach(),
-                              pend.active, prep)
-        radiance = vwhere(pend.active, radiance + pend.direct
-                          * (~occ).to(torch.float32), radiance)
+        with SPANS.path_trace:
+            occ = occluded_pallas(scene, pend.shadow.detach(),
+                                  pend.tmax.detach(), pend.active, prep)
+        with SPANS.path_shade:
+            radiance = vwhere(pend.active, radiance + pend.direct
+                              * (~occ).to(torch.float32), radiance)
 
     normal, depth = carry.normal, carry.depth
     steps, segments = carry.steps, carry.segments
-    if reorder:
-        src = carry.src
+    with SPANS.path_lanes:
+        if reorder:
+            src = carry.src
 
-        def unsort(x):
-            return torch.empty_like(x).index_copy_(0, src, x)
+            def unsort(x):
+                return torch.empty_like(x).index_copy_(0, src, x)
 
-        radiance = Vec3(unsort(radiance.x), unsort(radiance.y),
-                        unsort(radiance.z))
-        normal = Vec3(unsort(normal.x), unsort(normal.y), unsort(normal.z))
-        depth, steps, segments = unsort(depth), unsort(steps), \
-            unsort(segments)
+            radiance = Vec3(unsort(radiance.x), unsort(radiance.y),
+                            unsort(radiance.z))
+            normal = Vec3(unsort(normal.x), unsort(normal.y), unsort(normal.z))
+            depth, steps, segments = unsort(depth), unsort(steps), \
+                unsort(segments)
     return PathTraceResult(radiance=radiance, depth=depth, steps=steps,
                            segments=segments, normal=normal)

@@ -88,6 +88,7 @@ from gdpathtracing_torch.render.shading import get_shading_data
 from gdpathtracing_torch.render.sky import sample_sky
 from gdpathtracing_torch.render.types import MISS_T, Ray
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import SPANS
 
 # Rows of the float lane stack ...
 _O, _D, _TP, _RAD = 0, 3, 6, 9          # Vec3 rows start here
@@ -252,33 +253,34 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     ``render_radiance_regen.iterations``."""
     from gdpathtracing_torch.render.renderer import FrameAOVs
 
-    pallas = config.traversal == Traversal.PALLAS
-    prep = prepare_trace_inputs(scene) if pallas else None
-    check_supported(scene, config)
-    march = use_march(config, prep)
-    fuse = fuses_nee(scene, config, prep)
-    if march:
-        QL, MK = int(config.regen_march_ql), int(config.regen_march_k)
-        nsc = prep.sc_bounds.shape[1]
-    dev = scene.device
-    camera = camera.to(dev)
-    w, h = camera.width, camera.height
-    n_pix = w * h
-    n_paths = n_pix * config.spp
-    nw = min(config.regen_wavefront, -(-n_paths // BN) * BN)
-    frame_index = int(frame_index)
-    use_nee = config.nee and scene.n_lights > 0
-    compact = config.compact_rays is not False
-    use_log = config.regen_retire == "log" and compact
-    sort_lanes = sorts_lanes(config)
-    if config.regen_sort_key == "chunk" and sort_lanes and not march:
-        key_bounds = chunk_key_bounds(scene.isect_chunk_bounds.detach())
-    else:
-        key_bounds = None
-    table = None if not use_nee else prep.lights if pallas \
-        else build_light_table(scene)
-    trace = get_trace_fn(config)
-    cell_lo, cell_span = morton_frame(scene)
+    with SPANS.render_prepare:
+        pallas = config.traversal == Traversal.PALLAS
+        prep = prepare_trace_inputs(scene) if pallas else None
+        check_supported(scene, config)
+        march = use_march(config, prep)
+        fuse = fuses_nee(scene, config, prep)
+        if march:
+            QL, MK = int(config.regen_march_ql), int(config.regen_march_k)
+            nsc = prep.sc_bounds.shape[1]
+        dev = scene.device
+        camera = camera.to(dev)
+        w, h = camera.width, camera.height
+        n_pix = w * h
+        n_paths = n_pix * config.spp
+        nw = min(config.regen_wavefront, -(-n_paths // BN) * BN)
+        frame_index = int(frame_index)
+        use_nee = config.nee and scene.n_lights > 0
+        compact = config.compact_rays is not False
+        use_log = config.regen_retire == "log" and compact
+        sort_lanes = sorts_lanes(config)
+        if config.regen_sort_key == "chunk" and sort_lanes and not march:
+            key_bounds = chunk_key_bounds(scene.isect_chunk_bounds.detach())
+        else:
+            key_bounds = None
+        table = None if not use_nee else prep.lights if pallas \
+            else build_light_table(scene)
+        trace = get_trace_fn(config)
+        cell_lo, cell_span = morton_frame(scene)
 
     def spawn(path_id):
         """Camera ray and RNG stream of path ``path_id`` (pixel-major
@@ -326,46 +328,52 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     # normal3 (m_t b_t)], int64 rows [seed2 pid bounce steps segs (m_sc
     # b_e)]; the march's cursor (m_t, m_sc) and running best (b_t, b_e)
     # start at (-inf, -1) and (MISS_T, BIG_E).
-    lane = torch.arange(nw, device=dev)
-    ray0, seed0 = spawn(lane)
-    zero = torch.zeros(nw, dtype=torch.float32, device=dev)
-    fs = torch.stack([*ray0.o, *ray0.d, zero + 1.0, zero + 1.0, zero + 1.0,
-                      zero, zero, zero, zero - 1.0, zero + camera.far,
-                      zero, zero, zero]
-                     + ([zero - torch.inf, zero + MISS_T] if march else []))
-    izero = torch.zeros(nw, dtype=torch.int64, device=dev)
-    ints = torch.stack([seed0[0], seed0[1], lane, izero, izero, izero]
-                       + ([izero - 1, izero + BIG_E] if march else []))
-    # What a fresh path starts with besides its ray and seed.
-    spawn_f = fs[_TP:]
-    spawn_i = ints[_BOUNCE:]
-    active = lane < n_paths
-    next_path = nact = min(nw, n_paths)
-    if march:
-        es, ss, queue = march_candidates(fs, ints, active)
+    with SPANS.path_lanes:
+        lane = torch.arange(nw, device=dev)
+        ray0, seed0 = spawn(lane)
+        zero = torch.zeros(nw, dtype=torch.float32, device=dev)
+        fs = torch.stack([*ray0.o, *ray0.d, zero + 1.0, zero + 1.0, zero + 1.0,
+                          zero, zero, zero, zero - 1.0, zero + camera.far,
+                          zero, zero, zero]
+                         + ([zero - torch.inf, zero + MISS_T] if march
+                            else []))
+        izero = torch.zeros(nw, dtype=torch.int64, device=dev)
+        ints = torch.stack([seed0[0], seed0[1], lane, izero, izero, izero]
+                           + ([izero - 1, izero + BIG_E] if march else []))
+        # What a fresh path starts with besides its ray and seed.
+        spawn_f = fs[_TP:]
+        spawn_i = ints[_BOUNCE:]
+        active = lane < n_paths
+        next_path = nact = min(nw, n_paths)
+        if march:
+            es, ss, queue = march_candidates(fs, ints, active)
 
-    if use_log:
-        log_f = torch.zeros((len(_LOG_F), n_paths + nw), dtype=torch.float32,
-                            device=dev)
-        log_i = torch.zeros((3, n_paths + nw), dtype=torch.int64, device=dev)
-        retired = 0
-    else:  # one extra column takes the writes of lanes that retire nothing
-        out_f = torch.zeros((len(_LOG_F), n_paths + 1), dtype=torch.float32,
-                            device=dev)
-        out_i = torch.zeros((2, n_paths + 1), dtype=torch.int64, device=dev)
+        if use_log:
+            log_f = torch.zeros((len(_LOG_F), n_paths + nw),
+                                dtype=torch.float32, device=dev)
+            log_i = torch.zeros((3, n_paths + nw), dtype=torch.int64,
+                                device=dev)
+            retired = 0
+        else:  # one extra column takes the writes of lanes that retire
+            #      nothing
+            out_f = torch.zeros((len(_LOG_F), n_paths + 1),
+                                dtype=torch.float32, device=dev)
+            out_i = torch.zeros((2, n_paths + 1), dtype=torch.int64,
+                                device=dev)
 
-    if fuse:  # no query is pending at the start
-        pend_f = torch.zeros((_P_DIRECT + 3, nw), dtype=torch.float32,
-                             device=dev)
-        p_sh = torch.zeros(nw, dtype=torch.bool, device=dev)
-        p_pid = torch.zeros(nw, dtype=torch.int64, device=dev)
-    n_pend = n_last = dstart = last_log = 0
+        if fuse:  # no query is pending at the start
+            pend_f = torch.zeros((_P_DIRECT + 3, nw), dtype=torch.float32,
+                                 device=dev)
+            p_sh = torch.zeros(nw, dtype=torch.bool, device=dev)
+            p_pid = torch.zeros(nw, dtype=torch.int64, device=dev)
+        n_pend = n_last = dstart = last_log = 0
 
-    stages = [nw] + _drain_sizes(config, nw, n_paths, compact and not fuse)
-    iters = lane_slots = 0
-    if return_stats:
-        it_alive = torch.zeros(MAX_IT, dtype=torch.int32, device=dev)
-        it_sweeps = torch.zeros((2, MAX_IT), dtype=torch.float32, device=dev)
+        stages = [nw] + _drain_sizes(config, nw, n_paths, compact and not fuse)
+        iters = lane_slots = 0
+        if return_stats:
+            it_alive = torch.zeros(MAX_IT, dtype=torch.int32, device=dev)
+            it_sweeps = torch.zeros((2, MAX_IT), dtype=torch.float32,
+                                    device=dev)
     for k, size in enumerate(stages):
         # A drain stage takes over the live prefix of the sorted lanes.
         fs, ints, active = fs[:, :size], ints[:, :size], active[:size]
@@ -375,249 +383,262 @@ def render_radiance_regen(scene: Scene, camera: Camera,
         threshold = stages[k + 1] if k + 1 < len(stages) else 0
         lane = torch.arange(size, device=dev)
         while next_path < n_paths or nact > threshold or n_pend:
-            ray_o = Vec3(*fs[_O:_O + 3])
-            ray_d = Vec3(*fs[_D:_D + 3])
-            tp = Vec3(*fs[_TP:_TP + 3])
-            rad = Vec3(*fs[_RAD:_RAD + 3])
-            prev_pdf, depth1 = fs[_PREV_PDF], fs[_DEPTH]
-            normal1 = Vec3(*fs[_NRM:_NRM + 3])
-            seed = (ints[_SEED], ints[_SEED + 1])
-            pid, bounce = ints[_PID], ints[_BOUNCE]
-            steps, segs = ints[_STEPS], ints[_SEGS]
+            with SPANS.path_lanes:
+                ray_o = Vec3(*fs[_O:_O + 3])
+                ray_d = Vec3(*fs[_D:_D + 3])
+                tp = Vec3(*fs[_TP:_TP + 3])
+                rad = Vec3(*fs[_RAD:_RAD + 3])
+                prev_pdf, depth1 = fs[_PREV_PDF], fs[_DEPTH]
+                normal1 = Vec3(*fs[_NRM:_NRM + 3])
+                seed = (ints[_SEED], ints[_SEED + 1])
+                pid, bounce = ints[_PID], ints[_BOUNCE]
+                steps, segs = ints[_STEPS], ints[_SEGS]
 
-            # ---- one path segment: the standard loop's body ----
-            r = Ray(ray_o, ray_d)
-            if march:
-                # One march round: sweep each block's queued superchunks
-                # into the carried best, advance each lane's cursor
-                # through every candidate its block's queue swept, and
-                # resolve the segment where no candidate left can beat the
-                # running best (rem_e > b_t: an exact-entry tie still
-                # sweeps, which keeps the lexicographic winner).
-                m_t, b_t = fs[_MT], fs[_BT]
-                m_sc, b_e = ints[_MSC], ints[_BE]
-                b_t, b_e, tsteps = march_sweep(prep, r, active, b_t, b_e,
-                                               queue)
-                qr = queue.view(-1, 1, QL).expand(-1, BN, QL).reshape(
-                    size, QL)
-                advs, prev = [], active
-                for i in range(MK):
-                    prev = prev & (ss[i] < nsc) \
-                        & (qr == ss[i][:, None]).any(dim=1)
-                    advs.append(prev)
-                for i in range(MK):
-                    m_t = torch.where(advs[i], es[i], m_t)
-                    m_sc = torch.where(advs[i], ss[i], m_sc)
-                rem_e, rem_s = es[0], ss[0]
-                for i in range(MK - 1):
-                    rem_e = torch.where(advs[i], es[i + 1], rem_e)
-                    rem_s = torch.where(advs[i], ss[i + 1], rem_s)
-                # A lane that advanced through all MK cannot prove it is
-                # done: the next scan finds its frontier.
-                shade = active & ~advs[MK - 1] \
-                    & ((rem_s >= nsc) | (rem_e > b_t))
-                hit = lite_epilogue(scene, prep, r, shade, b_t,
-                                    b_e.to(torch.int32))
-            elif fuse:
-                # Phase A: this iteration's closest hit; phase B: the
-                # shadow queries posted the iteration before.
-                hit, p_occ = trace_occlude_pallas(
-                    scene, r, active, Ray(Vec3(*pend_f[_P_O:_P_O + 3]),
-                                          Vec3(*pend_f[_P_D:_P_D + 3])),
-                    pend_f[_P_TMAX], p_sh, prep)
-                shade, tsteps = active, hit.steps
-                # Fold each resolved direct term into its path: the lane if
-                # it still holds the posting path (path ids are never
-                # reused), else the row the path retired with the iteration
-                # before (late).
-                contrib = Vec3(*pend_f[_P_DIRECT:_P_DIRECT + 3]) \
-                    * (~p_occ).to(torch.float32)
-                own = p_sh & (p_pid == pid) & active
-                rad = vwhere(own, rad + contrib, rad)
-                late = p_sh & ~own
-                contrib = torch.stack([*contrib])
-                if use_log:  # the block appended last, whose lanes follow
-                    #          the survivors of the last permutation
-                    rows = slice(dstart, dstart + n_last)
-                    v = log_f[0:3, last_log:last_log + n_last]
-                    v.copy_(torch.where(late[rows], v + contrib[:, rows], v))
-                else:  # the lanes that retire nothing write the extra column
-                    slot = torch.where(late, p_pid, n_paths)
-                    out_f[0:3, slot] = out_f[0:3, slot] + contrib
-            else:
-                hit = trace(scene, r, active, prep)
-                shade, tsteps = active, hit.steps
-            if return_stats:
-                it = min(iters, MAX_IT - 1)
-                it_alive[it] = active.sum()
-                if hit.rows is not None:
-                    it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
-            # `shade`: the lanes whose segment resolved this iteration
-            # (all active lanes without the march). Only they shade, draw
-            # random numbers and count a segment.
-            steps = steps + torch.where(active, tsteps, 0)
-            seed_before = seed
-            is_hit = hit.hit & shade
-            segs = segs + shade.to(torch.int64)
-
-            s = get_shading_data(scene, hit, r, fast=config.traversal
-                                 != Traversal.BRUTE)
-            sky = sample_sky(ray_d, config, scene)
-            emission = vwhere(is_hit, s.emission, sky)
-            if use_nee:
-                emission = mis_emission(scene, table, hit, r.d, emission,
-                                        is_hit, prev_pdf)
-            rad = vwhere(shade, rad + tp * emission, rad)
-
-            if use_nee:
-                # PALLAS: one any-hit launch (kernel 2); the oracles: a
-                # closest hit of their own, visible where nothing is hit
-                # before the light.
-                dl, seed = sample_direct(
-                    s, tp, is_hit, seed, table, config, None if pallas
-                    else hit_visibility(trace, scene, prep))
-                direct = dl.direct
-                if pallas and not fuse:
-                    occ = occluded_pallas(scene, dl.shadow, dl.tmax,
-                                          dl.active, prep)
-                    direct = direct * (~occ).to(torch.float32)
-                if scene.has_transmission:
-                    direct = direct * (1.0 - s.transmission)
-                segs = segs + dl.active.to(torch.int64)
-                if not fuse:  # fused: resolves in the next launch
-                    rad = vwhere(active, rad + direct, rad)
-
-            first = (bounce == 0) & is_hit
-            depth1 = torch.where(first, (s.position - ray_o).length(),
-                                 depth1)
-            normal1 = vwhere(first, s.normal, normal1)
-
-            new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
-                s, hit, r, tp, is_hit, seed, config, scene.has_transmission,
-                bounce)
-            if march:
-                # A pending lane keeps its stream position.
-                seed = (torch.where(shade, seed[0], seed_before[0]),
-                        torch.where(shade, seed[1], seed_before[1]))
-            ray_o = vwhere(survive, new_o, ray_o)
-            ray_d = vwhere(survive, new_dir, ray_d)
-            tp = vwhere(survive, new_tp, tp)
-            if march:
-                prev_pdf = torch.where(survive, pdf,
-                                       torch.where(shade, -1.0, prev_pdf))
-                bounce = bounce + shade.to(torch.int64)
-                alive = (active & ~shade) \
-                    | (survive & (bounce < config.bounces))
-                # A resolved lane starts a new march (or retires).
-                b_t = torch.where(shade, MISS_T, b_t)
-                b_e = torch.where(shade, BIG_E, b_e)
-                m_t = torch.where(shade, -torch.inf, m_t)
-                m_sc = torch.where(shade, -1, m_sc)
-            else:
-                prev_pdf = torch.where(survive, pdf, -1.0)
-                bounce = bounce + active.to(torch.int64)
-                alive = active & survive & (bounce < config.bounces)
-            dead_now = active & ~alive
-            counts = [alive.sum(), dead_now.sum()]
-            if fuse:
-                counts.append(dl.active.sum())
-            n_alive, n_fresh, *n_posted = torch.stack(counts).tolist()
-
-            # Fused: the queries just posted ride the permutation after
-            # the lane rows; each resolves in the next launch.
-            fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
-                              *normal1] + ([m_t, b_t] if march else [])
-                             + ([*dl.shadow.o, *dl.shadow.d, dl.tmax,
-                                 *direct] if fuse else []))
-            ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
-                               + ([m_sc, b_e] if march else [])
-                               + ([dl.active.to(torch.int64)] if fuse
-                                  else []))
-            if not use_log:  # retire finished paths to their slot at once
-                slot = torch.where(dead_now, pid, n_paths)
-                out_f[:, slot] = fs[_LOG_F]
-                out_i[:, slot] = ints[_STEPS:_SEGS + 1]
-
-            # ---- permute: live | freshly dead | dead before ----
-            if compact:
-                if sort_lanes and march:
-                    perm = torch.argsort(march_sort_key(
-                        ray_d, alive, dead_now, rem_s, ss, advs),
-                        stable=True)
-                elif sort_lanes:
-                    perm = torch.argsort(
-                        lane_sort_key(ray_o, ray_d, alive, dead_now),
-                        stable=True)
+            with SPANS.path_trace:
+                # ---- one path segment: the standard loop's body ----
+                r = Ray(ray_o, ray_d)
+                if march:
+                    # One march round: sweep each block's queued superchunks
+                    # into the carried best, advance each lane's cursor
+                    # through every candidate its block's queue swept, and
+                    # resolve the segment where no candidate left can beat the
+                    # running best (rem_e > b_t: an exact-entry tie still
+                    # sweeps, which keeps the lexicographic winner).
+                    m_t, b_t = fs[_MT], fs[_BT]
+                    m_sc, b_e = ints[_MSC], ints[_BE]
+                    b_t, b_e, tsteps = march_sweep(prep, r, active, b_t, b_e,
+                                                   queue)
+                    qr = queue.view(-1, 1, QL).expand(-1, BN, QL).reshape(
+                        size, QL)
+                    advs, prev = [], active
+                    for i in range(MK):
+                        prev = prev & (ss[i] < nsc) \
+                            & (qr == ss[i][:, None]).any(dim=1)
+                        advs.append(prev)
+                    for i in range(MK):
+                        m_t = torch.where(advs[i], es[i], m_t)
+                        m_sc = torch.where(advs[i], ss[i], m_sc)
+                    rem_e, rem_s = es[0], ss[0]
+                    for i in range(MK - 1):
+                        rem_e = torch.where(advs[i], es[i + 1], rem_e)
+                        rem_s = torch.where(advs[i], ss[i + 1], rem_s)
+                    # A lane that advanced through all MK cannot prove it is
+                    # done: the next scan finds its frontier.
+                    shade = active & ~advs[MK - 1] \
+                        & ((rem_s >= nsc) | (rem_e > b_t))
+                    hit = lite_epilogue(scene, prep, r, shade, b_t,
+                                        b_e.to(torch.int32))
+                elif fuse:
+                    # Phase A: this iteration's closest hit; phase B: the
+                    # shadow queries posted the iteration before.
+                    hit, p_occ = trace_occlude_pallas(
+                        scene, r, active, Ray(Vec3(*pend_f[_P_O:_P_O + 3]),
+                                              Vec3(*pend_f[_P_D:_P_D + 3])),
+                        pend_f[_P_TMAX], p_sh, prep)
+                    shade, tsteps = active, hit.steps
                 else:
-                    stale = ~alive & ~dead_now
-                    dest = torch.where(
-                        alive, torch.cumsum(alive, 0),
-                        torch.where(dead_now,
-                                    n_alive + torch.cumsum(dead_now, 0),
-                                    n_alive + n_fresh
-                                    + torch.cumsum(stale, 0))) - 1
-                    perm = torch.empty_like(lane)
-                    perm[dest] = lane
-                fs, ints = fs[:, perm], ints[:, perm]
-                alive = lane < n_alive
-            if fuse:  # the queries, apart from the lanes (views: the
-                #       refill below writes new stacks)
-                pend_f, p_sh, p_pid = fs[_NF:], ints[_NI].bool(), ints[_PID]
-                fs, ints = fs[:_NF], ints[:_NI]
-                n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
-            if use_log:  # the freshly dead block, appended in one copy
-                last_log = retired
-                fresh = slice(n_alive, n_alive + n_fresh)
-                log_f[:, retired:retired + n_fresh] = fs[_LOG_F, fresh]
-                log_i[0, retired:retired + n_fresh] = torch.clamp(
-                    ints[_STEPS, fresh], max=_STEPS_MAX)
-                log_i[1:, retired:retired + n_fresh] = \
-                    ints[[_SEGS, _PID], fresh]
-                retired += n_fresh
+                    hit = trace(scene, r, active, prep)
+                    shade, tsteps = active, hit.steps
+            if fuse:
+                with SPANS.path_lanes:
+                    # Fold each resolved direct term into its path: the lane
+                    # if it still holds the posting path (path ids are never
+                    # reused), else the row the path retired with the
+                    # iteration before (late).
+                    contrib = Vec3(*pend_f[_P_DIRECT:_P_DIRECT + 3]) \
+                        * (~p_occ).to(torch.float32)
+                    own = p_sh & (p_pid == pid) & active
+                    rad = vwhere(own, rad + contrib, rad)
+                    late = p_sh & ~own
+                    contrib = torch.stack([*contrib])
+                    if use_log:  # the block appended last, whose lanes
+                        #          follow the survivors of the last
+                        #          permutation
+                        rows = slice(dstart, dstart + n_last)
+                        v = log_f[0:3, last_log:last_log + n_last]
+                        v.copy_(torch.where(late[rows],
+                                            v + contrib[:, rows], v))
+                    else:  # the lanes that retire nothing write the extra
+                        #      column
+                        slot = torch.where(late, p_pid, n_paths)
+                        out_f[0:3, slot] = out_f[0:3, slot] + contrib
+            with SPANS.path_shade:
+                if return_stats:
+                    it = min(iters, MAX_IT - 1)
+                    it_alive[it] = active.sum()
+                    if hit.rows is not None:
+                        it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
+                # `shade`: the lanes whose segment resolved this iteration
+                # (all active lanes without the march). Only they shade, draw
+                # random numbers and count a segment.
+                steps = steps + torch.where(active, tsteps, 0)
+                seed_before = seed
+                is_hit = hit.hit & shade
+                segs = segs + shade.to(torch.int64)
 
-            # ---- regenerate: refill dead lanes from the path pool ----
-            dead = ~alive
-            new_id = next_path + torch.cumsum(dead, 0) - 1
-            can = dead & (new_id < n_paths)
-            new_id = torch.clamp(new_id, max=n_paths - 1)
-            ray_new, seed_new = spawn(new_id)
-            fresh_f = torch.cat([torch.stack([*ray_new.o, *ray_new.d]),
-                                 spawn_f[:, :size]])
-            fresh_i = torch.cat([torch.stack([*seed_new, new_id]),
-                                 spawn_i[:, :size]])
-            fs = torch.where(can, fresh_f, fs)
-            ints = torch.where(can, fresh_i, ints)
-            active = alive | can
-            if march:  # the next round's candidates and queues
-                es, ss, queue = march_candidates(fs, ints, active)
-            nact = n_alive + min(size - n_alive, n_paths - next_path)
-            next_path = min(next_path + size - n_alive, n_paths)
-            iters += 1
-            lane_slots += size
+                s = get_shading_data(scene, hit, r, fast=config.traversal
+                                     != Traversal.BRUTE)
+                sky = sample_sky(ray_d, config, scene)
+                emission = vwhere(is_hit, s.emission, sky)
+                if use_nee:
+                    emission = mis_emission(scene, table, hit, r.d, emission,
+                                            is_hit, prev_pdf)
+                rad = vwhere(shade, rad + tp * emission, rad)
 
-    if use_log:
-        # Every path retired exactly once: index the log by path id.
-        pos = torch.empty(n_paths, dtype=torch.int64, device=dev)
-        pos[log_i[2, :n_paths]] = torch.arange(n_paths, device=dev)
-        vals, steps, segs = log_f[:, pos], log_i[0, pos], log_i[1, pos]
-    else:
-        vals = out_f[:, :n_paths]
-        steps, segs = out_i[0, :n_paths], out_i[1, :n_paths]
+                if use_nee:
+                    # PALLAS: one any-hit launch (kernel 2); the oracles: a
+                    # closest hit of their own, visible where nothing is hit
+                    # before the light.
+                    dl, seed = sample_direct(
+                        s, tp, is_hit, seed, table, config, None if pallas
+                        else hit_visibility(trace, scene, prep))
+                    direct = dl.direct
+                    if pallas and not fuse:
+                        with SPANS.path_trace:
+                            occ = occluded_pallas(scene, dl.shadow, dl.tmax,
+                                                  dl.active, prep)
+                        direct = direct * (~occ).to(torch.float32)
+                    if scene.has_transmission:
+                        direct = direct * (1.0 - s.transmission)
+                    segs = segs + dl.active.to(torch.int64)
+                    if not fuse:  # fused: resolves in the next launch
+                        rad = vwhere(active, rad + direct, rad)
 
-    # Samples of a pixel: the standard renderer's reduction.
-    per = [slice(k * n_pix, (k + 1) * n_pix) for k in range(config.spp)]
-    acc = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
-    depth = vals[3, per[0]]
-    for p in per:
-        acc = acc + vals[0:3, p]
-        depth = torch.minimum(depth, vals[3, p])
-    rgb = acc * (1.0 / config.spp)
-    aovs = FrameAOVs(
-        radiance=rgb.T.reshape(h, w, 3),
-        depth=depth.reshape(h, w),
-        steps=sum(steps[p] for p in per).to(torch.int32).reshape(h, w),
-        segments=sum(segs[p] for p in per).to(torch.int32).reshape(h, w),
-        normal=vals[4:7, per[0]].T.reshape(h, w, 3))
+                first = (bounce == 0) & is_hit
+                depth1 = torch.where(first, (s.position - ray_o).length(),
+                                     depth1)
+                normal1 = vwhere(first, s.normal, normal1)
+
+                new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+                    s, hit, r, tp, is_hit, seed, config,
+                    scene.has_transmission, bounce)
+                if march:
+                    # A pending lane keeps its stream position.
+                    seed = (torch.where(shade, seed[0], seed_before[0]),
+                            torch.where(shade, seed[1], seed_before[1]))
+                ray_o = vwhere(survive, new_o, ray_o)
+                ray_d = vwhere(survive, new_dir, ray_d)
+                tp = vwhere(survive, new_tp, tp)
+                if march:
+                    prev_pdf = torch.where(survive, pdf,
+                                           torch.where(shade, -1.0, prev_pdf))
+                    bounce = bounce + shade.to(torch.int64)
+                    alive = (active & ~shade) \
+                        | (survive & (bounce < config.bounces))
+                    # A resolved lane starts a new march (or retires).
+                    b_t = torch.where(shade, MISS_T, b_t)
+                    b_e = torch.where(shade, BIG_E, b_e)
+                    m_t = torch.where(shade, -torch.inf, m_t)
+                    m_sc = torch.where(shade, -1, m_sc)
+                else:
+                    prev_pdf = torch.where(survive, pdf, -1.0)
+                    bounce = bounce + active.to(torch.int64)
+                    alive = active & survive & (bounce < config.bounces)
+                dead_now = active & ~alive
+                counts = [alive.sum(), dead_now.sum()]
+                if fuse:
+                    counts.append(dl.active.sum())
+            with SPANS.regen_sync:
+                n_alive, n_fresh, *n_posted = torch.stack(counts).tolist()
+
+            with SPANS.path_lanes:
+                # Fused: the queries just posted ride the permutation after
+                # the lane rows; each resolves in the next launch.
+                fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
+                                  *normal1] + ([m_t, b_t] if march else [])
+                                 + ([*dl.shadow.o, *dl.shadow.d, dl.tmax,
+                                     *direct] if fuse else []))
+                ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
+                                   + ([m_sc, b_e] if march else [])
+                                   + ([dl.active.to(torch.int64)] if fuse
+                                      else []))
+                if not use_log:  # retire finished paths to their slot at once
+                    slot = torch.where(dead_now, pid, n_paths)
+                    out_f[:, slot] = fs[_LOG_F]
+                    out_i[:, slot] = ints[_STEPS:_SEGS + 1]
+
+                # ---- permute: live | freshly dead | dead before ----
+                if compact:
+                    if sort_lanes and march:
+                        perm = torch.argsort(march_sort_key(
+                            ray_d, alive, dead_now, rem_s, ss, advs),
+                            stable=True)
+                    elif sort_lanes:
+                        perm = torch.argsort(
+                            lane_sort_key(ray_o, ray_d, alive, dead_now),
+                            stable=True)
+                    else:
+                        stale = ~alive & ~dead_now
+                        dest = torch.where(
+                            alive, torch.cumsum(alive, 0),
+                            torch.where(dead_now,
+                                        n_alive + torch.cumsum(dead_now, 0),
+                                        n_alive + n_fresh
+                                        + torch.cumsum(stale, 0))) - 1
+                        perm = torch.empty_like(lane)
+                        perm[dest] = lane
+                    fs, ints = fs[:, perm], ints[:, perm]
+                    alive = lane < n_alive
+                if fuse:  # the queries, apart from the lanes (views: the
+                    #       refill below writes new stacks)
+                    pend_f, p_sh = fs[_NF:], ints[_NI].bool()
+                    p_pid = ints[_PID]
+                    fs, ints = fs[:_NF], ints[:_NI]
+                    n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
+                if use_log:  # the freshly dead block, appended in one copy
+                    last_log = retired
+                    fresh = slice(n_alive, n_alive + n_fresh)
+                    log_f[:, retired:retired + n_fresh] = fs[_LOG_F, fresh]
+                    log_i[0, retired:retired + n_fresh] = torch.clamp(
+                        ints[_STEPS, fresh], max=_STEPS_MAX)
+                    log_i[1:, retired:retired + n_fresh] = \
+                        ints[[_SEGS, _PID], fresh]
+                    retired += n_fresh
+
+                # ---- regenerate: refill dead lanes from the path pool ----
+                dead = ~alive
+                new_id = next_path + torch.cumsum(dead, 0) - 1
+                can = dead & (new_id < n_paths)
+                new_id = torch.clamp(new_id, max=n_paths - 1)
+                ray_new, seed_new = spawn(new_id)
+                fresh_f = torch.cat([torch.stack([*ray_new.o, *ray_new.d]),
+                                     spawn_f[:, :size]])
+                fresh_i = torch.cat([torch.stack([*seed_new, new_id]),
+                                     spawn_i[:, :size]])
+                fs = torch.where(can, fresh_f, fs)
+                ints = torch.where(can, fresh_i, ints)
+                active = alive | can
+                if march:  # the next round's candidates and queues
+                    es, ss, queue = march_candidates(fs, ints, active)
+                nact = n_alive + min(size - n_alive, n_paths - next_path)
+                next_path = min(next_path + size - n_alive, n_paths)
+                iters += 1
+                lane_slots += size
+
+    with SPANS.path_lanes:
+        if use_log:
+            # Every path retired exactly once: index the log by path id.
+            pos = torch.empty(n_paths, dtype=torch.int64, device=dev)
+            pos[log_i[2, :n_paths]] = torch.arange(n_paths, device=dev)
+            vals, steps, segs = log_f[:, pos], log_i[0, pos], log_i[1, pos]
+        else:
+            vals = out_f[:, :n_paths]
+            steps, segs = out_i[0, :n_paths], out_i[1, :n_paths]
+
+        # Samples of a pixel: the standard renderer's reduction.
+        per = [slice(k * n_pix, (k + 1) * n_pix) for k in range(config.spp)]
+        acc = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
+        depth = vals[3, per[0]]
+        for p in per:
+            acc = acc + vals[0:3, p]
+            depth = torch.minimum(depth, vals[3, p])
+        rgb = acc * (1.0 / config.spp)
+        aovs = FrameAOVs(
+            radiance=rgb.T.reshape(h, w, 3),
+            depth=depth.reshape(h, w),
+            steps=sum(steps[p] for p in per).to(torch.int32).reshape(h, w),
+            segments=sum(segs[p] for p in per).to(torch.int32).reshape(h, w),
+            normal=vals[4:7, per[0]].T.reshape(h, w, 3))
     render_radiance_regen.iterations += iters
     if return_stats:
         return aovs, {"iters": iters, "lane_slots": lane_slots,

@@ -41,6 +41,7 @@ from gdpathtracing_torch.render.integrator import check_supported, path_trace
 from gdpathtracing_torch.render.regen import (regen_auto, regen_supported,
                                               render_radiance_regen)
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import SPANS
 
 
 class FrameAOVs(NamedTuple):
@@ -57,33 +58,36 @@ def render_radiance(scene: Scene, camera: Camera, config: RenderConfig,
     their gates, a differentiable BVH render and ``regen=True`` outside
     PALLAS, BRUTE and UNIT (or with a differentiable or soft render) raise
     ValueError."""
-    if config.regen is not False:
-        if config.regen and not regen_supported(scene, config):
-            raise ValueError("config.regen requires a primal "
-                             "BRUTE/UNIT/PALLAS render (no soft "
-                             "shadows/soft primary)")
-        if config.regen or regen_auto(scene, config):
-            return render_radiance_regen(scene, camera, config, frame_index)
-    w, h = camera.width, camera.height
-    n_pix = w * h
-    if config.differentiable and config.bwd_checkpoint is None:
-        # The auto checkpoint rule at frame scope: without checkpoints the
-        # residuals of every tile and sample stay alive until the backward
-        # pass, so the estimate counts them all, not one call's wavefront.
-        tile = min(config.tile_rays, n_pix)
-        padded = -(-n_pix // tile) * tile
-        resid = (padded * config.spp * config.bounces
-                 * config.bwd_resid_bytes_per_seg)
-        config = config.replace(
-            bwd_checkpoint=resid > config.bwd_resid_budget)
-    rgb, depth, steps, segments, normal = trace_pixels(
-        scene, camera, torch.arange(n_pix, device=scene.device),
-        frame_index, config)
-    return FrameAOVs(radiance=rgb.reshape(h, w, 3),
-                     depth=depth.reshape(h, w),
-                     steps=steps.reshape(h, w),
-                     segments=segments.reshape(h, w),
-                     normal=normal.reshape(h, w, 3))
+    with SPANS.render_radiance:
+        if config.regen is not False:
+            if config.regen and not regen_supported(scene, config):
+                raise ValueError("config.regen requires a primal "
+                                 "BRUTE/UNIT/PALLAS render (no soft "
+                                 "shadows/soft primary)")
+            if config.regen or regen_auto(scene, config):
+                return render_radiance_regen(scene, camera, config,
+                                             frame_index)
+        w, h = camera.width, camera.height
+        n_pix = w * h
+        if config.differentiable and config.bwd_checkpoint is None:
+            # The auto checkpoint rule at frame scope: without checkpoints
+            # the residuals of every tile and sample stay alive until the
+            # backward pass, so the estimate counts them all, not one
+            # call's wavefront.
+            tile = min(config.tile_rays, n_pix)
+            padded = -(-n_pix // tile) * tile
+            resid = (padded * config.spp * config.bounces
+                     * config.bwd_resid_bytes_per_seg)
+            config = config.replace(
+                bwd_checkpoint=resid > config.bwd_resid_budget)
+        rgb, depth, steps, segments, normal = trace_pixels(
+            scene, camera, torch.arange(n_pix, device=scene.device),
+            frame_index, config)
+        return FrameAOVs(radiance=rgb.reshape(h, w, 3),
+                         depth=depth.reshape(h, w),
+                         steps=steps.reshape(h, w),
+                         segments=segments.reshape(h, w),
+                         normal=normal.reshape(h, w, 3))
 
 
 def trace_pixels(scene: Scene, camera: Camera, pids: torch.Tensor,
@@ -98,33 +102,39 @@ def trace_pixels(scene: Scene, camera: Camera, pids: torch.Tensor,
     pixels bit for bit."""
     check_supported(scene, config)
     dev = scene.device
-    camera = camera.to(dev)
-    pids = pids.to(dev)
-    prep = prepare_trace_inputs(scene) if config.traversal in (
-        Traversal.PALLAS, Traversal.MEGA, Traversal.FUSED) else None
+    with SPANS.render_prepare:
+        camera = camera.to(dev)
+        pids = pids.to(dev)
+        prep = prepare_trace_inputs(scene) if config.traversal in (
+            Traversal.PALLAS, Traversal.MEGA, Traversal.FUSED) else None
     frame_index = int(frame_index)
     outs = []
-    for k in range(0, pids.shape[0], config.tile_rays):
-        ids = pids[k:k + config.tile_rays]
-        px = ids % camera.width
-        py = torch.div(ids, camera.width, rounding_mode="floor")
-        acc = torch.zeros((ids.shape[0], 3), dtype=torch.float32, device=dev)
-        depth = normal = None
-        steps = segments = 0
-        for s in range(config.spp):
-            seed = rng.prng_seed(px, py, frame_index * config.spp + s)
-            ray, seed = camera.generate_rays(ids, seed, config)
-            res = path_trace(scene, ray, seed, config, prep, far=camera.far)
-            acc = acc + res.radiance.to_array()
-            depth = res.depth if depth is None else torch.minimum(depth,
-                                                                  res.depth)
-            steps = steps + res.steps
-            segments = segments + res.segments
-            if normal is None:
-                normal = res.normal.to_array()
-        outs.append((acc * (1.0 / config.spp), depth, steps, segments,
-                     normal))
-    return tuple(torch.cat(x) for x in zip(*outs))
+    # The tiles' rays, sample sums and cat; path_trace's own leaf spans
+    # pause this one.
+    with SPANS.path_lanes:
+        for k in range(0, pids.shape[0], config.tile_rays):
+            ids = pids[k:k + config.tile_rays]
+            px = ids % camera.width
+            py = torch.div(ids, camera.width, rounding_mode="floor")
+            acc = torch.zeros((ids.shape[0], 3), dtype=torch.float32,
+                              device=dev)
+            depth = normal = None
+            steps = segments = 0
+            for s in range(config.spp):
+                seed = rng.prng_seed(px, py, frame_index * config.spp + s)
+                ray, seed = camera.generate_rays(ids, seed, config)
+                res = path_trace(scene, ray, seed, config, prep,
+                                 far=camera.far)
+                acc = acc + res.radiance.to_array()
+                depth = res.depth if depth is None \
+                    else torch.minimum(depth, res.depth)
+                steps = steps + res.steps
+                segments = segments + res.segments
+                if normal is None:
+                    normal = res.normal.to_array()
+            outs.append((acc * (1.0 / config.spp), depth, steps, segments,
+                         normal))
+        return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def render(scene: Scene, camera: Camera, config: RenderConfig | None = None,
@@ -155,23 +165,25 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
     the display transform. Returns (image in [0, 1] (H, W, 3), new
     state)."""
     aovs = render_radiance(scene, camera, config, frame_index)
-    camera = camera.to(scene.device)
-    if config.denoising == DenoisingMode.PROGRESSIVE:
-        if not isinstance(state, ProgressiveState):
-            raise TypeError("PROGRESSIVE denoising needs a ProgressiveState")
-        linear, state = progressive_update(state, aovs.radiance,
-                                           camera.transform)
-    elif config.denoising == DenoisingMode.TEMPORAL:
-        if not isinstance(state, TemporalState):
-            raise TypeError("TEMPORAL denoising needs a TemporalState")
-        depth_nl = nonlinear_depth(aovs.depth, camera.near, camera.far)
-        linear, state = temporal_update(state, aovs.radiance, depth_nl,
-                                        camera.vp(),
-                                        blend=config.temporal_blend,
-                                        depth_eps=config.temporal_depth_eps)
-    else:
-        linear = aovs.radiance
-    if config.spatial_denoise:
-        linear = atrous_denoise(linear, aovs.normal, aovs.depth,
-                                iterations=config.denoise_iterations)
-    return display_transform(linear, config), state
+    with SPANS.post_passes:
+        camera = camera.to(scene.device)
+        if config.denoising == DenoisingMode.PROGRESSIVE:
+            if not isinstance(state, ProgressiveState):
+                raise TypeError("PROGRESSIVE denoising needs a "
+                                "ProgressiveState")
+            linear, state = progressive_update(state, aovs.radiance,
+                                               camera.transform)
+        elif config.denoising == DenoisingMode.TEMPORAL:
+            if not isinstance(state, TemporalState):
+                raise TypeError("TEMPORAL denoising needs a TemporalState")
+            depth_nl = nonlinear_depth(aovs.depth, camera.near, camera.far)
+            linear, state = temporal_update(
+                state, aovs.radiance, depth_nl, camera.vp(),
+                blend=config.temporal_blend,
+                depth_eps=config.temporal_depth_eps)
+        else:
+            linear = aovs.radiance
+        if config.spatial_denoise:
+            linear = atrous_denoise(linear, aovs.normal, aovs.depth,
+                                    iterations=config.denoise_iterations)
+        return display_transform(linear, config), state

@@ -1,0 +1,354 @@
+"""The port's spans and counters, and the profiler view that places the
+spans among the device's operations.
+
+A span (``with SPANS.path_trace: ...``) adds the host wall time of its
+block (two ``time.perf_counter_ns()`` reads) to ``seconds`` and one to
+``count``: plain numbers, read by attribute path, e.g.
+``gdpathtracing_torch.utils.telemetry:SPANS.regen_sync.seconds``. A span
+never synchronises the device, launches a device operation or enters
+``torch.profiler.record_function``, so a device trace sees nothing of it.
+
+The leaf spans (``LEAF_SPANS``) say where the frame loop's host time goes.
+On one thread they never overlap: a leaf entered inside another pauses the
+outer one until it ends, so each leaf's seconds are its own. Together they
+cover the outer spans ``engine_step`` and ``render_radiance``. The set-up
+spans ``kernels_load`` and ``scene_build`` are leaves too.
+
+While the timeline is on (:class:`timeline`, :class:`Profile`), each span
+also records ``(name, thread, start, end)`` stamped with
+``time.time_ns()``, the clock torch.profiler stamps its events with, at
+most ``TIMELINE_CAP`` records. Nesting is tracked per thread: the backward
+pass may recompute a checkpointed bounce on autograd's device thread.
+
+``COUNTERS`` lists the program's counters by the same kind of path: each
+kernel wrapper's ``.launches`` and regen's ``.iterations``.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import socket
+import threading
+from pathlib import Path
+from time import perf_counter_ns, time_ns
+from types import SimpleNamespace
+from typing import NamedTuple
+
+import torch
+
+LEAF_SPANS = ("render_prepare", "path_trace", "path_shade", "path_lanes",
+              "regen_sync", "post_passes", "kernels_load", "scene_build")
+OUTER_SPANS = ("engine_step", "render_radiance")
+TIMELINE_CAP = 1 << 20
+
+COUNTERS = tuple(
+    f"gdpathtracing_torch.{mod}:{fn}.launches" for mod, fn in (
+        ("ops.intersect", "closest_hit_rows"), ("ops.intersect", "occluded"),
+        ("ops.intersect", "closest_hit_rows_nee"),
+        ("ops.intersect", "closest_hit_sc_lite"),
+        ("ops.intersect", "closest_hit_rows_sc"),
+        ("ops.intersect", "march_step_sc"),
+        ("ops.intersect", "soft_occluded"),
+        ("ops.intersect", "closest_hit_classic"),
+        ("ops.intersect", "closest_hit_loop"),
+        ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
+        ("render.traverse", "trace_bvh"))) + (
+    "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",)
+
+
+def read(path: str):
+    """The value at ``"module:attr.attr"``, a counter of ``COUNTERS`` or a
+    span's ``seconds`` or ``count``."""
+    mod, attr = path.split(":")
+    obj = importlib.import_module(mod)
+    for a in attr.split("."):
+        obj = getattr(obj, a)
+    return obj
+
+
+class _State:
+    """One thread's spans: the innermost open leaf (``cur``, -1 for none)
+    and the start of its current segment (perf ns ``t0``; wall ns ``w0``,
+    kept only while the timeline is on, 0 for none), the leaves it paused
+    (``paused``), the (perf ns, wall ns) starts of the open outer spans
+    (``outer``), and the nanoseconds and counts this thread added to each
+    span. A thread writes only its own state, so no lock is taken."""
+
+    __slots__ = ("tid", "cur", "t0", "w0", "paused", "outer", "ns", "count")
+
+    def __init__(self, n: int):
+        self.tid = threading.get_native_id()
+        self.cur, self.t0, self.w0 = -1, 0, 0
+        self.paused, self.outer = [], []
+        self.ns, self.count = [0] * n, [0] * n
+
+
+_NAMES = LEAF_SPANS + OUTER_SPANS
+_states: list[_State] = []  # every thread's, appended once per thread
+
+
+class _Local(threading.local):
+    def __init__(self):
+        self.st = _State(len(_NAMES))
+        _states.append(self.st)
+
+
+_local = _Local()
+_on = False            # the timeline
+_records: list = []
+_dropped = 0
+
+
+def _record(i: int, tid: int, w0: int, w1: int) -> None:
+    global _dropped
+    if len(_records) < TIMELINE_CAP:
+        _records.append((_NAMES[i], tid, w0, w1))
+    else:
+        _dropped += 1
+
+
+def _segment(st: _State, ended: int) -> None:
+    """Timeline on: the segment of leaf ``ended`` (-1: none) ends now and
+    the thread's next segment starts."""
+    wall = time_ns()
+    if ended >= 0 and st.w0:
+        _record(ended, st.tid, st.w0, wall)
+    st.w0 = wall
+
+
+class Span:
+    """A leaf span (see the module's docstring)."""
+
+    __slots__ = ("name", "i")
+
+    def __init__(self, name: str):
+        self.name, self.i = name, _NAMES.index(name)
+
+    @property
+    def seconds(self) -> float:
+        return sum(st.ns[self.i] for st in _states) * 1e-9
+
+    @property
+    def count(self) -> int:
+        return sum(st.count[self.i] for st in _states)
+
+    def __enter__(self) -> None:
+        now = perf_counter_ns()
+        st = _local.st
+        cur = st.cur
+        if cur >= 0:  # pause the enclosing leaf
+            st.ns[cur] += now - st.t0
+        st.paused.append(cur)
+        st.cur = self.i
+        st.t0 = now
+        if _on:
+            _segment(st, cur)
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        now = perf_counter_ns()
+        st = _local.st
+        i = self.i
+        st.ns[i] += now - st.t0
+        st.count[i] += 1
+        st.cur = st.paused.pop()  # resume the enclosing leaf
+        st.t0 = now
+        if _on:
+            _segment(st, i)
+
+
+class OuterSpan(Span):
+    """An outer span: it holds leaves and pauses none."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        _local.st.outer.append((perf_counter_ns(), time_ns() if _on else 0))
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        now = perf_counter_ns()
+        st = _local.st
+        t0, w0 = st.outer.pop()
+        st.ns[self.i] += now - t0
+        st.count[self.i] += 1
+        if _on and w0:
+            _record(self.i, st.tid, w0, time_ns())
+
+
+SPANS = SimpleNamespace(**{n: Span(n) for n in LEAF_SPANS},
+                        **{n: OuterSpan(n) for n in OUTER_SPANS})
+
+
+class timeline:
+    """``with timeline() as records:`` turns the timeline on, emptied, for
+    the block; ``records`` is the list of ``(name, thread, start ns, end
+    ns)`` the spans append to. A segment open when it starts is left
+    out."""
+
+    def __enter__(self) -> list:
+        global _on, _records, _dropped
+        for st in _states:
+            st.w0 = 0
+        _records, _dropped, _on = [], 0, True
+        return _records
+
+    def __exit__(self, *exc) -> bool:
+        global _on
+        _on = False
+        return False
+
+
+# ---------------------------------------------------------------------------
+# The profiler view: spans on the device trace's clock
+# ---------------------------------------------------------------------------
+
+def _union(iv) -> list[tuple[int, int]]:
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _intersect(a, b) -> list[tuple[int, int]]:
+    """The intersection of two sorted lists of disjoint intervals."""
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append((lo, hi))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def _length(iv) -> int:
+    return sum(b - a for a, b in iv)
+
+
+class SpanTime(NamedTuple):
+    host_s: float  # the span's seconds in the profiled block
+    count: int     # the span's count in the profiled block
+    idle_s: float  # the device's idle seconds inside the span's intervals
+
+
+class ProfileSummary(NamedTuple):
+    """What :class:`Profile` saw; times on the device trace's clock."""
+    window_s: float        # the profiled block's wall time
+    busy_s: float          # the union of the device operations' intervals
+    ops: int               # device operations (kernels, copies, fills)
+    op_s: dict             # device seconds by operation name
+    spans: dict            # span name -> SpanTime, for each span that ran
+    leaf_idle_share: float  # of the device's idle time inside the outer
+    #                         spans, the share inside leaf spans (nan
+    #                         without an outer span or idle time)
+    dropped: int           # span records past TIMELINE_CAP, left out
+    trace: str | None      # the trace file written, if any
+
+
+def summarise(events, records, window_ns: int, counts: dict, dropped: int,
+              trace: str | None) -> ProfileSummary:
+    """A :class:`ProfileSummary` of device ``events`` ``(name, start ns,
+    end ns)`` and span ``records`` (the timeline's) on one clock; ``counts``
+    maps a span's name to its (seconds, count) in the block."""
+    busy = _union((a, b) for _, a, b in events)
+    op_s = {}
+    for name, a, b in events:
+        op_s[name] = op_s.get(name, 0.0) + (b - a) * 1e-9
+    by_span = {}
+    for name, _, a, b in records:
+        by_span.setdefault(name, []).append((a, b))
+
+    def idle(iv):
+        return _length(iv) - _length(_intersect(iv, busy))
+
+    spans = {}
+    for name, (sec, cnt) in counts.items():
+        iv = _union(by_span.get(name, []))
+        spans[name] = SpanTime(sec, cnt, idle(iv) * 1e-9)
+    outer = _union(iv for n in OUTER_SPANS for iv in by_span.get(n, []))
+    leaves = _intersect(_union(iv for n in LEAF_SPANS
+                               for iv in by_span.get(n, [])), outer)
+    idle_outer = idle(outer)
+    return ProfileSummary(
+        window_s=window_ns * 1e-9, busy_s=_length(busy) * 1e-9,
+        ops=len(events), op_s=op_s, spans=spans,
+        leaf_idle_share=idle(leaves) / idle_outer if idle_outer
+        else float("nan"), dropped=dropped, trace=trace)
+
+
+def _write_trace(prof, records, logdir: Path) -> str:
+    """Export the profiler's chrome trace into ``logdir`` (named as
+    ``torch.profiler.tensorboard_trace_handler`` names it) with the spans
+    added as complete events of category ``program_span``."""
+    logdir.mkdir(parents=True, exist_ok=True)
+    path = logdir / (f"{socket.gethostname()}_{os.getpid()}."
+                     f"{time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": name, "pid": pid,
+         "tid": tid, "ts": (a - base) / 1e3, "dur": (b - a) / 1e3}
+        for name, tid, a, b in records)
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+class Profile:
+    """torch.profiler around a block of the frame loop, with the program's
+    spans on the device trace's clock: ``with Profile(device, logdir) as
+    p: ...``, then ``p.summary`` (a :class:`ProfileSummary`). The profiler
+    records device activity only on the card (a host op's record costs
+    more than the op), host activity on the CPU, where the CPU's operations
+    stand for the device's. With ``logdir`` the trace, spans included, is
+    written there."""
+
+    def __init__(self, device, logdir=None):
+        self.cuda = torch.device(device).type == "cuda"
+        self.logdir = None if logdir is None else Path(logdir)
+        self.summary: ProfileSummary | None = None
+
+    def __enter__(self):
+        act = torch.profiler.ProfilerActivity
+        self._prof = torch.profiler.profile(
+            activities=[act.CUDA if self.cuda else act.CPU],
+            on_trace_ready=self._ready)
+        self._timeline = timeline()
+        self._records = self._timeline.__enter__()
+        self._before = {n: (s.seconds, s.count)
+                        for n, s in vars(SPANS).items()}
+        self._prof.__enter__()
+        self._t0 = time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._t1 = time_ns()
+        self._timeline.__exit__(*exc)
+        self._prof.__exit__(*exc)
+        return False
+
+    def _ready(self, prof) -> None:
+        # The events' times are microseconds after the trace's start.
+        start = prof.profiler.kineto_results.trace_start_ns()
+        kind = torch.autograd.DeviceType.CUDA if self.cuda \
+            else torch.autograd.DeviceType.CPU
+        events = [(e.name, start + round(e.time_range.start * 1e3),
+                   start + round(e.time_range.end * 1e3))
+                  for e in prof.events() if e.device_type == kind]
+        counts = {}
+        for n, s in vars(SPANS).items():
+            sec = s.seconds - self._before[n][0]
+            cnt = s.count - self._before[n][1]
+            if cnt:
+                counts[n] = (sec, cnt)
+        path = None if self.logdir is None \
+            else _write_trace(prof, self._records, self.logdir)
+        self.summary = summarise(events, self._records, self._t1 - self._t0,
+                                 counts, _dropped, path)

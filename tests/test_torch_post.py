@@ -8,6 +8,8 @@ packages), render_frame and init_post_state, Engine
 from __future__ import annotations
 
 import enum
+import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +56,7 @@ from gdpathtracing_torch.render.renderer import (init_post_state,
                                                  render_radiance)
 from gdpathtracing_torch.scene.demo import build_cornell_simple, demo_camera
 from gdpathtracing_torch.utils.stats import frame_stats, steps_heatmap
+from gdpathtracing_torch.utils.telemetry import SPANS
 
 torch.set_num_threads(1)
 CFG = RenderConfig(bounces=2, spp=1, traversal=Traversal.UNIT)
@@ -415,6 +418,20 @@ def test_engine_matches_the_jax_engine():
 
 def test_engine_profile_writes_a_trace(tmp_path):
     eng = Engine(build_cornell_simple(device="cpu"), CFG)
-    with eng.profile(tmp_path / "trace"):
+    before = {n: s.count for n, s in vars(SPANS).items()}
+    with eng.profile(tmp_path / "trace") as prof:
         eng.step(demo_camera(8, 8))
     assert list((tmp_path / "trace").iterdir())
+    # The trace holds the program's spans beside the operations, and the
+    # summary lists every leaf span that ran.
+    ran = {n for n, s in vars(SPANS).items() if s.count > before[n]}
+    assert {"engine_step", "render_radiance", "path_trace", "path_shade",
+            "path_lanes", "post_passes"} <= ran
+    events = json.loads(Path(prof.summary.trace).read_text())["traceEvents"]
+    assert ran == {e["name"] for e in events
+                   if e.get("cat") == "program_span"}
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert set(prof.summary.spans) == ran
+    for n in ran:
+        assert prof.summary.spans[n].count == vars(SPANS)[n].count \
+            - before[n]

@@ -1,0 +1,242 @@
+"""The port's spans and counters (gdpathtracing_torch/utils/telemetry.py):
+the leaf spans cover the frame loop without overlapping, they change
+nothing the program computes, they launch nothing a profiler records,
+they sit on the profiler's clock, per-thread accounting loses nothing, and
+every counter path the benchmark reads resolves."""
+
+from __future__ import annotations
+
+import json
+import re
+import sys
+import threading
+from pathlib import Path
+from time import time_ns
+
+import pytest
+import torch
+
+from gdpathtracing_torch import Engine, RenderConfig, Traversal
+from gdpathtracing_torch.diff import inverse
+from gdpathtracing_torch.render.renderer import render_radiance
+from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing_torch.utils import telemetry
+from gdpathtracing_torch.utils.telemetry import (LEAF_SPANS, OUTER_SPANS,
+                                                 SPANS, Profile)
+
+REPO = Path(__file__).resolve().parents[1]
+PALLAS = RenderConfig(traversal=Traversal.PALLAS, bounces=3, spp=1)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return build_demo_scene(device="cpu")
+
+
+def _engine_frame(scene, config=PALLAS):
+    eng = Engine(scene, config)
+    eng.step(demo_camera(8, 8))  # regen, the default PALLAS frame loop
+    return eng.step(demo_camera(8, 8))
+
+
+# Regen with NEE: kernel 2 after shading, or kernel 4 and the late fold.
+NEE = {"nee": PALLAS.replace(nee=True),
+       "fused_nee": PALLAS.replace(nee=True, regen_fuse_nee=True)}
+
+
+def _diff_render(scene):
+    albedo = scene.mat_albedo.clone().requires_grad_(True)
+    rad = render_radiance(inverse.replace_albedo(scene, albedo),
+                          demo_camera(16, 12),
+                          PALLAS.replace(differentiable=True), 3).radiance
+    return rad, albedo
+
+
+def _leaves_by_thread(records):
+    out = {}
+    for name, tid, a, b in records:
+        if name in LEAF_SPANS:
+            out.setdefault(tid, []).append((a, b))
+    return out
+
+
+@pytest.mark.parametrize("case", ["engine_step", "engine_step_nee",
+                                  "engine_step_fused_nee", "render_radiance"])
+def test_leaf_spans_cover_the_loop_without_overlap(scene, case):
+    """An 8x8 Engine.step through regen (without NEE, with it, with it
+    fused), and a differentiable 16x12 render_radiance through the
+    standard loop."""
+    if case == "render_radiance":
+        def run():
+            _diff_render(scene)
+    else:
+        config = NEE.get(case.removeprefix("engine_step_"), PALLAS)
+
+        def run():
+            _engine_frame(scene, config)
+        case = "engine_step"
+    with telemetry.timeline() as records:
+        run()
+    for iv in _leaves_by_thread(records).values():
+        iv.sort()
+        assert all(b0 <= a1 for (_, b0), (a1, _) in zip(iv, iv[1:]))
+    last = [r for r in records if r[0] == case][-1]
+    inside = sum(min(b, last[3]) - max(a, last[2])
+                 for name, tid, a, b in records
+                 if name in LEAF_SPANS and tid == last[1]
+                 and a < last[3] and b > last[2])
+    assert 0.8 <= inside / (last[3] - last[2]) <= 1.0
+
+
+@pytest.mark.parametrize("nee", list(NEE))
+def test_regen_traversal_calls_lie_in_path_trace(scene, monkeypatch, nee):
+    """Every traversal call of a regen NEE frame (the closest hit, kernel 2
+    or kernel 4) runs inside one ``path_trace`` segment, whichever span
+    makes it."""
+    from gdpathtracing_torch.render import regen
+
+    calls = []
+
+    def watched(fn, name):
+        def call(*args, **kwargs):
+            t0 = time_ns()
+            out = fn(*args, **kwargs)
+            calls.append((name, threading.get_native_id(), t0, time_ns()))
+            return out
+        return call
+
+    get_trace_fn = regen.get_trace_fn
+    monkeypatch.setattr(regen, "get_trace_fn", lambda config: watched(
+        get_trace_fn(config), "trace"))
+    for name in ("occluded_pallas", "trace_occlude_pallas"):
+        monkeypatch.setattr(regen, name, watched(getattr(regen, name), name))
+    with telemetry.timeline() as records:
+        _engine_frame(scene, NEE[nee])
+    kernel = "trace_occlude_pallas" if nee == "fused_nee" \
+        else "occluded_pallas"
+    assert any(c[0] == kernel for c in calls)
+    traced = [r for r in records if r[0] == "path_trace"]
+    for name, tid, t0, t1 in calls:
+        assert any(r[1] == tid and r[2] <= t0 and t1 <= r[3]
+                   for r in traced), name
+
+
+@pytest.mark.parametrize("what", ["frame", "gradient"])
+def test_timeline_changes_nothing(scene, what):
+    def run():
+        if what == "frame":
+            return _engine_frame(scene)
+        rad, albedo = _diff_render(scene)
+        (g,) = torch.autograd.grad(rad.square().mean(), [albedo])
+        return torch.cat([rad.flatten(), g.flatten()])
+
+    off = run()
+    with telemetry.timeline():
+        on = run()
+    assert torch.equal(off, on)
+
+
+@pytest.mark.parametrize("timeline", [False, True], ids=["off", "on"])
+def test_spans_record_nothing_in_a_profiler(timeline):
+    def spans():
+        for _ in range(100):
+            with SPANS.engine_step, SPANS.path_shade, SPANS.path_trace:
+                pass
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        if timeline:
+            with telemetry.timeline():
+                spans()
+        else:
+            spans()
+    assert not [e.name for e in prof.events() if e.name.startswith("aten")]
+    assert not [e for e in prof.events()
+                if any(n in e.name for n in LEAF_SPANS + OUTER_SPANS)]
+
+
+def test_aten_ops_lie_inside_their_span_on_the_profilers_clock(tmp_path):
+    x = torch.randn(192, 192)
+    with Profile("cpu", tmp_path) as prof:
+        for _ in range(3):
+            with SPANS.path_shade:
+                y = x @ x
+            with SPANS.path_lanes:
+                y = torch.argsort(y.flatten())
+    doc = json.loads(Path(prof.summary.trace).read_text())
+    spans = [e for e in doc["traceEvents"]
+             if e.get("cat") == "program_span"]
+    ops = [e for e in doc["traceEvents"] if e.get("cat") == "cpu_op"
+           and e["name"] in ("aten::mm", "aten::argsort")]
+    assert len(ops) == 6 and len(spans) == 6
+    for op in ops:
+        owner = "path_shade" if op["name"] == "aten::mm" else "path_lanes"
+        assert any(s["name"] == owner and s["ts"] <= op["ts"]
+                   and op["ts"] + op["dur"] <= s["ts"] + s["dur"]
+                   for s in spans), op
+    sm = prof.summary.spans
+    assert sm["path_shade"].count == 3 and sm["path_lanes"].count == 3
+    assert 0.0 <= sm["path_shade"].idle_s < sm["path_shade"].host_s
+
+
+def test_threads_keep_their_own_spans():
+    """More threads than cores, a short switch interval: every span is
+    counted once and each thread's leaves nest and pause, never overlap."""
+    n_threads, n = 16, 300
+    before = SPANS.path_trace.count, SPANS.path_shade.count
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work():
+        for _ in range(n):
+            with SPANS.path_shade:
+                with SPANS.path_trace:
+                    pass
+
+    try:
+        with telemetry.timeline() as records:
+            threads = [threading.Thread(target=work)
+                       for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert SPANS.path_trace.count - before[0] == n_threads * n
+    assert SPANS.path_shade.count - before[1] == n_threads * n
+    by_thread = _leaves_by_thread(records)
+    assert len(by_thread) == n_threads
+    for iv in by_thread.values():
+        iv.sort()
+        assert all(b0 <= a1 for (_, b0), (a1, _) in zip(iv, iv[1:]))
+
+
+def test_every_counter_path_resolves():
+    """The registered counters, which are every counter the package
+    defines, and every ``COUNTERS`` path and set-up reader of
+    ``benchmark/metrics/``."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from benchmark import harness
+
+    pkg = REPO / "gdpathtracing_torch"
+    defined = {
+        f"gdpathtracing_torch."
+        f"{'.'.join(f.relative_to(pkg).with_suffix('').parts)}:{m[1]}"
+        for f in pkg.rglob("*.py")
+        for m in re.finditer(r"^(\w+\.(?:launches|iterations)) = 0$",
+                             f.read_text(), re.M)}
+    assert len(defined) >= 13 and defined == set(telemetry.COUNTERS)
+    for path in telemetry.COUNTERS:
+        assert isinstance(telemetry.read(path), int), path
+    paths = []
+    for f in sorted((REPO / "benchmark" / "metrics").glob("*.py")):
+        mod = harness.load_module(f)
+        paths += getattr(mod, "COUNTERS", [])
+        if f.name.endswith(".setup.py"):
+            assert isinstance(mod.read({}), float), f.name
+    assert len(paths) >= 11  # regen's iterations and the ten span readers
+    for path in paths:
+        assert isinstance(harness._counter(path), (int, float)), path

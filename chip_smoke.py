@@ -5,8 +5,9 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the twelve CUDA kernels (the eleven TPU kernels' and the BVH
-   traversal's) from the eleven sources in csrc/ with nvcc, in parallel,
+1. builds the thirteen CUDA kernels (the eleven TPU kernels', the BVH
+   traversal's and regen's shading) from the twelve sources in csrc/ with
+   nvcc, in parallel,
    and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:

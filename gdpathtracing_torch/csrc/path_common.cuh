@@ -1,10 +1,12 @@
 // Device code shared by the path kernels (mega_step.cu, kernel 10, and
-// fused_paths.cu, kernel 11): the PCG2D stream, the analytic sky, the
-// shading record and the BRDF (evaluation, sampling, pdf), each written in
-// the term order of the port's PyTorch modules (core/rng.py,
-// render/sky.py, render/shading.py, render/brdf.py, render/lights.py), so
-// that the plain versions in ops/megakernel.py and ops/fused.py, which
-// call those modules, round the same way.
+// fused_paths.cu, kernel 11) and regen's shading (regen_shade.cu, whose
+// plain version is render/regen.py's torch body): the PCG2D stream, the
+// analytic sky, the shading record and the BRDF (evaluation, sampling,
+// pdf), each written in the term order of the port's PyTorch modules
+// (core/rng.py, render/sky.py, render/shading.py, render/brdf.py,
+// render/lights.py), so that the plain versions in ops/megakernel.py,
+// ops/fused.py and render/regen.py, which call those modules, round the
+// same way.
 //
 // What "the same order" means here. The PyTorch modules are evaluated one
 // elementwise op at a time, so every product and sum is rounded on its own
@@ -17,9 +19,9 @@
 // sqrtf, division and the float conversion of the PCG words are IEEE
 // (no fast math); sinf and cosf are the CUDA math library's.
 //
-// The dielectric-transmission branch of the BRDF is not here: both path
-// kernels run only on scenes without transmission (mega_supported,
-// fused_supported).
+// The dielectric-transmission branch of the BRDF is not here: every
+// kernel that includes this runs only on scenes without transmission
+// (mega_supported, fused_supported, shade_kernel_supported).
 
 #pragma once
 

@@ -33,6 +33,13 @@ is empty and the live lanes fit, the sorted live prefix moves on at a
 smaller wavefront (the drain), and the log is indexed by path id at the
 end.
 
+An iteration's shading (emission or sky, the first-hit AOVs, the BRDF
+sample and the next ray, the alive and dead masks and their counts) is
+one kernel launch on the card (:func:`ops.shade.regen_shade`) where
+:func:`ops.shade.shade_kernel_supported` takes the scene and config and
+the traversal returned winner rows; everywhere else it is the torch body,
+:func:`_shade_torch`, of which the kernel is bit for bit a copy.
+
 ``lax.while_loop`` becomes a host loop: each iteration reads the two counts
 the log append and the loop condition need with one small ``.tolist()``.
 Lane state is carried as an (17, nw) float32 and a (6, nw) int64 stack, so
@@ -74,6 +81,8 @@ from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
                                                occluded_pallas,
                                                prepare_trace_inputs,
                                                trace_occlude_pallas)
+from gdpathtracing_torch.ops.shade import (regen_shade,
+                                           shade_kernel_supported)
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.integrator import (check_supported,
                                                    continue_path,
@@ -236,6 +245,123 @@ def first_chunk_key(o: Vec3, d: Vec3, alive, fresh,
                        torch.where(fresh, 1 << 14, 1 << 15))
 
 
+def _shade_torch(scene: Scene, config: RenderConfig, hit, fs, ints, active,
+                 *, shade=None, tsteps=None, rad: Vec3 | None = None,
+                 march_rows=None, prep: TracePrep | None = None, table=None):
+    """One regen iteration's shading in PyTorch, for every configuration
+    (where :func:`ops.shade.shade_kernel_supported` or the traversal's
+    missing winner rows decline the kernel; also the kernel's plain
+    version): the segment ``hit`` of the lanes of the (17, n) ``fs`` and
+    (6, n) ``ints`` stacks, of which ``shade`` (default ``active``)
+    resolved it with ``tsteps`` triangle tests (default ``hit.steps``).
+    ``rad`` replaces the stack's radiance (fused NEE folds its direct terms
+    in first); the march passes its (m_t, b_t, m_sc, b_e) after the sweep
+    as ``march_rows``, NEE its ``prep`` (None for the oracles) and light
+    ``table``. Returns (fs, ints, alive, dead_now, counts): the new stacks,
+    the march's rows and fused NEE's posted queries after the lane rows;
+    the masks of the lanes that go on and of those that ended now; their
+    counts, then the queries posted, as one int64 tensor."""
+    pallas = config.traversal == Traversal.PALLAS
+    use_nee = config.nee and scene.n_lights > 0
+    fuse = fuses_nee(scene, config, prep)
+    march = march_rows is not None
+    if march:
+        m_t, b_t, m_sc, b_e = march_rows
+    if shade is None:
+        shade = active
+    if tsteps is None:
+        tsteps = hit.steps
+    ray_o, ray_d = Vec3(*fs[_O:_O + 3]), Vec3(*fs[_D:_D + 3])
+    tp = Vec3(*fs[_TP:_TP + 3])
+    if rad is None:
+        rad = Vec3(*fs[_RAD:_RAD + 3])
+    prev_pdf, depth1 = fs[_PREV_PDF], fs[_DEPTH]
+    normal1 = Vec3(*fs[_NRM:_NRM + 3])
+    seed = (ints[_SEED], ints[_SEED + 1])
+    pid, bounce = ints[_PID], ints[_BOUNCE]
+    steps, segs = ints[_STEPS], ints[_SEGS]
+    r = Ray(ray_o, ray_d)
+
+    # `shade`: the lanes whose segment resolved this iteration (all active
+    # lanes without the march). Only they shade, draw random numbers and
+    # count a segment.
+    steps = steps + torch.where(active, tsteps, 0)
+    seed_before = seed
+    is_hit = hit.hit & shade
+    segs = segs + shade.to(torch.int64)
+
+    s = get_shading_data(scene, hit, r,
+                         fast=config.traversal != Traversal.BRUTE)
+    sky = sample_sky(ray_d, config, scene)
+    emission = vwhere(is_hit, s.emission, sky)
+    if use_nee:
+        emission = mis_emission(scene, table, hit, r.d, emission, is_hit,
+                                prev_pdf)
+    rad = vwhere(shade, rad + tp * emission, rad)
+
+    if use_nee:
+        # PALLAS: one any-hit launch (kernel 2); the oracles: a closest hit
+        # of their own, visible where nothing is hit before the light.
+        dl, seed = sample_direct(
+            s, tp, is_hit, seed, table, config, None if pallas
+            else hit_visibility(get_trace_fn(config), scene, prep))
+        direct = dl.direct
+        if pallas and not fuse:
+            with SPANS.path_trace:
+                occ = occluded_pallas(scene, dl.shadow, dl.tmax, dl.active,
+                                      prep)
+            direct = direct * (~occ).to(torch.float32)
+        if scene.has_transmission:
+            direct = direct * (1.0 - s.transmission)
+        segs = segs + dl.active.to(torch.int64)
+        if not fuse:  # fused: resolves in the next launch
+            rad = vwhere(active, rad + direct, rad)
+
+    first = (bounce == 0) & is_hit
+    depth1 = torch.where(first, (s.position - ray_o).length(), depth1)
+    normal1 = vwhere(first, s.normal, normal1)
+
+    new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+        s, hit, r, tp, is_hit, seed, config, scene.has_transmission, bounce)
+    if march:
+        # A pending lane keeps its stream position.
+        seed = (torch.where(shade, seed[0], seed_before[0]),
+                torch.where(shade, seed[1], seed_before[1]))
+    ray_o = vwhere(survive, new_o, ray_o)
+    ray_d = vwhere(survive, new_dir, ray_d)
+    tp = vwhere(survive, new_tp, tp)
+    if march:
+        prev_pdf = torch.where(survive, pdf,
+                               torch.where(shade, -1.0, prev_pdf))
+        bounce = bounce + shade.to(torch.int64)
+        alive = (active & ~shade) | (survive & (bounce < config.bounces))
+        # A resolved lane starts a new march (or retires).
+        b_t = torch.where(shade, MISS_T, b_t)
+        b_e = torch.where(shade, BIG_E, b_e)
+        m_t = torch.where(shade, -torch.inf, m_t)
+        m_sc = torch.where(shade, -1, m_sc)
+    else:
+        prev_pdf = torch.where(survive, pdf, -1.0)
+        bounce = bounce + active.to(torch.int64)
+        alive = active & survive & (bounce < config.bounces)
+    dead_now = active & ~alive
+    counts = [alive.sum(), dead_now.sum()]
+    if fuse:
+        counts.append(dl.active.sum())
+
+    with SPANS.path_lanes:
+        # Fused: the queries just posted ride the permutation after the
+        # lane rows; each resolves in the next launch.
+        fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
+                          *normal1] + ([m_t, b_t] if march else [])
+                         + ([*dl.shadow.o, *dl.shadow.d, dl.tmax, *direct]
+                            if fuse else []))
+        ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
+                           + ([m_sc, b_e] if march else [])
+                           + ([dl.active.to(torch.int64)] if fuse else []))
+    return fs, ints, alive, dead_now, torch.stack(counts)
+
+
 def render_radiance_regen(scene: Scene, camera: Camera,
                           config: RenderConfig, frame_index: int = 0,
                           return_stats: bool = False):
@@ -270,6 +396,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
         nw = min(config.regen_wavefront, -(-n_paths // BN) * BN)
         frame_index = int(frame_index)
         use_nee = config.nee and scene.n_lights > 0
+        kernel = shade_kernel_supported(scene, config, march, use_nee)
         compact = config.compact_rays is not False
         use_log = config.regen_retire == "log" and compact
         sort_lanes = sorts_lanes(config)
@@ -386,13 +513,6 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             with SPANS.path_lanes:
                 ray_o = Vec3(*fs[_O:_O + 3])
                 ray_d = Vec3(*fs[_D:_D + 3])
-                tp = Vec3(*fs[_TP:_TP + 3])
-                rad = Vec3(*fs[_RAD:_RAD + 3])
-                prev_pdf, depth1 = fs[_PREV_PDF], fs[_DEPTH]
-                normal1 = Vec3(*fs[_NRM:_NRM + 3])
-                seed = (ints[_SEED], ints[_SEED + 1])
-                pid, bounce = ints[_PID], ints[_BOUNCE]
-                steps, segs = ints[_STEPS], ints[_SEGS]
 
             with SPANS.path_trace:
                 # ---- one path segment: the standard loop's body ----
@@ -447,7 +567,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     # iteration before (late).
                     contrib = Vec3(*pend_f[_P_DIRECT:_P_DIRECT + 3]) \
                         * (~p_occ).to(torch.float32)
-                    own = p_sh & (p_pid == pid) & active
+                    own = p_sh & (p_pid == ints[_PID]) & active
+                    rad = Vec3(*fs[_RAD:_RAD + 3])
                     rad = vwhere(own, rad + contrib, rad)
                     late = p_sh & ~own
                     contrib = torch.stack([*contrib])
@@ -468,92 +589,21 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     it_alive[it] = active.sum()
                     if hit.rows is not None:
                         it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
-                # `shade`: the lanes whose segment resolved this iteration
-                # (all active lanes without the march). Only they shade, draw
-                # random numbers and count a segment.
-                steps = steps + torch.where(active, tsteps, 0)
-                seed_before = seed
-                is_hit = hit.hit & shade
-                segs = segs + shade.to(torch.int64)
-
-                s = get_shading_data(scene, hit, r, fast=config.traversal
-                                     != Traversal.BRUTE)
-                sky = sample_sky(ray_d, config, scene)
-                emission = vwhere(is_hit, s.emission, sky)
-                if use_nee:
-                    emission = mis_emission(scene, table, hit, r.d, emission,
-                                            is_hit, prev_pdf)
-                rad = vwhere(shade, rad + tp * emission, rad)
-
-                if use_nee:
-                    # PALLAS: one any-hit launch (kernel 2); the oracles: a
-                    # closest hit of their own, visible where nothing is hit
-                    # before the light.
-                    dl, seed = sample_direct(
-                        s, tp, is_hit, seed, table, config, None if pallas
-                        else hit_visibility(trace, scene, prep))
-                    direct = dl.direct
-                    if pallas and not fuse:
-                        with SPANS.path_trace:
-                            occ = occluded_pallas(scene, dl.shadow, dl.tmax,
-                                                  dl.active, prep)
-                        direct = direct * (~occ).to(torch.float32)
-                    if scene.has_transmission:
-                        direct = direct * (1.0 - s.transmission)
-                    segs = segs + dl.active.to(torch.int64)
-                    if not fuse:  # fused: resolves in the next launch
-                        rad = vwhere(active, rad + direct, rad)
-
-                first = (bounce == 0) & is_hit
-                depth1 = torch.where(first, (s.position - ray_o).length(),
-                                     depth1)
-                normal1 = vwhere(first, s.normal, normal1)
-
-                new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
-                    s, hit, r, tp, is_hit, seed, config,
-                    scene.has_transmission, bounce)
-                if march:
-                    # A pending lane keeps its stream position.
-                    seed = (torch.where(shade, seed[0], seed_before[0]),
-                            torch.where(shade, seed[1], seed_before[1]))
-                ray_o = vwhere(survive, new_o, ray_o)
-                ray_d = vwhere(survive, new_dir, ray_d)
-                tp = vwhere(survive, new_tp, tp)
-                if march:
-                    prev_pdf = torch.where(survive, pdf,
-                                           torch.where(shade, -1.0, prev_pdf))
-                    bounce = bounce + shade.to(torch.int64)
-                    alive = (active & ~shade) \
-                        | (survive & (bounce < config.bounces))
-                    # A resolved lane starts a new march (or retires).
-                    b_t = torch.where(shade, MISS_T, b_t)
-                    b_e = torch.where(shade, BIG_E, b_e)
-                    m_t = torch.where(shade, -torch.inf, m_t)
-                    m_sc = torch.where(shade, -1, m_sc)
+                if kernel and hit.rows is not None:
+                    fs, ints, alive, dead_now, counts = regen_shade(
+                        scene, hit.rows, fs, ints, active, config)
                 else:
-                    prev_pdf = torch.where(survive, pdf, -1.0)
-                    bounce = bounce + active.to(torch.int64)
-                    alive = active & survive & (bounce < config.bounces)
-                dead_now = active & ~alive
-                counts = [alive.sum(), dead_now.sum()]
-                if fuse:
-                    counts.append(dl.active.sum())
+                    fs, ints, alive, dead_now, counts = _shade_torch(
+                        scene, config, hit, fs, ints, active, shade=shade,
+                        tsteps=tsteps, rad=rad if fuse else None,
+                        march_rows=(m_t, b_t, m_sc, b_e) if march else None,
+                        prep=prep, table=table)
             with SPANS.regen_sync:
-                n_alive, n_fresh, *n_posted = torch.stack(counts).tolist()
+                n_alive, n_fresh, *n_posted = counts.tolist()
 
             with SPANS.path_lanes:
-                # Fused: the queries just posted ride the permutation after
-                # the lane rows; each resolves in the next launch.
-                fs = torch.stack([*ray_o, *ray_d, *tp, *rad, prev_pdf, depth1,
-                                  *normal1] + ([m_t, b_t] if march else [])
-                                 + ([*dl.shadow.o, *dl.shadow.d, dl.tmax,
-                                     *direct] if fuse else []))
-                ints = torch.stack([seed[0], seed[1], pid, bounce, steps, segs]
-                                   + ([m_sc, b_e] if march else [])
-                                   + ([dl.active.to(torch.int64)] if fuse
-                                      else []))
                 if not use_log:  # retire finished paths to their slot at once
-                    slot = torch.where(dead_now, pid, n_paths)
+                    slot = torch.where(dead_now, ints[_PID], n_paths)
                     out_f[:, slot] = fs[_LOG_F]
                     out_i[:, slot] = ints[_STEPS:_SEGS + 1]
 
@@ -561,12 +611,12 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                 if compact:
                     if sort_lanes and march:
                         perm = torch.argsort(march_sort_key(
-                            ray_d, alive, dead_now, rem_s, ss, advs),
-                            stable=True)
+                            Vec3(*fs[_D:_D + 3]), alive, dead_now, rem_s, ss,
+                            advs), stable=True)
                     elif sort_lanes:
-                        perm = torch.argsort(
-                            lane_sort_key(ray_o, ray_d, alive, dead_now),
-                            stable=True)
+                        perm = torch.argsort(lane_sort_key(
+                            Vec3(*fs[_O:_O + 3]), Vec3(*fs[_D:_D + 3]),
+                            alive, dead_now), stable=True)
                     else:
                         stale = ~alive & ~dead_now
                         dest = torch.where(

@@ -54,7 +54,7 @@ COUNTERS = tuple(
         ("ops.intersect", "closest_hit_classic"),
         ("ops.intersect", "closest_hit_loop"),
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
-        ("render.traverse", "trace_bvh"))) + (
+        ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"))) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",)
 
 

@@ -1758,3 +1758,149 @@ def test_native_builder_on_the_host():
     for k in ("node_min", "node_max", "node_left", "node_right",
               "node_first", "node_count", "tri_pos"):
         assert np.array_equal(getattr(trees[0], k), getattr(trees[1], k)), k
+
+
+def _shade_inputs(scene, nw, bounces, seed):
+    """One regen iteration's inputs on the card: winner rows (kernel 1) of
+    random rays in the demo room, 15% of them outside it heading away
+    (misses), and random lane stacks: throughput, radiance, prev pdf,
+    first-hit AOVs, uint32 seed words, bounces from 0 to the cap, 15% of
+    the lanes inactive."""
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.types import Ray
+    g = np.random.default_rng(seed)
+    cb = scene.isect_chunk_bounds.cpu().numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    o = g.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (nw, 3)).T
+    d = g.normal(size=(3, nw))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    out = g.uniform(size=nw) < 0.15
+    o[:, out] = (hi + 1.0)[:, None]
+    d[:, out] = np.abs(d[:, out])
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    active = torch.from_numpy(g.uniform(size=nw) < 0.85).cuda()
+    o, d = f32(o), f32(d)
+    rows = ti.trace_pallas(scene, Ray(Vec3(*o), Vec3(*d)), active).rows
+    fs = torch.cat([o, d, f32(g.uniform(0.0, 1.5, (3, nw))),
+                    f32(g.uniform(0.0, 2.0, (3, nw))),
+                    f32(g.uniform(-1.0, 3.0, (1, nw))),
+                    f32(g.uniform(0.0, 1000.0, (1, nw))),
+                    f32(g.normal(size=(3, nw)))])
+    ints = torch.from_numpy(np.stack(
+        [g.integers(0, 1 << 32, nw), g.integers(0, 1 << 32, nw),
+         g.permutation(nw), g.integers(0, bounces, nw),
+         g.integers(0, 1 << 20, nw), g.integers(0, bounces, nw)])).cuda()
+    return rows, fs, ints, active
+
+
+@pytest.mark.parametrize("case", ["full", "drained"])
+def test_regen_shade_kernel_matches_torch(case):
+    """Regen's shading kernel against regen's torch body on the card, on
+    one iteration's inputs with misses, emissive and mirror hits, lanes at
+    the bounce cap and inactive lanes: 393216 lanes (the 1080p wavefront),
+    and the first 5120 lanes of 8192-wide stacks (a drain stage's first
+    iteration) under another sky, ray_eps and bounce count. Every output
+    row bit for bit, the masks and the two counts equal."""
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    if case == "full":
+        cfg, nw, size = RenderConfig(traversal=Traversal.PALLAS), 393216, \
+            393216
+    else:
+        cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=3,
+                           ray_eps=3e-3, sky_horizon=(0.3, 0.5, 0.7),
+                           sky_zenith=(0.1, 0.2, 1.3))
+        nw, size = 8192, 5120
+    rows, fs, ints, active = _shade_inputs(scene, nw, cfg.bounces, 5)
+    rows, fs, ints, active = (rows[:, :size], fs[:, :size], ints[:, :size],
+                              active[:size])
+    hit = active & (rows[40] < ti._MISS)
+    for kind in (active & ~hit, hit & (rows[23] > 0.0), hit & (rows[24] > 0.5),
+                 active & (ints[3] == cfg.bounces - 1), hit & (ints[3] == 0),
+                 ~active):
+        assert kind.any()
+    before = shade.regen_shade.launches
+    got = shade.regen_shade(scene, rows, fs, ints, active, cfg)
+    torch.cuda.synchronize()
+    assert shade.regen_shade.launches == before + 1
+    want = shade.regen_shade_plain(scene, rows, fs, ints, active, cfg)
+    assert got[0].shape == want[0].shape == (17, size)
+    for r in range(17):
+        assert torch.equal(got[0][r].view(torch.int32),
+                           want[0][r].view(torch.int32)), f"fs row {r}"
+    for r in range(6):
+        assert torch.equal(got[1][r], want[1][r]), f"ints row {r}"
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert got[4].tolist() == want[4].tolist()
+    assert 0 < got[4][0] < size and 0 < got[4][1] < size
+
+
+@pytest.mark.parametrize("retire", ["log", "scatter"])
+def test_regen_shade_frame_matches_torch(retire, monkeypatch):
+    """A 320x180 demo frame through regen with 16384 lanes (two drain
+    stages) shades in the kernel, one launch an iteration, and equals bit
+    for bit the frame with the gate off (the torch body)."""
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import regen
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    cam = demo_camera(320, 180)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen_wavefront=16384,
+                       regen_retire=retire)
+    assert shade.shade_kernel_supported(scene, cfg, False, False)
+    before = shade.regen_shade.launches
+    regen.render_radiance_regen.iterations = 0
+    got = render_radiance(scene, cam, cfg, 3)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations
+    assert shade.regen_shade.launches - before == iters > 5
+    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: False)
+    want = render_radiance(scene, cam, cfg, 3)
+    assert shade.regen_shade.launches - before == iters
+    for k in ("radiance", "depth", "normal", "steps", "segments"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.device.type == "cuda"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+def test_regen_shade_launch_counts():
+    """One Engine step of the benchmark's demo (1080p, PALLAS, 5 bounces)
+    launches the shading kernel once an iteration, 9 times; a NEE frame
+    and an inverse step launch it never."""
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.diff import inverse
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import regen
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene()
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=5, spp=1,
+                       nee=False, rr_start=0)
+    engine = Engine(scene, cfg)
+    cam = demo_camera(1920, 1080)
+    before, it0 = shade.regen_shade.launches, \
+        regen.render_radiance_regen.iterations
+    engine.step(cam)
+    torch.cuda.synchronize()
+    assert shade.regen_shade.launches - before == \
+        regen.render_radiance_regen.iterations - it0 == 9
+    small = demo_camera(64, 48)
+    target = render_radiance(scene, small, cfg, 0).radiance
+    before = shade.regen_shade.launches
+    render_radiance(scene, small, cfg.replace(nee=True), 0)
+    torch.cuda.synchronize()
+    assert shade.regen_shade.launches == before
+    step = inverse.value_and_grad_step(
+        inverse.replace_albedo, cfg.replace(differentiable=True))
+    loss, grads = step(scene.mat_albedo * 0.5, scene, small, target, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and grads.shape == scene.mat_albedo.shape
+    assert shade.regen_shade.launches == before

@@ -228,7 +228,8 @@ def test_every_counter_path_resolves():
         for f in pkg.rglob("*.py")
         for m in re.finditer(r"^(\w+\.(?:launches|iterations)) = 0$",
                              f.read_text(), re.M)}
-    assert len(defined) >= 13 and defined == set(telemetry.COUNTERS)
+    assert len(defined) >= 14 and defined == set(telemetry.COUNTERS)
+    assert "gdpathtracing_torch.ops.shade:regen_shade.launches" in defined
     for path in telemetry.COUNTERS:
         assert isinstance(telemetry.read(path), int), path
     paths = []

@@ -67,6 +67,7 @@ from gdpathtracing_torch.render.lights import LightTable, build_light_table
 from gdpathtracing_torch.render.shading import material_table
 from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import SPANS
 
 BN = 256     # rays per kernel block
 WARPS = BN // 32  # warps per kernel block
@@ -1368,28 +1369,30 @@ def lite_epilogue(scene: Scene, prep: TracePrep, ray: Ray, active, t,
     ``lite_epilogue``): u, v and w_d from one (N, 12) ``isect_cols`` row
     per ray and 4-term dots, tri and inst from one (N, 2) ``tri_inst`` row.
     ``rows`` is None, so shading gathers (render/shading.py
-    ``get_shading_data_fast``)."""
-    hit = t < MISS_T
-    eidx = torch.where(hit, eidx, 0)
-    rows12 = scene.isect_cols[eidx]
+    ``get_shading_data_fast``). Runs in the span ``trace_epilogue``."""
+    with SPANS.trace_epilogue:
+        hit = t < MISS_T
+        eidx = torch.where(hit, eidx, 0)
+        rows12 = scene.isect_cols[eidx]
 
-    def dot4(c0, x, y, z, w):
-        return rows12[:, c0] * x + rows12[:, c0 + 1] * y + \
-            rows12[:, c0 + 2] * z + rows12[:, c0 + 3] * w
+        def dot4(c0, x, y, z, w):
+            return rows12[:, c0] * x + rows12[:, c0 + 1] * y + \
+                rows12[:, c0 + 2] * z + rows12[:, c0 + 3] * w
 
-    (ox, oy, oz), (dx, dy, dz) = ray.o, ray.d
-    one, zero = torch.ones_like(ox), torch.zeros_like(ox)
-    u = dot4(0, ox, oy, oz, one) + t * dot4(0, dx, dy, dz, zero)
-    v = dot4(4, ox, oy, oz, one) + t * dot4(4, dx, dy, dz, zero)
-    w_d = dot4(8, dx, dy, dz, zero)
-    ti = prep.tri_inst[eidx]
-    if active is not None:
-        t = torch.where(active, t, MISS_T)
-    return HitInfo(t=t, tri=torch.where(hit, ti[:, 0], 0),
-                   inst=torch.where(hit, ti[:, 1], 0),
-                   u=torch.clamp(u, 0.0, 1.0), v=torch.clamp(v, 0.0, 1.0),
-                   front=w_d < 0.0, steps=torch.zeros_like(eidx),
-                   eidx=eidx)
+        (ox, oy, oz), (dx, dy, dz) = ray.o, ray.d
+        one, zero = torch.ones_like(ox), torch.zeros_like(ox)
+        u = dot4(0, ox, oy, oz, one) + t * dot4(0, dx, dy, dz, zero)
+        v = dot4(4, ox, oy, oz, one) + t * dot4(4, dx, dy, dz, zero)
+        w_d = dot4(8, dx, dy, dz, zero)
+        ti = prep.tri_inst[eidx]
+        if active is not None:
+            t = torch.where(active, t, MISS_T)
+        return HitInfo(t=t, tri=torch.where(hit, ti[:, 0], 0),
+                       inst=torch.where(hit, ti[:, 1], 0),
+                       u=torch.clamp(u, 0.0, 1.0),
+                       v=torch.clamp(v, 0.0, 1.0),
+                       front=w_d < 0.0, steps=torch.zeros_like(eidx),
+                       eidx=eidx)
 
 
 def trace_pallas(scene: Scene, ray: Ray, active=None,

@@ -376,7 +376,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     the traversal's visit order; 0 where the traversal returns no rows:
     the lite kernel, the march), and 256-ray blocks of the first stage.
     The iterations are also added to
-    ``render_radiance_regen.iterations``."""
+    ``render_radiance_regen.iterations``, and those that shade in the
+    torch body to ``_shade_torch.iterations``."""
     from gdpathtracing_torch.render.renderer import FrameAOVs
 
     with SPANS.render_prepare:
@@ -593,6 +594,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     fs, ints, alive, dead_now, counts = regen_shade(
                         scene, hit.rows, fs, ints, active, config)
                 else:
+                    _shade_torch.iterations += 1
                     fs, ints, alive, dead_now, counts = _shade_torch(
                         scene, config, hit, fs, ints, active, shade=shade,
                         tsteps=tsteps, rad=rad if fuse else None,
@@ -698,3 +700,4 @@ def render_radiance_regen(scene: Scene, camera: Camera,
 
 
 render_radiance_regen.iterations = 0
+_shade_torch.iterations = 0

@@ -12,7 +12,9 @@ The leaf spans (``LEAF_SPANS``) say where the frame loop's host time goes.
 On one thread they never overlap: a leaf entered inside another pauses the
 outer one until it ends, so each leaf's seconds are its own. Together they
 cover the outer spans ``engine_step`` and ``render_radiance``. The set-up
-spans ``kernels_load`` and ``scene_build`` are leaves too.
+spans ``kernels_load`` and ``scene_build`` are leaves too, and so is
+``trace_epilogue`` (ops/intersect.py ``lite_epilogue``), which pauses the
+``path_trace`` it runs in.
 
 While the timeline is on (:class:`timeline`, :class:`Profile`), each span
 also records ``(name, thread, start, end)`` stamped with
@@ -21,7 +23,8 @@ most ``TIMELINE_CAP`` records. Nesting is tracked per thread: the backward
 pass may recompute a checkpointed bounce on autograd's device thread.
 
 ``COUNTERS`` lists the program's counters by the same kind of path: each
-kernel wrapper's ``.launches`` and regen's ``.iterations``.
+kernel wrapper's ``.launches``, regen's ``.iterations`` and the regen
+iterations that shade in the torch body (``_shade_torch.iterations``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from typing import NamedTuple
 import torch
 
 LEAF_SPANS = ("render_prepare", "path_trace", "path_shade", "path_lanes",
-              "regen_sync", "post_passes", "kernels_load", "scene_build")
+              "regen_sync", "post_passes", "kernels_load", "scene_build",
+              "trace_epilogue")
 OUTER_SPANS = ("engine_step", "render_radiance")
 TIMELINE_CAP = 1 << 20
 
@@ -55,7 +59,8 @@ COUNTERS = tuple(
         ("ops.intersect", "closest_hit_loop"),
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
         ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"))) + (
-    "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",)
+    "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
+    "gdpathtracing_torch.render.regen:_shade_torch.iterations")
 
 
 def read(path: str):

@@ -1904,3 +1904,32 @@ def test_regen_shade_launch_counts():
     torch.cuda.synchronize()
     assert torch.isfinite(loss) and grads.shape == scene.mat_albedo.shape
     assert shade.regen_shade.launches == before
+
+
+@pytest.mark.parametrize("where", ["demo", "grid"])
+def test_torch_shade_counter_on_the_card(where):
+    """One 1080p Engine step on the card: the demo shades every regen
+    iteration in the kernel, so ``_shade_torch.iterations`` stays put; the
+    mid grid's kernel 3 returns no winner rows, so every iteration shades
+    in the torch body."""
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.render import regen
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    if where == "demo":
+        scene, cam = build_demo_scene(), demo_camera(1920, 1080)
+    else:
+        scene = build_sphere_grid(n=4, sphere_detail=12)
+        cam = grid_camera(1920, 1080, n=4)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=5, spp=1,
+                       nee=False, rr_start=0)
+    engine = Engine(scene, cfg)
+    before, it0 = regen._shade_torch.iterations, \
+        regen.render_radiance_regen.iterations
+    engine.step(cam)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations - it0
+    assert iters > 0
+    assert regen._shade_torch.iterations - before == \
+        (0 if where == "demo" else iters)

@@ -12,6 +12,7 @@ import sys
 import threading
 from pathlib import Path
 from time import time_ns
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -19,7 +20,9 @@ import torch
 from gdpathtracing_torch import Engine, RenderConfig, Traversal
 from gdpathtracing_torch.diff import inverse
 from gdpathtracing_torch.render.renderer import render_radiance
-from gdpathtracing_torch.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing_torch.scene.demo import (build_demo_scene,
+                                            build_sphere_grid, demo_camera,
+                                            grid_camera)
 from gdpathtracing_torch.utils import telemetry
 from gdpathtracing_torch.utils.telemetry import (LEAF_SPANS, OUTER_SPANS,
                                                  SPANS, Profile)
@@ -31,6 +34,12 @@ PALLAS = RenderConfig(traversal=Traversal.PALLAS, bounces=3, spp=1)
 @pytest.fixture(scope="module")
 def scene():
     return build_demo_scene(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def mid_grid():
+    """The mid sphere grid: a superchunk scene on kernel 3's lite path."""
+    return build_sphere_grid(n=4, sphere_detail=12, device="cpu")
 
 
 def _engine_frame(scene, config=PALLAS):
@@ -134,6 +143,73 @@ def test_timeline_changes_nothing(scene, what):
     with telemetry.timeline():
         on = run()
     assert torch.equal(off, on)
+
+
+# The callers of ops/intersect.py lite_epilogue on the mid grid: the lite
+# dispatch of trace_pallas (regen, the standard loop) and regen's march.
+GRID_LOOPS = {"regen": PALLAS, "standard": PALLAS.replace(regen=False),
+              "march": PALLAS.replace(regen_march=True)}
+
+
+@pytest.mark.parametrize("loop", list(GRID_LOOPS))
+def test_trace_epilogue_pauses_path_trace(mid_grid, loop):
+    """An 8x8 Engine.step on the mid grid: each ``lite_epilogue`` call
+    adds to ``trace_epilogue``, whose segments never overlap those of
+    ``path_trace``, the span it runs in."""
+    eng = Engine(mid_grid, GRID_LOOPS[loop])
+    before = SPANS.trace_epilogue.seconds, SPANS.trace_epilogue.count
+    with telemetry.timeline() as records:
+        eng.step(grid_camera(8, 8, n=4))
+    assert SPANS.trace_epilogue.seconds > before[0]
+    assert SPANS.trace_epilogue.count > before[1]
+    epi = [r for r in records if r[0] == "trace_epilogue"]
+    trace = [r for r in records if r[0] == "path_trace"]
+    assert epi and trace
+    for _, tid, a, b in epi:
+        assert not any(t == tid and a < b1 and a1 < b
+                       for _, t, a1, b1 in trace)
+        # ... and each lies between two segments of its path_trace.
+        assert any(t == tid and b1 == a for _, t, _, b1 in trace)
+        assert any(t == tid and a1 == b for _, t, a1, _ in trace)
+
+
+@pytest.mark.parametrize("where", ["demo", "grid"])
+def test_torch_shade_counter_follows_regen_iterations(scene, mid_grid,
+                                                      where):
+    """Without a card every regen iteration shades in the torch body, on
+    a flat scene and on a superchunk one alike."""
+    from gdpathtracing_torch.render import regen
+
+    sc, cam = (scene, demo_camera(8, 8)) if where == "demo" \
+        else (mid_grid, grid_camera(8, 8, n=4))
+    eng = Engine(sc, PALLAS)
+    before = regen._shade_torch.iterations, \
+        regen.render_radiance_regen.iterations
+    eng.step(cam)
+    rise = regen.render_radiance_regen.iterations - before[1]
+    assert rise > 0 and regen._shade_torch.iterations - before[0] == rise
+
+
+@pytest.mark.parametrize("metric", ["epilogue_ms.frame",
+                                    "torch_shade_iterations.frame"])
+def test_new_readers_read_none_without_their_source(monkeypatch, metric):
+    """The readers of the span ``trace_epilogue`` and of the counter
+    ``_shade_torch.iterations`` give no counter path and read None on a
+    program that lacks them, as the benchmark's runs of an older
+    program need."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from benchmark import harness
+    from gdpathtracing_torch.render import regen
+
+    path = REPO / "benchmark" / "metrics" / f"{metric}.py"
+    assert harness.load_module(path).COUNTERS
+    monkeypatch.setattr(telemetry, "SPANS", SimpleNamespace(**{
+        n: s for n, s in vars(SPANS).items() if n != "trace_epilogue"}))
+    monkeypatch.delattr(regen._shade_torch, "iterations")
+    mod = harness.load_module(path)
+    assert mod.COUNTERS == []
+    assert mod.read({"counters": {}, "steps": 6}) is None
 
 
 @pytest.mark.parametrize("timeline", [False, True], ids=["off", "on"])

@@ -1395,6 +1395,20 @@ def lite_epilogue(scene: Scene, prep: TracePrep, ray: Ray, active, t,
                        eidx=eidx)
 
 
+def sc_lite_winners(ray: Ray, active, prep: TracePrep) -> torch.Tensor:
+    """Kernel 3's raw winners of a wavefront on a scene that
+    :func:`_sc_lite_fits`: (8, n) rows 0 t (MISS_T on a miss and where
+    ``active`` is False), 1 eidx, 2 triangles swept, 3 superchunks entered
+    (:func:`closest_hit_sc_lite`), the first n columns of the padded
+    output. No epilogue: :func:`trace_pallas` adds :func:`lite_epilogue`,
+    regen's shading kernel (ops/shade.py ``regen_shade_lite``) reads them
+    as they are."""
+    o4t, d4t = pack_rays(ray, active)
+    return closest_hit_sc_lite(o4t, d4t, prep.sc_bounds, prep.chunk_bounds,
+                               prep.mu_pad, prep.mv_pad, prep.mw_pad,
+                               prep.scc)[:, :ray.o.x.shape[0]]
+
+
 def trace_pallas(scene: Scene, ray: Ray, active=None,
                  prep: TracePrep | None = None) -> HitInfo:
     """Closest hit for a wavefront (port of ``trace_pallas``): parks dead
@@ -1404,17 +1418,15 @@ def trace_pallas(scene: Scene, ray: Ray, active=None,
     triangle rows fit ``_SC_RESIDENT_BYTES`` (and ``_SC_LITE``), else to
     :func:`closest_hit_rows_sc`. A rows kernel's HitInfo carries ``rows``
     for render/shading.py ``shading_from_rows``."""
-    n = ray.o.x.shape[0]
-    o4t, d4t = pack_rays(ray, active)
     if prep is None:
         prep = prepare_trace_inputs(scene)
     if _sc_lite_fits(prep):
-        lite = closest_hit_sc_lite(o4t, d4t, prep.sc_bounds,
-                                   prep.chunk_bounds, prep.mu_pad,
-                                   prep.mv_pad, prep.mw_pad, prep.scc)[:, :n]
+        lite = sc_lite_winners(ray, active, prep)
         return lite_epilogue(scene, prep, ray, active, lite[0],
                              lite[1].to(torch.int32))._replace(
             steps=lite[2].to(torch.int32))
+    n = ray.o.x.shape[0]
+    o4t, d4t = pack_rays(ray, active)
     if prep.superchunks:
         rows = closest_hit_rows_sc(o4t, d4t, prep.sc_bounds,
                                    prep.chunk_bounds, prep.mu_pad,

@@ -4,20 +4,28 @@ One regen iteration shades the segment each lane just traced, adds its
 emission (or the sky's), records the first-hit AOVs and samples the next
 direction. In PyTorch that is ~620 elementwise launches an iteration
 (render/regen.py ``_shade_torch``); the kernel does it in one, reading the
-winner rows and the lane stacks once and writing the new stacks, the
-``alive`` / ``dead_now`` masks and their counts.
+lane stacks once and writing the new stacks, the ``alive`` / ``dead_now``
+masks and their counts. Two entries, one a hit source:
 
-The wrapper :func:`regen_shade`
+- :func:`regen_shade` reads the winner rows of kernels 1 and 6;
+- :func:`regen_shade_lite` reads the (t, eidx, steps) winners of the
+  superchunk lite kernel (kernel 3), which returns no rows, and gathers
+  what ops/intersect.py ``lite_epilogue`` and render/shading.py
+  ``get_shading_data_fast`` gather (~650 launches an iteration in
+  PyTorch).
 
-- on a CUDA tensor launches the kernel (built by nvcc at first use,
-  ops/build.py) and counts the launch in ``regen_shade.launches``;
-- on a CPU tensor runs :func:`regen_shade_plain`, regen's torch body on
-  the same inputs.
+Each wrapper
+
+- on a CUDA tensor launches its kernel (built by nvcc at first use,
+  ops/build.py) and counts the launch in ``<wrapper>.launches``;
+- on a CPU tensor runs its plain version, regen's torch body on the same
+  inputs (:func:`regen_shade_plain`, :func:`regen_shade_lite_plain`).
 
 Scope (:func:`shade_kernel_supported`): a scene on the card without
 transmission, textures or an environment map, no NEE, no march and no
-Russian roulette; regen also needs the traversal's winner rows (kernels 1
-and 6; the superchunk lite kernel, BRUTE and UNIT return none).
+Russian roulette. Regen takes :func:`regen_shade_lite` where kernel 3
+traces (ops/intersect.py ``_sc_lite_fits``), :func:`regen_shade` where
+the traversal returns winner rows; BRUTE and UNIT return neither.
 """
 
 from __future__ import annotations
@@ -25,8 +33,13 @@ from __future__ import annotations
 import torch
 
 from gdpathtracing_torch.config import RenderConfig
-from gdpathtracing_torch.ops.intersect import OUT_R, _hit_from_rows, _launch
+from gdpathtracing_torch.core.vec import Vec3
+from gdpathtracing_torch.ops.intersect import (LITE_R, OUT_R, TracePrep,
+                                               _hit_from_rows, _launch,
+                                               lite_epilogue)
 from gdpathtracing_torch.ops.megakernel import sky_constants
+from gdpathtracing_torch.render.shading import material_table
+from gdpathtracing_torch.render.types import Ray
 from gdpathtracing_torch.scene.scene import Scene
 
 _NF, _NI = 17, 6  # render/regen.py's float and int64 lane rows (no march)
@@ -41,8 +54,9 @@ def _kernel_takes(scene: Scene, config: RenderConfig) -> bool:
 
 def shade_kernel_supported(scene: Scene, config: RenderConfig, march: bool,
                            use_nee: bool) -> bool:
-    """Whether regen shades with :func:`regen_shade`: a scene on the card
-    that needs none of what the kernel leaves out."""
+    """Whether regen shades in a kernel (:func:`regen_shade`, or
+    :func:`regen_shade_lite` where kernel 3 traces): a scene on the card
+    that needs none of what the kernels leave out."""
     return (scene.device.type == "cuda" and not march and not use_nee
             and _kernel_takes(scene, config))
 
@@ -71,39 +85,121 @@ def regen_shade(scene: Scene, rows: torch.Tensor, fs: torch.Tensor,
     CUDA tensors launch the kernel (counted in ``regen_shade.launches``);
     CPU tensors run :func:`regen_shade_plain`. Raises on a scene or config
     the kernel does not take, and on anything else it cannot read."""
-    n = active.shape[0]
-    if not _kernel_takes(scene, config) or config.bounces < 1:
-        raise ValueError("regen_shade takes no transmission, textures, "
-                         "environment map or Russian roulette, and at "
-                         "least one bounce")
-    for name, x, r, dtype in (("rows", rows, OUT_R, torch.float32),
-                              ("fs", fs, _NF, torch.float32),
-                              ("ints", ints, _NI, torch.int64)):
-        if x.dim() != 2 or x.shape != (r, n) or x.dtype != dtype \
-                or x.stride(1) != 1 or x.device != active.device:
-            raise ValueError(f"{name} must be ({r}, {n}) {dtype} with "
-                             f"unit column stride on {active.device}, got "
-                             f"{tuple(x.shape)} {x.dtype} strides "
-                             f"{x.stride()} on {x.device}")
-    if active.dtype != torch.bool or not active.is_contiguous() or n == 0:
-        raise ValueError("active must be a contiguous non-empty bool vector")
-    dev = active.device
-    if dev.type == "cpu":
+    _check(scene, config, active, ("rows", rows, OUT_R), fs, ints)
+    if active.device.type == "cpu":
         return regen_shade_plain(scene, rows, fs, ints, active, config)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    fs_out = torch.empty((_NF, n), dtype=torch.float32, device=dev)
-    ints_out = torch.empty((_NI, n), dtype=torch.int64, device=dev)
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    dead_now = torch.empty(n, dtype=torch.bool, device=dev)
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
-    _launch("regen_shade", (rows, fs, ints, active, fs_out, ints_out, alive,
-                            dead_now, counts),
-            n, rows.stride(0), fs.stride(0), ints.stride(0),
+    out = _outputs(active)
+    _launch("regen_shade", (rows, fs, ints, active, *out),
+            active.shape[0], rows.stride(0), fs.stride(0), ints.stride(0),
             int(config.bounces),
             floats=(config.ray_eps, *sky_constants(config)))
     regen_shade.launches += 1
-    return fs_out, ints_out, alive, dead_now, counts
+    return out
 
 
 regen_shade.launches = 0
+
+
+def lite_tables(scene: Scene) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The row-major tables :func:`regen_shade_lite` gathers from, one
+    row a lane each: ``isect_cols`` (E, 12) (the scene keeps it
+    column-major), ``isect_shade`` (E, 16) and render/shading.py
+    ``material_table`` (M, 13). Regen builds them once a frame."""
+    scene = scene.detach()
+    return (scene.isect_cols.contiguous(), scene.isect_shade.contiguous(),
+            material_table(scene))
+
+
+def regen_shade_lite_plain(scene: Scene, prep: TracePrep, lite, fs, ints,
+                           active, config: RenderConfig):
+    """:func:`regen_shade_lite` in PyTorch: ops/intersect.py
+    ``lite_epilogue`` on kernel 3's winners ``lite`` and the rays of
+    ``fs``, then regen's torch body."""
+    from gdpathtracing_torch.render.regen import _shade_torch
+
+    ray = Ray(Vec3(*fs[0:3]), Vec3(*fs[3:6]))
+    hit = lite_epilogue(scene, prep, ray, active, lite[0],
+                        lite[1].to(torch.int32))._replace(
+        steps=lite[2].to(torch.int32))
+    return _shade_torch(scene, config, hit, fs, ints, active)
+
+
+def regen_shade_lite(scene: Scene, prep: TracePrep, lite: torch.Tensor,
+                     fs: torch.Tensor, ints: torch.Tensor,
+                     active: torch.Tensor, config: RenderConfig,
+                     tables: tuple):
+    """:func:`regen_shade` on the winners of kernel 3: ``lite`` (8, n),
+    rows 0 t, 1 eidx, 2 triangles swept (ops/intersect.py
+    ``sc_lite_winners``; may be the first n columns of a wider output),
+    gathering from the scene's :func:`lite_tables` ``tables``, which the
+    caller builds once a frame. ``prep`` is the scene's
+    ``prepare_trace_inputs`` (the plain version's ``lite_epilogue`` reads
+    it). Returns what :func:`regen_shade` returns.
+
+    CUDA tensors launch the kernel (counted in
+    ``regen_shade_lite.launches``); CPU tensors run
+    :func:`regen_shade_lite_plain`. Raises on a scene or config the kernel
+    does not take, and on anything else it cannot read."""
+    _check(scene, config, active, ("lite", lite, LITE_R), fs, ints)
+    if len(tables) != 3:
+        raise ValueError("tables must be lite_tables(scene)")
+    for name, x, w in zip(("isect_cols", "isect_shade", "mats"), tables,
+                          (12, 16, 13)):
+        if x.dim() != 2 or x.shape[1] != w or x.dtype != torch.float32 \
+                or not x.is_contiguous() or x.device != active.device:
+            raise ValueError(f"{name} must be contiguous (*, {w}) float32 "
+                             f"on {active.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if active.device.type == "cpu":
+        return regen_shade_lite_plain(scene, prep, lite, fs, ints, active,
+                                      config)
+    out = _outputs(active)
+    _launch("regen_shade_lite", (lite, *tables, fs, ints, active, *out),
+            active.shape[0], lite.stride(0), fs.stride(0), ints.stride(0),
+            int(config.bounces),
+            floats=(config.ray_eps, *sky_constants(config)),
+            source="regen_shade")
+    regen_shade_lite.launches += 1
+    return out
+
+
+regen_shade_lite.launches = 0
+
+
+def _check(scene: Scene, config: RenderConfig, active, hit, fs,
+           ints) -> None:
+    """Raise unless the kernels take ``scene`` and ``config``, ``active``
+    is a non-empty contiguous bool vector on the CPU or the card, and the
+    ``hit`` operand (name, tensor, rows) and the lane stacks are (rows, n)
+    with unit column stride on its device: the hit and ``fs`` float32,
+    ``ints`` int64."""
+    if not _kernel_takes(scene, config) or config.bounces < 1:
+        raise ValueError("regen's shading kernels take no transmission, "
+                         "textures, environment map or Russian roulette, "
+                         "and at least one bounce")
+    n, dev = active.shape[0], active.device
+    if active.dtype != torch.bool or not active.is_contiguous() or n == 0:
+        raise ValueError("active must be a contiguous non-empty bool vector")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    for name, x, r, dtype in ((*hit, torch.float32),
+                              ("fs", fs, _NF, torch.float32),
+                              ("ints", ints, _NI, torch.int64)):
+        if x.dim() != 2 or x.shape != (r, n) or x.dtype != dtype \
+                or x.stride(1) != 1 or x.device != dev:
+            raise ValueError(f"{name} must be ({r}, {n}) {dtype} with unit "
+                             f"column stride on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} strides "
+                             f"{x.stride()} on {x.device}")
+
+
+def _outputs(active):
+    """Fresh (17, n) f32 and (6, n) int64 stacks, the two (n,) masks and
+    the (2,) int32 counts, on ``active``'s device."""
+    n, dev = active.shape[0], active.device
+    return (torch.empty((_NF, n), dtype=torch.float32, device=dev),
+            torch.empty((_NI, n), dtype=torch.int64, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(2, dtype=torch.int32, device=dev))

@@ -35,10 +35,13 @@ end.
 
 An iteration's shading (emission or sky, the first-hit AOVs, the BRDF
 sample and the next ray, the alive and dead masks and their counts) is
-one kernel launch on the card (:func:`ops.shade.regen_shade`) where
-:func:`ops.shade.shade_kernel_supported` takes the scene and config and
-the traversal returned winner rows; everywhere else it is the torch body,
-:func:`_shade_torch`, of which the kernel is bit for bit a copy.
+one kernel launch on the card where
+:func:`ops.shade.shade_kernel_supported` takes the scene and config: on
+kernel 3's raw winners (:func:`ops.intersect.sc_lite_winners`, no
+``lite_epilogue``) :func:`ops.shade.regen_shade_lite`, on a traversal's
+winner rows :func:`ops.shade.regen_shade`; everywhere else it is the
+torch body, :func:`_shade_torch`, of which each kernel is bit for bit a
+copy.
 
 ``lax.while_loop`` becomes a host loop: each iteration reads the two counts
 the log append and the loop condition need with one small ``.tolist()``.
@@ -74,14 +77,16 @@ from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
-                                               lite_epilogue,
+                                               _sc_lite_fits, lite_epilogue,
                                                march_block_queue,
                                                march_next_candidates,
                                                march_supported, march_sweep,
                                                occluded_pallas,
                                                prepare_trace_inputs,
+                                               sc_lite_winners,
                                                trace_occlude_pallas)
-from gdpathtracing_torch.ops.shade import (regen_shade,
+from gdpathtracing_torch.ops.shade import (lite_tables, regen_shade,
+                                           regen_shade_lite,
                                            shade_kernel_supported)
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.integrator import (check_supported,
@@ -398,6 +403,10 @@ def render_radiance_regen(scene: Scene, camera: Camera,
         frame_index = int(frame_index)
         use_nee = config.nee and scene.n_lights > 0
         kernel = shade_kernel_supported(scene, config, march, use_nee)
+        # Kernel 3's winners go to the shading kernel as they are, with
+        # the tables it gathers from.
+        lite = kernel and prep is not None and _sc_lite_fits(prep)
+        tables = lite_tables(scene) if lite else None
         compact = config.compact_rays is not False
         use_log = config.regen_retire == "log" and compact
         sort_lanes = sorts_lanes(config)
@@ -557,6 +566,8 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                                               Vec3(*pend_f[_P_D:_P_D + 3])),
                         pend_f[_P_TMAX], p_sh, prep)
                     shade, tsteps = active, hit.steps
+                elif lite:
+                    winners, hit = sc_lite_winners(r, active, prep), None
                 else:
                     hit = trace(scene, r, active, prep)
                     shade, tsteps = active, hit.steps
@@ -588,9 +599,13 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                 if return_stats:
                     it = min(iters, MAX_IT - 1)
                     it_alive[it] = active.sum()
-                    if hit.rows is not None:
+                    if hit is not None and hit.rows is not None:
                         it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
-                if kernel and hit.rows is not None:
+                if lite:
+                    fs, ints, alive, dead_now, counts = regen_shade_lite(
+                        scene, prep, winners, fs, ints, active, config,
+                        tables)
+                elif kernel and hit.rows is not None:
                     fs, ints, alive, dead_now, counts = regen_shade(
                         scene, hit.rows, fs, ints, active, config)
                 else:

@@ -58,7 +58,8 @@ COUNTERS = tuple(
         ("ops.intersect", "closest_hit_classic"),
         ("ops.intersect", "closest_hit_loop"),
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
-        ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"))) + (
+        ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"),
+        ("ops.shade", "regen_shade_lite"))) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
     "gdpathtracing_torch.render.regen:_shade_torch.iterations")
 

@@ -1909,9 +1909,9 @@ def test_regen_shade_launch_counts():
 @pytest.mark.parametrize("where", ["demo", "grid"])
 def test_torch_shade_counter_on_the_card(where):
     """One 1080p Engine step on the card: the demo shades every regen
-    iteration in the kernel, so ``_shade_torch.iterations`` stays put; the
-    mid grid's kernel 3 returns no winner rows, so every iteration shades
-    in the torch body."""
+    iteration in a kernel, so ``_shade_torch.iterations`` stays put; so
+    does the mid grid, whose kernel 3 winners ``regen_shade_lite``
+    shades."""
     from gdpathtracing_torch import Engine
     from gdpathtracing_torch.render import regen
     from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
@@ -1931,5 +1931,164 @@ def test_torch_shade_counter_on_the_card(where):
     torch.cuda.synchronize()
     iters = regen.render_radiance_regen.iterations - it0
     assert iters > 0
-    assert regen._shade_torch.iterations - before == \
-        (0 if where == "demo" else iters)
+    assert regen._shade_torch.iterations - before == 0
+
+
+def _lite_shade_inputs(prep, nw, bounces, seed):
+    """One regen iteration's inputs on the bench grid: kernel 3's raw
+    winners of random rays inside the grid's box, 15% of them outside it
+    heading away (misses), and random lane stacks as
+    :func:`_shade_inputs` makes them (bounces up to the cap, 15% of the
+    lanes inactive)."""
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.types import Ray
+    g = np.random.default_rng(seed)
+    cb = prep.bounds.cpu().numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    o = g.uniform(lo, hi, (nw, 3)).T
+    d = g.normal(size=(3, nw))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    out = g.uniform(size=nw) < 0.15
+    o[:, out] = (hi + 1.0)[:, None]
+    d[:, out] = np.abs(d[:, out])
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    active = torch.from_numpy(g.uniform(size=nw) < 0.85).cuda()
+    o, d = f32(o), f32(d)
+    lite = ti.sc_lite_winners(Ray(Vec3(*o), Vec3(*d)), active, prep)
+    fs = torch.cat([o, d, f32(g.uniform(0.0, 1.5, (3, nw))),
+                    f32(g.uniform(0.0, 2.0, (3, nw))),
+                    f32(g.uniform(-1.0, 3.0, (1, nw))),
+                    f32(g.uniform(0.0, 1000.0, (1, nw))),
+                    f32(g.normal(size=(3, nw)))])
+    ints = torch.from_numpy(np.stack(
+        [g.integers(0, 1 << 32, nw), g.integers(0, 1 << 32, nw),
+         g.permutation(nw), g.integers(0, bounces, nw),
+         g.integers(0, 1 << 20, nw), g.integers(0, bounces, nw)])).cuda()
+    return lite, fs, ints, active
+
+
+@pytest.mark.parametrize("case", ["full", "drained"])
+def test_regen_shade_lite_kernel_matches_torch(case):
+    """``regen_shade_lite`` against its plain version (``lite_epilogue``,
+    then regen's torch body) on the card, on kernel 3's winners over the
+    bench grid with misses, emissive and metal hits, lanes at the bounce
+    cap and inactive lanes: 393216 lanes (the 1080p wavefront), and the
+    first 5120 lanes of 8192-wide stacks (a drain stage's first
+    iteration) under another sky, ray_eps and bounce count. Every output
+    row bit for bit, the masks and the two counts equal."""
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.scene.demo import build_sphere_grid
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_sphere_grid(n=10, sphere_detail=16)
+    prep = ti.prepare_trace_inputs(scene)
+    assert ti._sc_lite_fits(prep)
+    if case == "full":
+        cfg, nw, size = RenderConfig(traversal=Traversal.PALLAS), 393216, \
+            393216
+    else:
+        cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=3,
+                           ray_eps=3e-3, sky_horizon=(0.3, 0.5, 0.7),
+                           sky_zenith=(0.1, 0.2, 1.3))
+        nw, size = 8192, 5120
+    lite, fs, ints, active = _lite_shade_inputs(prep, nw, cfg.bounces, 7)
+    lite, fs, ints, active = (lite[:, :size], fs[:, :size], ints[:, :size],
+                              active[:size])
+    tables = shade.lite_tables(scene)
+    cols, rows16, mats = tables
+    hit = active & (lite[0] < ti._MISS)
+    mat = mats[rows16[torch.where(hit, lite[1].long(), 0), 15].long()]
+    for kind in (active & ~hit, hit & (mat[:, 6] > 0.0),
+                 hit & (mat[:, 7] > 0.5), active & (ints[3] == cfg.bounces - 1),
+                 hit & (ints[3] == 0), ~active):
+        assert kind.any()
+    before = shade.regen_shade_lite.launches
+    got = shade.regen_shade_lite(scene, prep, lite, fs, ints, active, cfg,
+                                 tables)
+    torch.cuda.synchronize()
+    assert shade.regen_shade_lite.launches == before + 1
+    want = shade.regen_shade_lite_plain(scene, prep, lite, fs, ints, active,
+                                        cfg)
+    assert got[0].shape == want[0].shape == (17, size)
+    for r in range(17):
+        assert torch.equal(got[0][r].view(torch.int32),
+                           want[0][r].view(torch.int32)), f"fs row {r}"
+    for r in range(6):
+        assert torch.equal(got[1][r], want[1][r]), f"ints row {r}"
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert got[4].tolist() == want[4].tolist()
+    assert 0 < got[4][0] < size and 0 < got[4][1] < size
+
+
+@pytest.mark.parametrize("retire", ["log", "scatter"])
+def test_regen_shade_lite_frame_matches_torch(retire, monkeypatch):
+    """A 320x180 frame of the mid grid through regen with 16384 lanes (two
+    drain stages) shades in ``regen_shade_lite``, one launch an
+    iteration, and equals bit for bit the frame with the gate off
+    (kernel 3, ``lite_epilogue`` and the torch body)."""
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import regen
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_sphere_grid(n=4, sphere_detail=12)
+    cam = grid_camera(320, 180, n=4)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen_wavefront=16384,
+                       regen_retire=retire)
+    assert shade.shade_kernel_supported(scene, cfg, False, False)
+    before, rows0 = shade.regen_shade_lite.launches, shade.regen_shade.launches
+    regen.render_radiance_regen.iterations = 0
+    got = render_radiance(scene, cam, cfg, 3)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations
+    assert shade.regen_shade_lite.launches - before == iters > 5
+    assert shade.regen_shade.launches == rows0
+    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: False)
+    want = render_radiance(scene, cam, cfg, 3)
+    assert shade.regen_shade_lite.launches - before == iters
+    for k in ("radiance", "depth", "normal", "steps", "segments"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.device.type == "cuda"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("where", ["grid", "demo"])
+def test_regen_shade_entry_launch_counts(where):
+    """One 1080p Engine step of the benchmark's grid (n=10, 5 bounces)
+    shades its 15 regen iterations in ``regen_shade_lite``: 15 launches,
+    no torch shading iteration and no ``trace_epilogue``; the demo's step
+    still makes 9 ``regen_shade`` launches and no lite launch."""
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import regen
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    from gdpathtracing_torch.utils.telemetry import SPANS
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    if where == "grid":
+        scene = build_sphere_grid(n=10, sphere_detail=16)
+        cam, iters = grid_camera(1920, 1080, n=10), 15
+    else:
+        scene, cam, iters = build_demo_scene(), demo_camera(1920, 1080), 9
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=5, spp=1,
+                       nee=False, rr_start=0)
+    engine = Engine(scene, cfg)
+    before = (shade.regen_shade_lite.launches, shade.regen_shade.launches,
+              regen._shade_torch.iterations,
+              regen.render_radiance_regen.iterations,
+              SPANS.trace_epilogue.count)
+    engine.step(cam)
+    torch.cuda.synchronize()
+    after = (shade.regen_shade_lite.launches, shade.regen_shade.launches,
+             regen._shade_torch.iterations,
+             regen.render_radiance_regen.iterations,
+             SPANS.trace_epilogue.count)
+    lite, rows, torch_it, it, epi = (a - b for a, b in zip(after, before))
+    assert it == iters
+    assert (lite, rows) == ((iters, 0) if where == "grid" else (0, iters))
+    assert torch_it == 0 and epi == 0

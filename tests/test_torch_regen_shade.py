@@ -1,7 +1,9 @@
 """Regen's shading kernel (ops/shade.py, csrc/regen_shade.cu) on the CPU:
-the gate that picks it over the torch body, the wrapper's refusals, and
-regen's call site driven through the wrapper's plain version. The kernel
-itself runs only on the card (tests/test_torch_cuda.py)."""
+the gate that picks it over the torch body, the two wrappers' refusals
+(``regen_shade`` on winner rows, ``regen_shade_lite`` on kernel 3's
+winners), their plain versions, and regen's call site driven through them
+and its choice between them. The kernels themselves run only on the card
+(tests/test_torch_cuda.py)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core.vec import Vec3
 from gdpathtracing_torch.ops import intersect as ti
 from gdpathtracing_torch.ops import shade
-from gdpathtracing_torch.render import regen
+from gdpathtracing_torch.render import regen, shading
 from gdpathtracing_torch.render.renderer import render_radiance
 from gdpathtracing_torch.render.types import Ray
 from gdpathtracing_torch.scene import demo as tdemo
@@ -171,5 +173,156 @@ def test_regen_through_the_wrapper_on_the_cpu(scenes, retire, monkeypatch):
     got = render_radiance(scene, cam, cfg, 3)
     assert len(calls) == regen.render_radiance_regen.iterations > 2
     assert set(calls) == {512, 256}
+    for k in AOVS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def _lite_iteration(scene, n=500, seed=1):
+    """One iteration's inputs on a superchunk scene kernel 3 takes: its
+    raw winners (the plain version) of random rays from inside the scene's
+    box, a fifth of them outside heading away (misses), lane stacks with
+    bounces up to the cap, a quarter of the lanes inactive."""
+    prep = ti.prepare_trace_inputs(scene)
+    assert ti._sc_lite_fits(prep)
+    g = np.random.default_rng(seed)
+    cb = scene.isect_chunk_bounds.numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    o = g.uniform(lo, hi, (n, 3)).T.astype(np.float32)
+    d = g.normal(size=(3, n))
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    out = g.uniform(size=n) < 0.2
+    o[:, out] = (hi + 1.0)[:, None]
+    d[:, out] = np.abs(d[:, out])
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    active = torch.from_numpy(g.uniform(size=n) < 0.75)
+    lite = ti.sc_lite_winners(Ray(Vec3(*o), Vec3(*d)), active, prep)
+    fs = torch.cat([o, d, torch.ones(3, n), torch.zeros(4, n),
+                    torch.full((1, n), 1000.0), torch.zeros(3, n)])
+    ints = torch.from_numpy(np.stack(
+        [g.integers(0, 1 << 32, n), g.integers(0, 1 << 32, n),
+         np.arange(n), g.integers(0, 5, n), np.zeros(n, np.int64),
+         np.zeros(n, np.int64)]))
+    return prep, lite, fs, ints, active
+
+
+def test_regen_shade_lite_plain_is_the_torch_body(scenes):
+    """On CPU tensors ``regen_shade_lite`` runs ``lite_epilogue`` on
+    kernel 3's winners and then regen's torch body, which is what regen
+    ran on such a scene before: the same stacks, masks and counts as the
+    torch body on ``trace_pallas``'s hit of the same rays (misses, hits
+    and inactive lanes among them)."""
+    scene = scenes["mid"]
+    prep, lite, fs, ints, active = _lite_iteration(scene)
+    assert lite.shape == (ti.LITE_R, 500) and lite.stride(0) == 512
+    got = shade.regen_shade_lite(scene, prep, lite, fs, ints, active, PALLAS,
+                                 shade.lite_tables(scene))
+    hit = ti.trace_pallas(scene, Ray(Vec3(*fs[0:3]), Vec3(*fs[3:6])), active,
+                          prep)
+    assert hit.rows is None
+    want = regen._shade_torch(scene, PALLAS, hit, fs, ints, active)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fs2, ints2, alive, dead_now, counts = got
+    won = active & (lite[0] < ti._MISS)
+    assert 0 < int(won.sum()) < int(active.sum())
+    assert counts.tolist() == [int(alive.sum()), int(dead_now.sum())]
+    assert torch.equal(dead_now, active & ~alive) and not (alive & ~won).any()
+    assert torch.equal(ints2[4], ints[4] + torch.where(active, lite[2], 0)
+                       .to(torch.int64))
+
+
+def test_lite_tables_are_row_major(scenes):
+    """The tables are the scene's, one contiguous row a lane: the scene
+    keeps ``isect_cols`` column-major, so it is the one copied."""
+    scene = scenes["mid"]
+    cols, shade_rows, mats = shade.lite_tables(scene)
+    assert not scene.isect_cols.is_contiguous()
+    for x, ref in ((cols, scene.isect_cols), (shade_rows, scene.isect_shade),
+                   (mats, shading.material_table(scene))):
+        assert x.is_contiguous() and torch.equal(x, ref)
+
+
+@pytest.mark.parametrize("fault", [
+    "glass", "rr", "no_bounces", "lite_rows", "lite_dtype", "strided",
+    "active_dtype", "device", "cols_layout", "mats_width", "tables"])
+def test_regen_shade_lite_refuses(scenes, fault):
+    """``regen_shade_lite`` raises on a scene or config the kernel does not
+    take, zero bounces, and operands it cannot read (shape, dtype, stride,
+    device, the tables' layout), before any launch."""
+    scene = scenes["glass" if fault == "glass" else "mid"]
+    prep, lite, fs, ints, active = _lite_iteration(scenes["mid"], n=256)
+    tables = shade.lite_tables(scenes["mid"])
+    cfg = {"rr": PALLAS.replace(rr_start=2),
+           "no_bounces": PALLAS.replace(bounces=0)}.get(fault, PALLAS)
+    if fault == "lite_rows":
+        lite = lite[:4]
+    elif fault == "lite_dtype":
+        lite = lite.double()
+    elif fault == "strided":
+        fs = torch.cat([fs, fs], dim=1)[:, ::2]
+    elif fault == "active_dtype":
+        active = active.to(torch.uint8)
+    elif fault == "device":
+        lite, fs, ints, active = (x.to("meta") for x in (lite, fs, ints,
+                                                         active))
+    elif fault == "cols_layout":
+        tables = (scenes["mid"].isect_cols, *tables[1:])
+    elif fault == "mats_width":
+        tables = (*tables[:2], tables[2][:, :12].contiguous())
+    elif fault == "tables":
+        tables = tables[:2]
+    with pytest.raises(ValueError):
+        shade.regen_shade_lite(scene, prep, lite, fs, ints, active, cfg,
+                               tables)
+
+
+# (scene, gate, kernel 3's envelope as regen sees it, the entry that shades:
+# "lite", "rows" or None for the torch body)
+DISPATCH = {
+    "grid": ("mid", True, True, "lite"),
+    "grid_gate_off": ("mid", False, True, None),
+    "grid_not_fitting": ("mid", True, False, None),
+    "demo": ("demo", True, False, "rows"),
+}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH))
+def test_regen_picks_the_lite_entry(scenes, case, monkeypatch):
+    """Regen shades in ``regen_shade_lite`` only where the gate takes the
+    scene and kernel 3 traces it (``_sc_lite_fits``), once an iteration;
+    on the flat demo the gate picks ``regen_shade``; with either declined
+    the grid shades in the torch body (where regen's own view of the
+    envelope is declined, ``trace_pallas`` still walks kernel 3 and its
+    epilogue). Every frame equals the torch body's (the plain versions
+    here)."""
+    name, gate, fits, entry = DISPATCH[case]
+    scene = scenes[name]
+    cam = (tdemo.demo_camera(24, 16) if name == "demo"
+           else tdemo.grid_camera(24, 16, n=4))
+    cfg = PALLAS.replace(regen_wavefront=256)
+    want = render_radiance(scene, cam, cfg, 2)
+    calls = {"lite": 0, "rows": 0}
+
+    def counting(kind, real):
+        def wrapper(*args):
+            calls[kind] += 1
+            return real(*args)
+        return wrapper
+
+    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: gate)
+    if not fits:
+        monkeypatch.setattr(regen, "_sc_lite_fits", lambda prep: False)
+    monkeypatch.setattr(regen, "regen_shade_lite",
+                        counting("lite", shade.regen_shade_lite))
+    monkeypatch.setattr(regen, "regen_shade",
+                        counting("rows", shade.regen_shade))
+    regen.render_radiance_regen.iterations = 0
+    torch0 = regen._shade_torch.iterations
+    got = render_radiance(scene, cam, cfg, 2)
+    iters = regen.render_radiance_regen.iterations
+    assert iters > 2
+    assert calls == {k: iters if k == entry else 0 for k in calls}
+    assert regen._shade_torch.iterations - torch0 == \
+        (iters if entry is None else 0)
     for k in AOVS:
         assert torch.equal(getattr(got, k), getattr(want, k)), k

@@ -77,9 +77,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
    demo frame's camera rays, one launch a tile each, against kernel 1's
    winners; then renders 1920x1080 frames (1 spp, 5 bounces) through
-   render_radiance for each main path, with every launch count and the
-   regen iteration count set to 0 just before each frame and read just
-   after: on the demo scene the standard loop (regen=False), the default
+   render_radiance for each main path, with the launch count of each of
+   the fourteen entry points (the thirteen kernels', regen's shading with
+   two) and the regen iteration count set to 0 just before each frame and
+   read just after: on the demo scene the standard loop (regen=False), the default
    regen loop, regen with NEE and the standard loop with NEE; on the grid
    regen, regen with NEE, the standard loop (which sorts rays each bounce)
    and regen with the frontier march, without and with NEE; regen on the
@@ -101,9 +102,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the same frame index and must equal it in radiance, depth and
    segments. Checks the launches against
    the regen iterations and the tiles (kernel 7 once an iteration where
-   the march runs, kernel 6 where it is ignored; 40 of kernel 10 and 8 of
-   kernel 11 a frame, and none of kernels 1-7 there; 40 or 80 of the BVH
-   kernel), and prints ms/frame,
+   the march runs, kernel 6 where it is ignored; regen's shading once an
+   iteration where a kernel shades, regen_shade_lite on the grid's and
+   the mid grid's regen, regen_shade on the demo's and the n=14 grid's
+   regen and in the Engine steps, and never elsewhere; 40 of kernel 10
+   and 8 of kernel 11 a frame, and none of kernels 1-7 there; 40 or 80 of
+   the BVH kernel), and prints ms/frame,
    Msegments/s and the regen iterations. Then it
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
@@ -644,13 +648,15 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
     # The first-chunk lane key against the default (Morton) key, in turns:
     # the demo's 8 chunk boxes, the grid's 47 superchunk boxes; each frame
     # must equal the default key's.
-    for what, pscene, pcam, trace in (
-            ("demo, regen", scene, cam, "closest_hit_rows"),
-            ("grid, regen", grid, grid_cam, "closest_hit_sc_lite")):
+    for what, pscene, pcam, trace, shading in (
+            ("demo, regen", scene, cam, "closest_hit_rows", "regen_shade"),
+            ("grid, regen", grid, grid_cam, "closest_hit_sc_lite",
+             "regen_shade_lite")):
         frames = in_turns(what, pscene, pcam, [
             ("default key", cfg), ("chunk key",
                                    cfg.replace(regen_sort_key="chunk"))],
-            lambda lab, iters, trace=trace: {trace: iters})
+            lambda lab, iters, trace=trace, shading=shading: {
+                trace: iters, shading: iters})
         for r, (a, b) in enumerate(zip(frames["chunk key"],
                                        frames["default key"])):
             check(equal_frames(a, b), f"{what}, frame {r}: the chunk key's "
@@ -747,8 +753,11 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
         check(lscene.device.type == "cuda", f"{what}: not on the card")
         aovs, got, iters, s = counted(
             lambda: render_radiance(lscene, lcam, cfg, 1))
-        check(nonzero(got) == {"closest_hit_rows": iters},
-              f"{what}: launches {nonzero(got)}")
+        want = {"closest_hit_rows": iters}
+        if not lscene.has_textures:  # the JSON scene's texture: torch body
+            want["regen_shade"] = iters
+        check(nonzero(got) == want, f"{what}: launches {nonzero(got)}, "
+              f"expected {want}")
         check(bool(torch.isfinite(aovs.radiance).all())
               and int(aovs.segments.sum()) >= W * H,
               f"{what}: not finite or too few segments")
@@ -888,6 +897,7 @@ def main() -> None:
     from gdpathtracing_torch.ops import fused as fu
     from gdpathtracing_torch.ops import intersect as ti
     from gdpathtracing_torch.ops import megakernel as mk
+    from gdpathtracing_torch.ops import shade
     from gdpathtracing_torch.ops import tiles as kt
     from gdpathtracing_torch.ops.build import KERNELS, load_libraries
     from gdpathtracing_torch.post.denoise import atrous_denoise
@@ -1562,7 +1572,9 @@ def main() -> None:
                "march_step_sc": ti.march_step_sc,
                "closest_hit_classic": ti.closest_hit_classic,
                "closest_hit_loop": ti.closest_hit_loop,
-               "trace_bvh": trace_bvh}
+               "trace_bvh": trace_bvh,
+               "regen_shade": shade.regen_shade,
+               "regen_shade_lite": shade.regen_shade_lite}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
@@ -1616,6 +1628,15 @@ def main() -> None:
             ("regen", cfg, 2),
             # over the 8 MiB threshold: the flag is ignored (kernel 6)
             ("regen, regen_march=True", march, 2)])]
+    # The paths whose regen shades in a kernel, one launch an iteration:
+    # regen_shade_lite on kernel 3's winners, regen_shade on kernels 1 and
+    # 6's rows. Every other path shades in regen's torch body (NEE, the
+    # march, glass, Russian roulette, BRUTE and UNIT) or runs no regen.
+    shading = {"demo, regen": "regen_shade",
+               "grid, regen": "regen_shade_lite",
+               "mid grid, regen": "regen_shade_lite",
+               "n=14 grid, regen": "regen_shade",
+               "n=14 grid, regen, regen_march=True": "regen_shade"}
     # Each wrapper's source (csrc/) and the line of the TPU kernel it
     # replaces in gdpathtracing_tpu/ops/; the source `x.cu` defines the
     # kernel `x_kernel`, but for kernel 9, which closest_hit_classic.cu
@@ -1779,6 +1800,8 @@ def main() -> None:
             marching = march_flag and trace == "closest_hit_sc_lite"
             want["march_step_sc" if marching else trace] = iters
             want["occluded"] = iters if nee else 0
+            if name in shading:
+                want[shading[name]] = iters
         elif nee and trace == "closest_hit_rows":  # fused NEE
             want["closest_hit_rows_nee"] = per_tile * pcfg.bounces
             want["occluded"] = per_tile
@@ -1841,7 +1864,7 @@ def main() -> None:
         iters = render_radiance_regen.iterations
         got = {k: fn.launches for k, fn in kernels.items()}
         want = dict.fromkeys(kernels, 0)
-        want["closest_hit_rows"] = iters
+        want["closest_hit_rows"] = want["regen_shade"] = iters
         log(f"{name}: launches {got}, {iters} regen iterations")
         check(iters > 0 and got == want,
               f"{name}: launches {got}, expected {want}")

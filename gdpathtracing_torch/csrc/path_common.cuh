@@ -21,7 +21,7 @@
 //
 // The dielectric-transmission branch of the BRDF is not here: every
 // kernel that includes this runs only on scenes without transmission
-// (mega_supported, fused_supported, shade_kernel_supported).
+// (mega_supported, fused_supported, shade_entry).
 
 #pragma once
 

@@ -31,8 +31,8 @@
 // (taken on every lane, as the torch body does), the BRDF sample, its pdf
 // and value, survival and the ray_eps offset; the survive-selects of
 // origin, direction, throughput and prev pdf; bounce += active. Scope
-// (shade_kernel_supported): no NEE, march, transmission, textures,
-// environment map or Russian roulette.
+// (ops/shade.py shade_entry): no NEE, march, transmission, textures,
+// environment map or Russian roulette, and at least one bounce.
 //
 // What bounds it on the H100: device memory. A lane reads 23 rows of its
 // winner, 17 float and 6 int64 state rows and its mask, and writes 23

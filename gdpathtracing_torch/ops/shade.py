@@ -21,11 +21,9 @@ Each wrapper
 - on a CPU tensor runs its plain version, regen's torch body on the same
   inputs (:func:`regen_shade_plain`, :func:`regen_shade_lite_plain`).
 
-Scope (:func:`shade_kernel_supported`): a scene on the card without
-transmission, textures or an environment map, no NEE, no march and no
-Russian roulette. Regen takes :func:`regen_shade_lite` where kernel 3
-traces (ops/intersect.py ``_sc_lite_fits``), :func:`regen_shade` where
-the traversal returns winner rows; BRUTE and UNIT return neither.
+Regen picks the entry once a frame, the same on the CPU and the card
+(:func:`shade_entry`): no NEE, march, transmission, textures, environment
+map or Russian roulette, and at least one bounce.
 """
 
 from __future__ import annotations
@@ -36,29 +34,31 @@ from gdpathtracing_torch.config import RenderConfig
 from gdpathtracing_torch.core.vec import Vec3
 from gdpathtracing_torch.ops.intersect import (LITE_R, OUT_R, TracePrep,
                                                _hit_from_rows, _launch,
-                                               lite_epilogue)
+                                               _sc_lite_fits, lite_epilogue)
 from gdpathtracing_torch.ops.megakernel import sky_constants
 from gdpathtracing_torch.render.shading import material_table
 from gdpathtracing_torch.render.types import Ray
 from gdpathtracing_torch.scene.scene import Scene
 
-_NF, _NI = 17, 6  # render/regen.py's float and int64 lane rows (no march)
+NF, NI = 17, 6  # render/regen.py's float and int64 lane rows (no march)
 
 
 def _kernel_takes(scene: Scene, config: RenderConfig) -> bool:
-    """No transmission, textures, environment map or Russian roulette."""
+    """No transmission, textures, environment map or Russian roulette,
+    and at least one bounce."""
     return (not (scene.has_transmission or scene.has_textures
                  or scene.has_mr_textures or scene.has_env)
-            and config.rr_start == 0)
+            and config.rr_start == 0 and config.bounces >= 1)
 
 
-def shade_kernel_supported(scene: Scene, config: RenderConfig, march: bool,
-                           use_nee: bool) -> bool:
-    """Whether regen shades in a kernel (:func:`regen_shade`, or
-    :func:`regen_shade_lite` where kernel 3 traces): a scene on the card
-    that needs none of what the kernels leave out."""
-    return (scene.device.type == "cuda" and not march and not use_nee
-            and _kernel_takes(scene, config))
+def shade_entry(scene: Scene, config: RenderConfig, prep: TracePrep | None,
+                march: bool, use_nee: bool) -> str | None:
+    """Regen's shading path for a frame: ``"lite"`` (:func:`regen_shade_lite`)
+    where kernel 3 traces, ``"rows"`` (:func:`regen_shade`) for any other
+    PALLAS ``prep``, else None (regen's torch body)."""
+    if prep is None or march or use_nee or not _kernel_takes(scene, config):
+        return None
+    return "lite" if _sc_lite_fits(prep) else "rows"
 
 
 def regen_shade_plain(scene: Scene, rows, fs, ints, active,
@@ -76,7 +76,7 @@ def regen_shade(scene: Scene, rows: torch.Tensor, fs: torch.Tensor,
                 config: RenderConfig):
     """Shade one regen iteration of ``n`` lanes: the (48, n) winner
     ``rows`` of their segments (ops/intersect.py layout), the lane stacks
-    ``fs`` (17, n) f32 and ``ints`` (6, n) int64 (render/regen.py layout;
+    ``fs`` (NF, n) f32 and ``ints`` (NI, n) int64 (render/regen.py layout;
     each may be the first n columns of a wider stack) and the (n,) bool
     ``active``. Returns (fs, ints, alive, dead_now, counts): the new
     stacks, (n,) bool masks of the lanes that go on and of those that
@@ -174,7 +174,7 @@ def _check(scene: Scene, config: RenderConfig, active, hit, fs,
     ``hit`` operand (name, tensor, rows) and the lane stacks are (rows, n)
     with unit column stride on its device: the hit and ``fs`` float32,
     ``ints`` int64."""
-    if not _kernel_takes(scene, config) or config.bounces < 1:
+    if not _kernel_takes(scene, config):
         raise ValueError("regen's shading kernels take no transmission, "
                          "textures, environment map or Russian roulette, "
                          "and at least one bounce")
@@ -184,8 +184,8 @@ def _check(scene: Scene, config: RenderConfig, active, hit, fs,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     for name, x, r, dtype in ((*hit, torch.float32),
-                              ("fs", fs, _NF, torch.float32),
-                              ("ints", ints, _NI, torch.int64)):
+                              ("fs", fs, NF, torch.float32),
+                              ("ints", ints, NI, torch.int64)):
         if x.dim() != 2 or x.shape != (r, n) or x.dtype != dtype \
                 or x.stride(1) != 1 or x.device != dev:
             raise ValueError(f"{name} must be ({r}, {n}) {dtype} with unit "
@@ -195,11 +195,11 @@ def _check(scene: Scene, config: RenderConfig, active, hit, fs,
 
 
 def _outputs(active):
-    """Fresh (17, n) f32 and (6, n) int64 stacks, the two (n,) masks and
+    """Fresh (NF, n) f32 and (NI, n) int64 stacks, the two (n,) masks and
     the (2,) int32 counts, on ``active``'s device."""
     n, dev = active.shape[0], active.device
-    return (torch.empty((_NF, n), dtype=torch.float32, device=dev),
-            torch.empty((_NI, n), dtype=torch.int64, device=dev),
+    return (torch.empty((NF, n), dtype=torch.float32, device=dev),
+            torch.empty((NI, n), dtype=torch.int64, device=dev),
             torch.empty(n, dtype=torch.bool, device=dev),
             torch.empty(n, dtype=torch.bool, device=dev),
             torch.empty(2, dtype=torch.int32, device=dev))

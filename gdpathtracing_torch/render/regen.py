@@ -34,14 +34,13 @@ smaller wavefront (the drain), and the log is indexed by path id at the
 end.
 
 An iteration's shading (emission or sky, the first-hit AOVs, the BRDF
-sample and the next ray, the alive and dead masks and their counts) is
-one kernel launch on the card where
-:func:`ops.shade.shade_kernel_supported` takes the scene and config: on
-kernel 3's raw winners (:func:`ops.intersect.sc_lite_winners`, no
-``lite_epilogue``) :func:`ops.shade.regen_shade_lite`, on a traversal's
-winner rows :func:`ops.shade.regen_shade`; everywhere else it is the
-torch body, :func:`_shade_torch`, of which each kernel is bit for bit a
-copy.
+sample and the next ray, the alive and dead masks and their counts) takes
+the path :func:`ops.shade.shade_entry` picks once a frame: on kernel 3's
+raw winners (:func:`ops.intersect.sc_lite_winners`, no ``lite_epilogue``)
+:func:`ops.shade.regen_shade_lite`, on kernels 1 and 6's winner rows
+:func:`ops.shade.regen_shade`, each one kernel launch on the card and its
+plain version on the CPU; everywhere else the torch body,
+:func:`_shade_torch`, of which each kernel is bit for bit a copy.
 
 ``lax.while_loop`` becomes a host loop: each iteration reads the two counts
 the log append and the loop condition need with one small ``.tolist()``.
@@ -77,7 +76,7 @@ from gdpathtracing_torch.config import RenderConfig, Traversal
 from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
-                                               _sc_lite_fits, lite_epilogue,
+                                               lite_epilogue,
                                                march_block_queue,
                                                march_next_candidates,
                                                march_supported, march_sweep,
@@ -85,9 +84,9 @@ from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
                                                prepare_trace_inputs,
                                                sc_lite_winners,
                                                trace_occlude_pallas)
-from gdpathtracing_torch.ops.shade import (lite_tables, regen_shade,
-                                           regen_shade_lite,
-                                           shade_kernel_supported)
+from gdpathtracing_torch.ops.shade import (NF, NI, lite_tables,
+                                           regen_shade, regen_shade_lite,
+                                           shade_entry)
 from gdpathtracing_torch.render.camera import Camera
 from gdpathtracing_torch.render.integrator import (check_supported,
                                                    continue_path,
@@ -112,7 +111,6 @@ _MT, _BT = 17, 18                       # the march's (m_t, b_t)
 # ... and of the int64 lane stack.
 _SEED, _PID, _BOUNCE, _STEPS, _SEGS = 0, 2, 3, 4, 5
 _MSC, _BE = 6, 7                        # the march's (m_sc, b_e)
-_NF, _NI = 17, 6                        # lane rows of both (no march)
 # ... and of the fused NEE's posted queries, carried after the lane rows
 # through the permutation: float rows [shadow o3 d3 tmax direct3], int64
 # row [query posted].
@@ -254,10 +252,9 @@ def _shade_torch(scene: Scene, config: RenderConfig, hit, fs, ints, active,
                  *, shade=None, tsteps=None, rad: Vec3 | None = None,
                  march_rows=None, prep: TracePrep | None = None, table=None):
     """One regen iteration's shading in PyTorch, for every configuration
-    (where :func:`ops.shade.shade_kernel_supported` or the traversal's
-    missing winner rows decline the kernel; also the kernel's plain
-    version): the segment ``hit`` of the lanes of the (17, n) ``fs`` and
-    (6, n) ``ints`` stacks, of which ``shade`` (default ``active``)
+    (where :func:`ops.shade.shade_entry` declines the kernels; also their
+    plain versions): the segment ``hit`` of the lanes of the (17, n)
+    ``fs`` and (6, n) ``ints`` stacks, of which ``shade`` (default ``active``)
     resolved it with ``tsteps`` triangle tests (default ``hit.steps``).
     ``rad`` replaces the stack's radiance (fused NEE folds its direct terms
     in first); the march passes its (m_t, b_t, m_sc, b_e) after the sweep
@@ -402,11 +399,10 @@ def render_radiance_regen(scene: Scene, camera: Camera,
         nw = min(config.regen_wavefront, -(-n_paths // BN) * BN)
         frame_index = int(frame_index)
         use_nee = config.nee and scene.n_lights > 0
-        kernel = shade_kernel_supported(scene, config, march, use_nee)
+        entry = shade_entry(scene, config, prep, march, use_nee)
         # Kernel 3's winners go to the shading kernel as they are, with
         # the tables it gathers from.
-        lite = kernel and prep is not None and _sc_lite_fits(prep)
-        tables = lite_tables(scene) if lite else None
+        tables = lite_tables(scene) if entry == "lite" else None
         compact = config.compact_rays is not False
         use_log = config.regen_retire == "log" and compact
         sort_lanes = sorts_lanes(config)
@@ -566,7 +562,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                                               Vec3(*pend_f[_P_D:_P_D + 3])),
                         pend_f[_P_TMAX], p_sh, prep)
                     shade, tsteps = active, hit.steps
-                elif lite:
+                elif entry == "lite":
                     winners, hit = sc_lite_winners(r, active, prep), None
                 else:
                     hit = trace(scene, r, active, prep)
@@ -601,11 +597,11 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     it_alive[it] = active.sum()
                     if hit is not None and hit.rows is not None:
                         it_sweeps[:, it] = hit.rows[46:48, ::BN].sum(dim=1)
-                if lite:
+                if entry == "lite":
                     fs, ints, alive, dead_now, counts = regen_shade_lite(
                         scene, prep, winners, fs, ints, active, config,
                         tables)
-                elif kernel and hit.rows is not None:
+                elif entry == "rows":
                     fs, ints, alive, dead_now, counts = regen_shade(
                         scene, hit.rows, fs, ints, active, config)
                 else:
@@ -648,9 +644,9 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                     alive = lane < n_alive
                 if fuse:  # the queries, apart from the lanes (views: the
                     #       refill below writes new stacks)
-                    pend_f, p_sh = fs[_NF:], ints[_NI].bool()
+                    pend_f, p_sh = fs[NF:], ints[NI].bool()
                     p_pid = ints[_PID]
-                    fs, ints = fs[:_NF], ints[:_NI]
+                    fs, ints = fs[:NF], ints[:NI]
                     n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
                 if use_log:  # the freshly dead block, appended in one copy
                     last_log = retired

@@ -1844,7 +1844,7 @@ def test_regen_shade_kernel_matches_torch(case):
 def test_regen_shade_frame_matches_torch(retire, monkeypatch):
     """A 320x180 demo frame through regen with 16384 lanes (two drain
     stages) shades in the kernel, one launch an iteration, and equals bit
-    for bit the frame with the gate off (the torch body)."""
+    for bit the frame with every iteration in the torch body."""
     from gdpathtracing_torch.ops import shade
     from gdpathtracing_torch.render import regen
     if not torch.cuda.is_available():
@@ -1853,14 +1853,15 @@ def test_regen_shade_frame_matches_torch(retire, monkeypatch):
     cam = demo_camera(320, 180)
     cfg = RenderConfig(traversal=Traversal.PALLAS, regen_wavefront=16384,
                        regen_retire=retire)
-    assert shade.shade_kernel_supported(scene, cfg, False, False)
+    assert shade.shade_entry(scene, cfg, ti.prepare_trace_inputs(scene),
+                             False, False) == "rows"
     before = shade.regen_shade.launches
     regen.render_radiance_regen.iterations = 0
     got = render_radiance(scene, cam, cfg, 3)
     torch.cuda.synchronize()
     iters = regen.render_radiance_regen.iterations
     assert shade.regen_shade.launches - before == iters > 5
-    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: False)
+    monkeypatch.setattr(regen, "shade_entry", lambda *a: None)
     want = render_radiance(scene, cam, cfg, 3)
     assert shade.regen_shade.launches - before == iters
     for k in ("radiance", "depth", "normal", "steps", "segments"):
@@ -1904,6 +1905,39 @@ def test_regen_shade_launch_counts():
     torch.cuda.synchronize()
     assert torch.isfinite(loss) and grads.shape == scene.mat_albedo.shape
     assert shade.regen_shade.launches == before
+
+
+def test_regen_frame_with_no_bounces():
+    """A PALLAS regen frame of the demo with ``bounces=0`` renders on the
+    card as on the CPU: the gate declines it, so every iteration shades in
+    the torch body (the kernels refuse zero bounces), no shading kernel
+    launches, every path traces one segment, and the frame agrees with
+    the CPU's within the image tolerance (the card's sqrt and division
+    round differently)."""
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import regen
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    cam = demo_camera(320, 180)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=0,
+                       regen_wavefront=16384)
+    before = (shade.regen_shade.launches, shade.regen_shade_lite.launches,
+              regen._shade_torch.iterations)
+    regen.render_radiance_regen.iterations = 0
+    got = render_radiance(scene, cam, cfg, 3)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations
+    after = (shade.regen_shade.launches, shade.regen_shade_lite.launches,
+             regen._shade_torch.iterations)
+    assert iters > 1
+    assert [a - b for a, b in zip(after, before)] == [0, 0, iters]
+    assert got.radiance.device.type == "cuda"
+    assert bool(torch.isfinite(got.radiance).all())
+    assert bool((got.segments == 1).all())
+    want = render_radiance(scene.to("cpu"), cam, cfg, 3)
+    ok = (torch.abs(got.radiance.cpu() - want.radiance) <= 1e-4).all(dim=-1)
+    assert ok.float().mean() >= 0.99
 
 
 @pytest.mark.parametrize("where", ["demo", "grid"])
@@ -2027,8 +2061,8 @@ def test_regen_shade_lite_kernel_matches_torch(case):
 def test_regen_shade_lite_frame_matches_torch(retire, monkeypatch):
     """A 320x180 frame of the mid grid through regen with 16384 lanes (two
     drain stages) shades in ``regen_shade_lite``, one launch an
-    iteration, and equals bit for bit the frame with the gate off
-    (kernel 3, ``lite_epilogue`` and the torch body)."""
+    iteration, and equals bit for bit the frame with every iteration in
+    the torch body (kernel 3, ``lite_epilogue`` and the torch body)."""
     from gdpathtracing_torch.ops import shade
     from gdpathtracing_torch.render import regen
     from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
@@ -2038,7 +2072,8 @@ def test_regen_shade_lite_frame_matches_torch(retire, monkeypatch):
     cam = grid_camera(320, 180, n=4)
     cfg = RenderConfig(traversal=Traversal.PALLAS, regen_wavefront=16384,
                        regen_retire=retire)
-    assert shade.shade_kernel_supported(scene, cfg, False, False)
+    assert shade.shade_entry(scene, cfg, ti.prepare_trace_inputs(scene),
+                             False, False) == "lite"
     before, rows0 = shade.regen_shade_lite.launches, shade.regen_shade.launches
     regen.render_radiance_regen.iterations = 0
     got = render_radiance(scene, cam, cfg, 3)
@@ -2046,7 +2081,7 @@ def test_regen_shade_lite_frame_matches_torch(retire, monkeypatch):
     iters = regen.render_radiance_regen.iterations
     assert shade.regen_shade_lite.launches - before == iters > 5
     assert shade.regen_shade.launches == rows0
-    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: False)
+    monkeypatch.setattr(regen, "shade_entry", lambda *a: None)
     want = render_radiance(scene, cam, cfg, 3)
     assert shade.regen_shade_lite.launches - before == iters
     for k in ("radiance", "depth", "normal", "steps", "segments"):

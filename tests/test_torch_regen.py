@@ -152,24 +152,28 @@ def test_regen_sweep_stats_are_the_rows_counters(scene, monkeypatch, where):
     block swept, row 47 0), on the mid grid through kernel 6 (``_SC_LITE``
     off: row 46 the superchunks each block entered, row 47 the chunks it
     swept, at least one a superchunk entered) and through kernel 3, whose
-    lite epilogue returns no rows (every sweep slot 0)."""
+    raw winners regen hands to its shading (recorded around
+    ``sc_lite_winners``) carry no rows (every sweep slot 0)."""
     if where == "flat":
         pscene, cam = scene, demo_camera(160, 128)
     else:
         pscene, cam = _mid_grid()
         monkeypatch.setattr(ti, "_SC_LITE", where == "lite")
     calls = []
-    trace = integrator.trace_pallas
+    # (module, traversal, the position of its active mask)
+    src, name, at = ((regen, "sc_lite_winners", 1) if where == "lite"
+                     else (integrator, "trace_pallas", 2))
+    trace = getattr(src, name)
 
     def recording(*a):
         hit = trace(*a)
-        rows = hit.rows
-        calls.append((int(a[2].sum()),) + ((0.0, 0.0) if rows is None else
-                                           tuple(rows[46:48, ::ti.BN].sum(
-                                               dim=1).tolist())))
+        rows = None if where == "lite" else hit.rows
+        calls.append((int(a[at].sum()),) + ((0.0, 0.0) if rows is None else
+                                            tuple(rows[46:48, ::ti.BN].sum(
+                                                dim=1).tolist())))
         return hit
 
-    monkeypatch.setattr(integrator, "trace_pallas", recording)
+    monkeypatch.setattr(src, name, recording)
     _, stats = render_radiance_regen(pscene, cam,
                                      BASE.replace(regen_wavefront=256), 1,
                                      return_stats=True)

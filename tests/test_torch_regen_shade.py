@@ -1,9 +1,9 @@
 """Regen's shading kernel (ops/shade.py, csrc/regen_shade.cu) on the CPU:
-the gate that picks it over the torch body, the two wrappers' refusals
-(``regen_shade`` on winner rows, ``regen_shade_lite`` on kernel 3's
-winners), their plain versions, and regen's call site driven through them
-and its choice between them. The kernels themselves run only on the card
-(tests/test_torch_cuda.py)."""
+the entry regen picks once a frame (``shade_entry``), the two wrappers'
+refusals (``regen_shade`` on winner rows, ``regen_shade_lite`` on kernel
+3's winners), their plain versions, and regen's call site driven through
+them and its choice between them, which the CPU makes as the card does.
+The kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 
 from __future__ import annotations
 
@@ -60,39 +60,40 @@ def scenes():
         "env": _sphere_room(Material(albedo=(0.7, 0.6, 0.5)), env=True)}
 
 
-# (scene, config changes, scene reported on the card, the kernel shades)
+# (scene, config changes, the entry that shades: "lite", "rows" or None
+# for the torch body)
 GATE = {
-    "demo": ("demo", {}, True, True),
-    "demo_march_flag": ("demo", {"regen_march": True}, True, True),
-    "sphere": ("sphere", {}, True, True),
-    "nee": ("demo", {"nee": True}, True, False),
-    "fused_nee": ("demo", {"nee": True, "regen_fuse_nee": True}, True,
-                  False),
-    "march": ("mid", {"regen_march": True}, True, False),
-    "glass": ("glass", {}, True, False),
-    "textured": ("textured", {}, True, False),
-    "mr_textured": ("mr_textured", {}, True, False),
-    "env": ("env", {}, True, False),
-    "rr": ("demo", {"rr_start": 2}, True, False),
-    "cpu": ("demo", {}, False, False),
+    "demo": ("demo", {}, "rows"),
+    "demo_march_flag": ("demo", {"regen_march": True}, "rows"),
+    "sphere": ("sphere", {}, "rows"),
+    "nee": ("demo", {"nee": True}, None),
+    "fused_nee": ("demo", {"nee": True, "regen_fuse_nee": True}, None),
+    "march": ("mid", {"regen_march": True}, None),
+    "glass": ("glass", {}, None),
+    "textured": ("textured", {}, None),
+    "mr_textured": ("mr_textured", {}, None),
+    "env": ("env", {}, None),
+    "rr": ("demo", {"rr_start": 2}, None),
+    "no_bounces": ("demo", {"bounces": 0}, None),
+    "cpu": ("mid", {}, "lite"),
 }
 
 
 @pytest.mark.parametrize("case", list(GATE))
-def test_shade_kernel_gate(scenes, case, monkeypatch):
+def test_shade_kernel_gate(scenes, case):
     """The gate, fed as regen feeds it, takes the flat no-NEE, no-RR demo
-    (the march flag is ignored on a flat scene, so it shades there too) and
-    a plain sphere room, and declines NEE, fused NEE, the march, glass,
-    textures, an environment map, Russian roulette and a CPU scene. A scene
-    "on the card" reports a CUDA device; nothing else of it changes."""
-    name, change, on_card, want = GATE[case]
+    (the march flag is ignored on a flat scene, so it shades there too)
+    and a plain sphere room in ``regen_shade``, and the mid grid, which
+    kernel 3 traces, in ``regen_shade_lite``; it declines NEE, fused NEE,
+    the march, glass, textures, an environment map, Russian roulette and
+    zero bounces, which the wrappers refuse. It has no device term: these
+    scenes are on the CPU, where the wrappers run their plain versions."""
+    name, change, want = GATE[case]
     scene, cfg = scenes[name], PALLAS.replace(**change)
-    march = regen.use_march(cfg, ti.prepare_trace_inputs(scene))
+    prep = ti.prepare_trace_inputs(scene)
+    march = regen.use_march(cfg, prep)
     use_nee = cfg.nee and scene.n_lights > 0
-    if on_card:
-        monkeypatch.setattr(Scene, "device",
-                            property(lambda s: torch.device("cuda")))
-    assert shade.shade_kernel_supported(scene, cfg, march, use_nee) is want
+    assert shade.shade_entry(scene, cfg, prep, march, use_nee) == want
 
 
 def _iteration(scene, n=512, seed=0):
@@ -152,22 +153,29 @@ def test_regen_shade_plain_is_the_torch_body(scenes):
     assert 0 < int(alive.sum()) < int(active.sum())
 
 
+def _torch_body_frame(monkeypatch, scene, cam, cfg, frame):
+    """The frame with every regen iteration shaded in the torch body: the
+    reference each shading entry is held to."""
+    with monkeypatch.context() as m:
+        m.setattr(regen, "shade_entry", lambda *a: None)
+        return render_radiance(scene, cam, cfg, frame)
+
+
 @pytest.mark.parametrize("retire", ["log", "scatter"])
 def test_regen_through_the_wrapper_on_the_cpu(scenes, retire, monkeypatch):
-    """Regen's call site with the gate forced on for a CPU scene: every
-    iteration goes through ``regen_shade`` (its plain version here), a
-    drain stage included, and the frame equals the torch body's."""
+    """Regen's call site on a CPU scene: every iteration goes through
+    ``regen_shade`` (its plain version here), a drain stage included, and
+    the frame equals the torch body's."""
     scene, cam = scenes["demo"], tdemo.demo_camera(40, 24)
     cfg = PALLAS.replace(regen_wavefront=512, regen_drain=True,
                          regen_retire=retire)
-    want = render_radiance(scene, cam, cfg, 3)
+    want = _torch_body_frame(monkeypatch, scene, cam, cfg, 3)
     calls, real = [], shade.regen_shade
 
     def counting(scene, rows, fs, ints, active, config):
         calls.append(fs.shape[1])
         return real(scene, rows, fs, ints, active, config)
 
-    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: True)
     monkeypatch.setattr(regen, "regen_shade", counting)
     regen.render_radiance_regen.iterations = 0
     got = render_radiance(scene, cam, cfg, 3)
@@ -276,31 +284,33 @@ def test_regen_shade_lite_refuses(scenes, fault):
                                tables)
 
 
-# (scene, gate, kernel 3's envelope as regen sees it, the entry that shades:
-# "lite", "rows" or None for the torch body)
+# (scene, config changes, kernel 3 on, the entry that shades: "lite",
+# "rows" or None for the torch body)
 DISPATCH = {
-    "grid": ("mid", True, True, "lite"),
-    "grid_gate_off": ("mid", False, True, None),
-    "grid_not_fitting": ("mid", True, False, None),
-    "demo": ("demo", True, False, "rows"),
+    "grid": ("mid", {}, True, "lite"),
+    "grid_gate_off": ("mid", {"rr_start": 2}, True, None),
+    "grid_not_fitting": ("mid", {}, False, "rows"),
+    "demo": ("demo", {}, True, "rows"),
+    "demo_no_bounces": ("demo", {"bounces": 0}, True, None),
 }
 
 
 @pytest.mark.parametrize("case", list(DISPATCH))
 def test_regen_picks_the_lite_entry(scenes, case, monkeypatch):
-    """Regen shades in ``regen_shade_lite`` only where the gate takes the
-    scene and kernel 3 traces it (``_sc_lite_fits``), once an iteration;
-    on the flat demo the gate picks ``regen_shade``; with either declined
-    the grid shades in the torch body (where regen's own view of the
-    envelope is declined, ``trace_pallas`` still walks kernel 3 and its
-    epilogue). Every frame equals the torch body's (the plain versions
-    here)."""
-    name, gate, fits, entry = DISPATCH[case]
+    """Regen shades in ``regen_shade_lite`` where kernel 3 traces (the mid
+    grid), once an iteration; in ``regen_shade`` on the winner rows of
+    kernel 1 (the flat demo) and of kernel 6 (the mid grid with
+    ``_SC_LITE`` off); in the torch body where the gate declines (Russian
+    roulette, zero bounces). Every frame equals the torch body's (the
+    plain versions here). At zero bounces every path traces one segment
+    and ends."""
+    name, change, lite_on, entry = DISPATCH[case]
     scene = scenes[name]
     cam = (tdemo.demo_camera(24, 16) if name == "demo"
            else tdemo.grid_camera(24, 16, n=4))
-    cfg = PALLAS.replace(regen_wavefront=256)
-    want = render_radiance(scene, cam, cfg, 2)
+    cfg = PALLAS.replace(regen_wavefront=256, **change)
+    monkeypatch.setattr(ti, "_SC_LITE", lite_on)
+    want = _torch_body_frame(monkeypatch, scene, cam, cfg, 2)
     calls = {"lite": 0, "rows": 0}
 
     def counting(kind, real):
@@ -309,9 +319,6 @@ def test_regen_picks_the_lite_entry(scenes, case, monkeypatch):
             return real(*args)
         return wrapper
 
-    monkeypatch.setattr(regen, "shade_kernel_supported", lambda *a: gate)
-    if not fits:
-        monkeypatch.setattr(regen, "_sc_lite_fits", lambda prep: False)
     monkeypatch.setattr(regen, "regen_shade_lite",
                         counting("lite", shade.regen_shade_lite))
     monkeypatch.setattr(regen, "regen_shade",
@@ -320,7 +327,10 @@ def test_regen_picks_the_lite_entry(scenes, case, monkeypatch):
     torch0 = regen._shade_torch.iterations
     got = render_radiance(scene, cam, cfg, 2)
     iters = regen.render_radiance_regen.iterations
-    assert iters > 2
+    if cfg.bounces == 0:  # one segment a path: 384 paths, 256 lanes
+        assert iters == 2 and bool((got.segments == 1).all())
+    else:
+        assert iters > 2
     assert calls == {k: iters if k == entry else 0 for k in calls}
     assert regen._shade_torch.iterations - torch0 == \
         (iters if entry is None else 0)

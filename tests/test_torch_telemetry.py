@@ -147,7 +147,10 @@ def test_timeline_changes_nothing(scene, what):
 
 # The callers of ops/intersect.py lite_epilogue on the mid grid: the lite
 # dispatch of trace_pallas (regen, the standard loop) and regen's march.
-GRID_LOOPS = {"regen": PALLAS, "standard": PALLAS.replace(regen=False),
+# Regen with NEE: its grid iterations trace through trace_pallas and its
+# epilogue (without NEE, regen_shade_lite takes kernel 3's raw winners).
+GRID_LOOPS = {"regen": PALLAS.replace(nee=True),
+              "standard": PALLAS.replace(regen=False),
               "march": PALLAS.replace(regen_march=True)}
 
 
@@ -176,18 +179,22 @@ def test_trace_epilogue_pauses_path_trace(mid_grid, loop):
 @pytest.mark.parametrize("where", ["demo", "grid"])
 def test_torch_shade_counter_follows_regen_iterations(scene, mid_grid,
                                                       where):
-    """Without a card every regen iteration shades in the torch body, on
-    a flat scene and on a superchunk one alike."""
+    """With NEE every regen iteration shades in the torch body; without
+    it every iteration shades in a kernel's entry (its plain version here,
+    as on the card the kernel), so the counter stays put, on a flat scene
+    and on a superchunk one alike."""
     from gdpathtracing_torch.render import regen
 
     sc, cam = (scene, demo_camera(8, 8)) if where == "demo" \
         else (mid_grid, grid_camera(8, 8, n=4))
-    eng = Engine(sc, PALLAS)
-    before = regen._shade_torch.iterations, \
-        regen.render_radiance_regen.iterations
-    eng.step(cam)
-    rise = regen.render_radiance_regen.iterations - before[1]
-    assert rise > 0 and regen._shade_torch.iterations - before[0] == rise
+    for cfg, follows in ((PALLAS.replace(nee=True), True), (PALLAS, False)):
+        before = regen._shade_torch.iterations, \
+            regen.render_radiance_regen.iterations
+        Engine(sc, cfg).step(cam)
+        rise = regen.render_radiance_regen.iterations - before[1]
+        assert rise > 0
+        assert regen._shade_torch.iterations - before[0] == \
+            (rise if follows else 0)
 
 
 @pytest.mark.parametrize("metric", ["epilogue_ms.frame",

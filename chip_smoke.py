@@ -5,9 +5,9 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the thirteen CUDA kernels (the eleven TPU kernels', the BVH
-   traversal's and regen's shading) from the twelve sources in csrc/ with
-   nvcc, in parallel,
+1. builds the fifteen CUDA kernels (the eleven TPU kernels', the BVH
+   traversal's, regen's shading and regen's two lane kernels) from the
+   thirteen sources in csrc/ with nvcc, in parallel,
    and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
@@ -73,12 +73,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      memory), and axis-aligned rays on box planes (NaN in the slab test),
      its bound from the plain version's counts of pops, box tests,
      object-space rays and triangle tests;
+   - regen's lane kernels (csrc/regen_lanes.cu, no TPU kernel: the sort
+     key, then the permute, log append and refill around the stable sort)
+     on one iteration's lanes of the 1080p wavefront, on the demo and the
+     bench grid, against their plain versions (regen's torch glue), timed
+     with CUDA events in turns with that glue (glue, kernels, kernels,
+     glue), the sort between them alone, beside their bytes bound;
 3. drives kernels 8 and 9 through their own entry points
    (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
    demo frame's camera rays, one launch a tile each, against kernel 1's
    winners; then renders 1920x1080 frames (1 spp, 5 bounces) through
    render_radiance for each main path, with the launch count of each of
-   the fourteen entry points (the thirteen kernels', regen's shading with
+   the sixteen entry points (the fifteen kernels', regen's shading with
    two) and the regen iteration count set to 0 just before each frame and
    read just after: on the demo scene the standard loop (regen=False), the default
    regen loop, regen with NEE and the standard loop with NEE; on the grid
@@ -105,7 +111,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the march runs, kernel 6 where it is ignored; regen's shading once an
    iteration where a kernel shades, regen_shade_lite on the grid's and
    the mid grid's regen, regen_shade on the demo's and the n=14 grid's
-   regen and in the Engine steps, and never elsewhere; 40 of kernel 10
+   regen and in the Engine steps, and never elsewhere; regen's two lane
+   kernels once an iteration where regen sorts its lanes by the Morton key
+   without the march, and never elsewhere; 40 of kernel 10
    and 8 of kernel 11 a frame, and none of kernels 1-7 there; 40 or 80 of
    the BVH kernel), and prints ms/frame,
    Msegments/s and the regen iterations. Then it
@@ -336,6 +344,28 @@ def bit_mismatch(got, want, torch):
     differ = (fa.view(torch.int32) != fb.view(torch.int32)).any(dim=0) \
         | (ia.reshape(-1, n) != ib.reshape(-1, n)).any(dim=0)
     return int(differ.sum()), float((fa - fb).abs().max())
+
+
+def lane_state(scene, nw: int, seed: int, torch):
+    """One regen iteration's lane state after the shading, on the card:
+    origins inside the scene's box, random directions, 60% of the lanes
+    alive, 15% ended now, random throughput, radiance, AOVs, PCG2D words,
+    path ids, bounces, steps and segments (tests/test_torch_cuda.py's)."""
+    import numpy as np
+    g = np.random.default_rng(seed)
+    cb = scene.isect_chunk_bounds.cpu().numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    o = g.uniform(lo, hi, (nw, 3)).T
+    d = g.normal(size=(3, nw))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    fs = np.concatenate([o, d, g.uniform(0.0, 2.0, (11, nw))])
+    ints = np.stack([g.integers(0, 1 << 32, nw), g.integers(0, 1 << 32, nw),
+                     g.permutation(nw), g.integers(0, 5, nw),
+                     g.integers(0, 1 << 20, nw), g.integers(0, 5, nw)])
+    u = g.uniform(size=nw)
+    return (torch.from_numpy(fs.astype(np.float32)).cuda(),
+            torch.from_numpy(ints).cuda(), torch.from_numpy(u < 0.6).cuda(),
+            torch.from_numpy((u >= 0.6) & (u < 0.75)).cuda())
 
 
 def compare_frames(a, b, what: str, seg_share: float = 1.0):
@@ -619,9 +649,10 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
     nee = cfg.replace(nee=True)
 
     def nee_launches(lab, iters):
-        if lab == "fused":
+        if lab == "fused":  # the torch glue carries the pending queries
             return {"closest_hit_rows_nee": iters}
-        return {"closest_hit_rows": iters, "occluded": iters}
+        return {"closest_hit_rows": iters, "occluded": iters,
+                "regen_lane_key": iters, "regen_lane_refill": iters}
 
     for what, pscene in (("demo, regen + NEE", scene),
                          ("glass, regen + NEE", glass)):
@@ -656,7 +687,9 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
             ("default key", cfg), ("chunk key",
                                    cfg.replace(regen_sort_key="chunk"))],
             lambda lab, iters, trace=trace, shading=shading: {
-                trace: iters, shading: iters})
+                trace: iters, shading: iters,
+                **({} if lab == "chunk key" else {
+                    "regen_lane_key": iters, "regen_lane_refill": iters})})
         for r, (a, b) in enumerate(zip(frames["chunk key"],
                                        frames["default key"])):
             check(equal_frames(a, b), f"{what}, frame {r}: the chunk key's "
@@ -753,7 +786,8 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
         check(lscene.device.type == "cuda", f"{what}: not on the card")
         aovs, got, iters, s = counted(
             lambda: render_radiance(lscene, lcam, cfg, 1))
-        want = {"closest_hit_rows": iters}
+        want = {"closest_hit_rows": iters, "regen_lane_key": iters,
+                "regen_lane_refill": iters}
         if not lscene.has_textures:  # the JSON scene's texture: torch body
             want["regen_shade"] = iters
         check(nonzero(got) == want, f"{what}: launches {nonzero(got)}, "
@@ -896,6 +930,7 @@ def main() -> None:
                                           replace_instance_transforms)
     from gdpathtracing_torch.ops import fused as fu
     from gdpathtracing_torch.ops import intersect as ti
+    from gdpathtracing_torch.ops import lanes
     from gdpathtracing_torch.ops import megakernel as mk
     from gdpathtracing_torch.ops import shade
     from gdpathtracing_torch.ops import tiles as kt
@@ -1559,6 +1594,80 @@ def main() -> None:
                 + counts["blas"] * OPS_PER_OBJ_RAY
                 + 2 * counts["inner"] * (OPS_PER_AABB - OPS_PER_SLAB)))
 
+    # Regen's lane kernels (csrc/regen_lanes.cu, no TPU kernel) on one
+    # iteration's lanes of the 1080p wavefront, on the demo and the bench
+    # grid, with a refill that finds a path for every dead lane: bit for bit
+    # against their plain versions (regen's torch glue), then timed in
+    # turns with that glue (glue, kernels, kernels, glue), the stable sort
+    # between them timed alone; bound: their bytes.
+    from gdpathtracing_torch.render.integrator import morton_frame
+    for label, lscene, lcam in (("demo", scene, cam),
+                                ("grid", grid, grid_cam)):
+        nw = cfg.regen_wavefront
+        fs, ints, alive, dead_now = lane_state(lscene, nw, 13, torch)
+        lo, span = morton_frame(lscene)
+        sp = lanes.lane_spawn(lcam.to(dev), cfg, 7)
+        n_alive, n_fresh = int(alive.sum()), int(dead_now.sum())
+        logs = [(torch.zeros((7, W * H + nw), device=dev),
+                 torch.zeros((3, W * H + nw), dtype=torch.int64, device=dev))
+                for _ in range(2)]
+        counts = (n_alive, n_fresh, W * H // 2, 1000)
+        key = lanes.regen_lane_key(fs, alive, dead_now, lo, span)
+        perm = torch.argsort(key, stable=True)
+        got = lanes.regen_lane_refill(perm, fs, ints, *logs[0], *counts, sp)
+        torch.cuda.synchronize()
+        want_key = lanes.regen_lane_key_plain(fs, alive, dead_now, lo, span)
+        want = lanes.regen_lane_refill_plain(perm, fs, ints, *logs[1],
+                                             *counts, sp)
+        differ, err = bit_mismatch(got[:2], want[:2], torch)
+        same = (torch.equal(key, want_key) and differ == 0
+                and torch.equal(got[2], want[2])
+                and torch.equal(logs[0][0].view(torch.int32),
+                                logs[1][0].view(torch.int32))
+                and torch.equal(logs[0][1], logs[1][1]))
+        log(f"regen lanes, {label} ({nw} lanes, {n_alive} alive, {n_fresh} "
+            f"ended now, all refilled): key, stacks, mask and log "
+            f"{'bit-equal' if same else 'DIFFER'} (lanes differing "
+            f"{differ}, max |diff| {err:.3g})")
+        check(same, f"regen lanes, {label}: the kernels differ from the "
+              f"torch glue")
+        a = (fs, alive, dead_now, lo, span)
+        b = (fs, ints, *logs[0], *counts, sp)
+
+        def glue():
+            lanes.regen_lane_refill_plain(torch.argsort(
+                lanes.regen_lane_key_plain(*a), stable=True), *b)
+
+        def kernels_():
+            lanes.regen_lane_refill(torch.argsort(
+                lanes.regen_lane_key(*a), stable=True), *b)
+
+        turns = [("glue", glue), ("kernels", kernels_), ("kernels", kernels_),
+                 ("glue", glue)]
+        ms = {"glue": [], "kernels": []}
+        for what, fn in turns:
+            ms[what].append(cuda_ms(fn, KERNEL_ITERS, torch))
+        k_ms = cuda_ms(lambda: lanes.regen_lane_key(*a), KERNEL_ITERS, torch)
+        s_ms = cuda_ms(lambda: torch.argsort(key, stable=True), KERNEL_ITERS,
+                       torch)
+        r_ms = cuda_ms(lambda: lanes.regen_lane_refill(perm, *b),
+                       KERNEL_ITERS, torch)
+        # key: 6 f32 rows and 2 masks read, the int32 key written; refill:
+        # perm, the 17 + 6 rows of each kept lane, the 10 logged rows of
+        # each lane both logged and refilled, read; 17 + 6 rows and the
+        # mask written, the 7 + 3 rows of each logged lane appended.
+        refilled = nw - n_alive
+        k_bytes = nw * (6 * 4 + 2 + 4)
+        r_bytes = (nw * (8 + 116 + 1) + (nw - refilled) * 116
+                   + n_fresh * 52 + n_fresh * 52)
+        log(f"  {label} on {card}: torch glue (key, sort, refill) "
+            + ", ".join(f"{x:.3f}" for x in ms["glue"]) + " ms; kernels "
+            "and sort " + ", ".join(f"{x:.3f}" for x in ms["kernels"])
+            + f" ms (in turns); regen_lane_key {k_ms:.4f} ms, bound "
+            f"{k_bytes / PEAK_BYTES * 1e3:.4f} ms (bytes); stable sort "
+            f"{s_ms:.4f} ms; regen_lane_refill {r_ms:.4f} ms, bound "
+            f"{r_bytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -1574,7 +1683,9 @@ def main() -> None:
                "closest_hit_loop": ti.closest_hit_loop,
                "trace_bvh": trace_bvh,
                "regen_shade": shade.regen_shade,
-               "regen_shade_lite": shade.regen_shade_lite}
+               "regen_shade_lite": shade.regen_shade_lite,
+               "regen_lane_key": lanes.regen_lane_key,
+               "regen_lane_refill": lanes.regen_lane_refill}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
@@ -1802,6 +1913,8 @@ def main() -> None:
             want["occluded"] = iters if nee else 0
             if name in shading:
                 want[shading[name]] = iters
+            if lanes.lanes_entry(pcfg, marching, False):  # the lanes' glue
+                want["regen_lane_key"] = want["regen_lane_refill"] = iters
         elif nee and trace == "closest_hit_rows":  # fused NEE
             want["closest_hit_rows_nee"] = per_tile * pcfg.bounces
             want["occluded"] = per_tile
@@ -1865,6 +1978,7 @@ def main() -> None:
         got = {k: fn.launches for k, fn in kernels.items()}
         want = dict.fromkeys(kernels, 0)
         want["closest_hit_rows"] = want["regen_shade"] = iters
+        want["regen_lane_key"] = want["regen_lane_refill"] = iters
         log(f"{name}: launches {got}, {iters} regen iterations")
         check(iters > 0 and got == want,
               f"{name}: launches {got}, expected {want}")

@@ -66,7 +66,7 @@ class Camera:
     def aspect(self) -> float:
         return self.width / self.height
 
-    def _half_tan(self) -> torch.Tensor:
+    def half_tan(self) -> torch.Tensor:
         """tan of the float32 half-angle, evaluated in float64 and rounded:
         the correctly rounded float32 value on every device."""
         return torch.tan((self.fov_deg * (math.pi / 180.0) * 0.5)
@@ -74,7 +74,7 @@ class Camera:
 
     def projection(self) -> torch.Tensor:
         """(4, 4) GL-style perspective (core/math3d.py ``perspective``)."""
-        f = 1.0 / self._half_tan()
+        f = 1.0 / self.half_tan()
         n, fa = self.near, self.far
         zero, one = torch.zeros_like(f), torch.ones_like(f)
         return torch.stack([
@@ -100,7 +100,7 @@ class Camera:
         """(4, 4) inverse view-projection in closed form (world-from-camera
         times the inverse perspective), which avoids inverting the badly
         conditioned ``vp``."""
-        f = 1.0 / self._half_tan()
+        f = 1.0 / self.half_tan()
         n, fa = self.near, self.far
         a = (fa + n) / (n - fa)
         b = 2.0 * fa * n / (n - fa)
@@ -143,7 +143,7 @@ class Camera:
                           device=px.device)
         sx = (px + 0.5 + jx) / wh[0] * 2.0 - 1.0
         sy = (py + 0.5 + jy) / wh[1] * 2.0 - 1.0
-        half_tan = self._half_tan()
+        half_tan = self.half_tan()
         cx = sx * (half_tan * self.aspect)
         cy = -sy * half_tan
         cz = -torch.ones_like(sx)

@@ -33,6 +33,14 @@ is empty and the live lanes fit, the sorted live prefix moves on at a
 smaller wavefront (the drain), and the log is indexed by path id at the
 end.
 
+After the shading, where :func:`ops.lanes.lanes_entry` picks them once a
+frame (the Morton key, the log, neither the march nor fused NEE), the
+lanes' bookkeeping is two launches around the stable sort: the key
+(:func:`ops.lanes.regen_lane_key`), then the permute, the log append and
+the refill (:func:`ops.lanes.regen_lane_refill`), each on the CPU its
+plain version, bit for bit the torch glue that every other configuration
+runs.
+
 An iteration's shading (emission or sky, the first-hit AOVs, the BRDF
 sample and the next ray, the alive and dead masks and their counts) takes
 the path :func:`ops.shade.shade_entry` picks once a frame: on kernel 3's
@@ -73,7 +81,6 @@ from __future__ import annotations
 import torch
 
 from gdpathtracing_torch.config import RenderConfig, Traversal
-from gdpathtracing_torch.core import rng
 from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
                                                lite_epilogue,
@@ -84,6 +91,9 @@ from gdpathtracing_torch.ops.intersect import (BIG_E, BN, SCC, TracePrep,
                                                prepare_trace_inputs,
                                                sc_lite_winners,
                                                trace_occlude_pallas)
+from gdpathtracing_torch.ops.lanes import (lane_spawn, lanes_entry,
+                                           regen_lane_key, regen_lane_refill,
+                                           sorts_lanes, spawn_paths)
 from gdpathtracing_torch.ops.shade import (NF, NI, lite_tables,
                                            regen_shade, regen_shade_lite,
                                            shade_entry)
@@ -145,16 +155,6 @@ def use_march(config: RenderConfig, prep: TracePrep | None) -> bool:
     is ignored and the frame is the one without it."""
     return config.regen_march is True and prep is not None \
         and march_supported(prep)
-
-
-def sorts_lanes(config: RenderConfig) -> bool:
-    """Whether regen sorts its lanes by a spatial key (the reference's
-    rule): ``sort_rays``, by default on PALLAS only, and only where the
-    lanes are permuted at all (``compact_rays`` not False)."""
-    sort = config.sort_rays
-    if sort is None:
-        sort = config.traversal == Traversal.PALLAS
-    return bool(sort) and config.compact_rays is not False
 
 
 def fuses_nee(scene: Scene, config: RenderConfig,
@@ -414,15 +414,10 @@ def render_radiance_regen(scene: Scene, camera: Camera,
             else build_light_table(scene)
         trace = get_trace_fn(config)
         cell_lo, cell_span = morton_frame(scene)
-
-    def spawn(path_id):
-        """Camera ray and RNG stream of path ``path_id`` (pixel-major
-        within each sample), as the standard renderer spawns it."""
-        pix = path_id % n_pix
-        sample = torch.div(path_id, n_pix, rounding_mode="floor")
-        seed = rng.prng_seed(pix % w, torch.div(pix, w, rounding_mode="floor"),
-                             frame_index * config.spp + sample)
-        return camera.generate_rays(pix, seed, config)
+        # The lanes' key, permute, log append and refill in two kernels
+        # around the sort, or the torch glue.
+        lanes = lanes_entry(config, march, fuse)
+        sp = lane_spawn(camera, config, frame_index)
 
     def lane_sort_key(o: Vec3, d: Vec3, alive, fresh):
         """Morton(origin cell, 8^3) * 8 + octant(direction) for live
@@ -463,7 +458,7 @@ def render_radiance_regen(scene: Scene, camera: Camera,
     # start at (-inf, -1) and (MISS_T, BIG_E).
     with SPANS.path_lanes:
         lane = torch.arange(nw, device=dev)
-        ray0, seed0 = spawn(lane)
+        ray0, seed0 = spawn_paths(sp, lane)
         zero = torch.zeros(nw, dtype=torch.float32, device=dev)
         fs = torch.stack([*ray0.o, *ray0.d, zero + 1.0, zero + 1.0, zero + 1.0,
                           zero, zero, zero, zero - 1.0, zero + camera.far,
@@ -615,64 +610,77 @@ def render_radiance_regen(scene: Scene, camera: Camera,
                 n_alive, n_fresh, *n_posted = counts.tolist()
 
             with SPANS.path_lanes:
-                if not use_log:  # retire finished paths to their slot at once
-                    slot = torch.where(dead_now, ints[_PID], n_paths)
-                    out_f[:, slot] = fs[_LOG_F]
-                    out_i[:, slot] = ints[_STEPS:_SEGS + 1]
-
-                # ---- permute: live | freshly dead | dead before ----
-                if compact:
-                    if sort_lanes and march:
-                        perm = torch.argsort(march_sort_key(
-                            Vec3(*fs[_D:_D + 3]), alive, dead_now, rem_s, ss,
-                            advs), stable=True)
-                    elif sort_lanes:
-                        perm = torch.argsort(lane_sort_key(
-                            Vec3(*fs[_O:_O + 3]), Vec3(*fs[_D:_D + 3]),
-                            alive, dead_now), stable=True)
-                    else:
-                        stale = ~alive & ~dead_now
-                        dest = torch.where(
-                            alive, torch.cumsum(alive, 0),
-                            torch.where(dead_now,
-                                        n_alive + torch.cumsum(dead_now, 0),
-                                        n_alive + n_fresh
-                                        + torch.cumsum(stale, 0))) - 1
-                        perm = torch.empty_like(lane)
-                        perm[dest] = lane
-                    fs, ints = fs[:, perm], ints[:, perm]
-                    alive = lane < n_alive
-                if fuse:  # the queries, apart from the lanes (views: the
-                    #       refill below writes new stacks)
-                    pend_f, p_sh = fs[NF:], ints[NI].bool()
-                    p_pid = ints[_PID]
-                    fs, ints = fs[:NF], ints[:NI]
-                    n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
-                if use_log:  # the freshly dead block, appended in one copy
-                    last_log = retired
-                    fresh = slice(n_alive, n_alive + n_fresh)
-                    log_f[:, retired:retired + n_fresh] = fs[_LOG_F, fresh]
-                    log_i[0, retired:retired + n_fresh] = torch.clamp(
-                        ints[_STEPS, fresh], max=_STEPS_MAX)
-                    log_i[1:, retired:retired + n_fresh] = \
-                        ints[[_SEGS, _PID], fresh]
+                if lanes:
+                    perm = torch.argsort(regen_lane_key(
+                        fs, alive, dead_now, cell_lo, cell_span), stable=True)
+                    fs, ints, active = regen_lane_refill(
+                        perm, fs, ints, log_f, log_i, n_alive, n_fresh,
+                        retired, next_path, sp)
                     retired += n_fresh
+                else:
+                    if not use_log:  # retire finished paths to their slot
+                        #              at once
+                        slot = torch.where(dead_now, ints[_PID], n_paths)
+                        out_f[:, slot] = fs[_LOG_F]
+                        out_i[:, slot] = ints[_STEPS:_SEGS + 1]
 
-                # ---- regenerate: refill dead lanes from the path pool ----
-                dead = ~alive
-                new_id = next_path + torch.cumsum(dead, 0) - 1
-                can = dead & (new_id < n_paths)
-                new_id = torch.clamp(new_id, max=n_paths - 1)
-                ray_new, seed_new = spawn(new_id)
-                fresh_f = torch.cat([torch.stack([*ray_new.o, *ray_new.d]),
-                                     spawn_f[:, :size]])
-                fresh_i = torch.cat([torch.stack([*seed_new, new_id]),
-                                     spawn_i[:, :size]])
-                fs = torch.where(can, fresh_f, fs)
-                ints = torch.where(can, fresh_i, ints)
-                active = alive | can
-                if march:  # the next round's candidates and queues
-                    es, ss, queue = march_candidates(fs, ints, active)
+                    # ---- permute: live | freshly dead | dead before ----
+                    if compact:
+                        if sort_lanes and march:
+                            perm = torch.argsort(march_sort_key(
+                                Vec3(*fs[_D:_D + 3]), alive, dead_now, rem_s,
+                                ss, advs), stable=True)
+                        elif sort_lanes:
+                            perm = torch.argsort(lane_sort_key(
+                                Vec3(*fs[_O:_O + 3]), Vec3(*fs[_D:_D + 3]),
+                                alive, dead_now), stable=True)
+                        else:
+                            stale = ~alive & ~dead_now
+                            dest = torch.where(
+                                alive, torch.cumsum(alive, 0),
+                                torch.where(
+                                    dead_now,
+                                    n_alive + torch.cumsum(dead_now, 0),
+                                    n_alive + n_fresh
+                                    + torch.cumsum(stale, 0))) - 1
+                            perm = torch.empty_like(lane)
+                            perm[dest] = lane
+                        fs, ints = fs[:, perm], ints[:, perm]
+                        alive = lane < n_alive
+                    if fuse:  # the queries, apart from the lanes (views: the
+                        #       refill below writes new stacks)
+                        pend_f, p_sh = fs[NF:], ints[NI].bool()
+                        p_pid = ints[_PID]
+                        fs, ints = fs[:NF], ints[:NI]
+                        n_pend, n_last, dstart = n_posted[0], n_fresh, n_alive
+                    if use_log:  # the freshly dead block, appended in one
+                        #          copy
+                        last_log = retired
+                        fresh = slice(n_alive, n_alive + n_fresh)
+                        log_f[:, retired:retired + n_fresh] = \
+                            fs[_LOG_F, fresh]
+                        log_i[0, retired:retired + n_fresh] = torch.clamp(
+                            ints[_STEPS, fresh], max=_STEPS_MAX)
+                        log_i[1:, retired:retired + n_fresh] = \
+                            ints[[_SEGS, _PID], fresh]
+                        retired += n_fresh
+
+                    # ---- regenerate: refill dead lanes from the pool ----
+                    dead = ~alive
+                    new_id = next_path + torch.cumsum(dead, 0) - 1
+                    can = dead & (new_id < n_paths)
+                    new_id = torch.clamp(new_id, max=n_paths - 1)
+                    ray_new, seed_new = spawn_paths(sp, new_id)
+                    fresh_f = torch.cat([torch.stack([*ray_new.o,
+                                                      *ray_new.d]),
+                                         spawn_f[:, :size]])
+                    fresh_i = torch.cat([torch.stack([*seed_new, new_id]),
+                                         spawn_i[:, :size]])
+                    fs = torch.where(can, fresh_f, fs)
+                    ints = torch.where(can, fresh_i, ints)
+                    active = alive | can
+                    if march:  # the next round's candidates and queues
+                        es, ss, queue = march_candidates(fs, ints, active)
                 nact = n_alive + min(size - n_alive, n_paths - next_path)
                 next_path = min(next_path + size - n_alive, n_paths)
                 iters += 1

@@ -59,7 +59,8 @@ COUNTERS = tuple(
         ("ops.intersect", "closest_hit_loop"),
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
         ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"),
-        ("ops.shade", "regen_shade_lite"))) + (
+        ("ops.shade", "regen_shade_lite"), ("ops.lanes", "regen_lane_key"),
+        ("ops.lanes", "regen_lane_refill"))) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
     "gdpathtracing_torch.render.regen:_shade_torch.iterations")
 

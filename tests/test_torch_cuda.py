@@ -2127,3 +2127,210 @@ def test_regen_shade_entry_launch_counts(where):
     assert it == iters
     assert (lite, rows) == ((iters, 0) if where == "grid" else (0, iters))
     assert torch_it == 0 and epi == 0
+
+
+def _lane_inputs(scene, nw, seed):
+    """One regen iteration's lane state after the shading, on the card:
+    origins inside the scene's box (5% of them outside it, a quarter of
+    those NaN-free far out), random directions, 60% of the lanes alive,
+    15% ended now, the rest dead before; random throughput, radiance,
+    AOVs, PCG2D words, path ids, bounces, steps (some above the log's
+    2^19 - 1) and segments."""
+    g = np.random.default_rng(seed)
+    cb = scene.isect_chunk_bounds.cpu().numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    o = g.uniform(lo, hi, (nw, 3)).T
+    out = g.uniform(size=nw) < 0.05
+    o[:, out] = g.uniform(lo - 50.0, hi + 50.0, (int(out.sum()), 3)).T
+    d = g.normal(size=(3, nw))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    u = g.uniform(size=nw)
+    alive, dead_now = u < 0.6, (u >= 0.6) & (u < 0.75)
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    fs = torch.cat([f32(o), f32(d), f32(g.uniform(0.0, 1.5, (6, nw))),
+                    f32(g.uniform(-1.0, 3.0, (1, nw))),
+                    f32(g.uniform(0.0, 1000.0, (1, nw))),
+                    f32(g.normal(size=(3, nw)))])
+    ints = torch.from_numpy(np.stack(
+        [g.integers(0, 1 << 32, nw), g.integers(0, 1 << 32, nw),
+         g.permutation(nw), g.integers(0, 5, nw),
+         g.integers(0, 1 << 20, nw), g.integers(0, 5, nw)])).cuda()
+    return (fs, ints, torch.from_numpy(alive).cuda(),
+            torch.from_numpy(dead_now).cuda())
+
+
+# (scene, jitter, case, spp, frame index): the demo under every jitter
+# mode; a refill with paths for every dead lane, one that runs out half
+# way, and a drain stage's (the first 5120 lanes of 8192-wide stacks);
+# frame indices whose frame_index * spp passes 2^32.
+LANE_CASES = {
+    "demo_uniform": ("demo", "UNIFORM", "full", 1, 3),
+    "demo_none": ("demo", "NONE", "full", 1, 2 ** 32 - 1),
+    "demo_gauss": ("demo", "GAUSS", "full", 2, 2 ** 31 + 7),
+    "demo_circle": ("demo", "CIRCLE", "full", 1, 12345),
+    "demo_runs_out": ("demo", "UNIFORM", "runs_out", 2, 2 ** 32 - 2),
+    "demo_drain": ("demo", "GAUSS", "drain", 1, 41),
+    "grid_uniform": ("grid", "UNIFORM", "full", 1, 2 ** 32 + 5),
+    "grid_runs_out": ("grid", "UNIFORM", "runs_out", 1, 9),
+    "grid_drain": ("grid", "UNIFORM", "drain", 2, 2 ** 31),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_CASES))
+def test_regen_lanes_kernels_match_plain(case):
+    """``regen_lane_key`` and ``regen_lane_refill`` against their plain
+    versions (regen's torch glue) on the card, on one iteration's lane
+    state of 393216 lanes (the 1080p wavefront) or a drain stage's 5120,
+    with the 1080p demo or bench-grid camera: the key, the permuted and
+    refilled stacks, the active mask and every log column bit for bit,
+    one launch each."""
+    from gdpathtracing_torch.config import Jitter
+    from gdpathtracing_torch.ops import lanes
+    from gdpathtracing_torch.render.integrator import morton_frame
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    where, jitter, kind, spp, frame = LANE_CASES[case]
+    if where == "demo":
+        scene, cam = build_demo_scene(), demo_camera(1920, 1080)
+    else:
+        scene, cam = build_sphere_grid(n=10, sphere_detail=16), \
+            grid_camera(1920, 1080, n=10)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, spp=spp,
+                       jitter=Jitter[jitter])
+    sp = lanes.lane_spawn(cam.to("cuda"), cfg, frame)
+    nw, size = (8192, 5120) if kind == "drain" else (393216, 393216)
+    fs, ints, alive, dead_now = (x[..., :size] for x in
+                                 _lane_inputs(scene, nw, 11))
+    lo, span = morton_frame(scene)
+    k0 = lanes.regen_lane_key.launches
+    key = lanes.regen_lane_key(fs, alive, dead_now, lo, span)
+    torch.cuda.synchronize()
+    assert lanes.regen_lane_key.launches == k0 + 1
+    want_key = lanes.regen_lane_key_plain(fs, alive, dead_now, lo, span)
+    assert key.dtype == want_key.dtype == torch.int32
+    assert torch.equal(key, want_key)
+    assert len(torch.unique(key[alive])) > 64
+    perm = torch.argsort(key, stable=True)
+    # The refill takes the shading's (NF, size) output; a drain stage's
+    # starts from a view of the wider stacks, which the key reads above.
+    fs, ints = fs.contiguous(), ints.contiguous()
+    n_alive, n_fresh = int(alive.sum()), int(dead_now.sum())
+    n_paths = 1920 * 1080 * spp
+    next_path = {"full": 1000, "runs_out": n_paths - (size - n_alive) // 2,
+                 "drain": n_paths - 17}[kind]
+    cols = n_paths + nw
+    g = torch.Generator(device="cuda").manual_seed(3)
+    log_f = torch.rand((7, cols), device="cuda", generator=g)
+    log_i = torch.randint(0, 1 << 40, (3, cols), device="cuda", generator=g)
+    retired = n_paths - n_fresh - 5
+    logs = [(log_f.clone(), log_i.clone()) for _ in range(2)]
+    r0 = lanes.regen_lane_refill.launches
+    got = lanes.regen_lane_refill(perm, fs, ints, *logs[0], n_alive, n_fresh,
+                                  retired, next_path, sp)
+    torch.cuda.synchronize()
+    assert lanes.regen_lane_refill.launches == r0 + 1
+    want = lanes.regen_lane_refill_plain(perm, fs, ints, *logs[1], n_alive,
+                                         n_fresh, retired, next_path, sp)
+    for r in range(17):
+        assert torch.equal(got[0][r].view(torch.int32),
+                           want[0][r].view(torch.int32)), f"fs row {r}"
+    for r in range(6):
+        assert torch.equal(got[1][r], want[1][r]), f"ints row {r}"
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(logs[0][0].view(torch.int32),
+                       logs[1][0].view(torch.int32))
+    assert torch.equal(logs[0][1], logs[1][1])
+    refilled = int(got[2].sum()) - n_alive
+    assert refilled == min(size - n_alive, n_paths - next_path) > 0
+    assert not torch.equal(logs[0][1], log_i)
+
+
+@pytest.mark.parametrize("change", ["demo", "mid", "demo_spp2_gauss",
+                                    "demo_nee", "demo_circle"])
+def test_regen_lanes_frame_matches_torch_glue(change, monkeypatch):
+    """A 320x180 frame through regen with 16384 lanes (two drain stages)
+    runs the lanes' two kernels once an iteration and equals bit for bit
+    the frame of regen's torch glue (``lanes_entry`` False): the demo, the
+    mid grid, the demo at 2 spp with Gaussian jitter, with unfused NEE
+    (shaded in the torch body) and with the circle jitter."""
+    from gdpathtracing_torch.config import Jitter
+    from gdpathtracing_torch.ops import lanes
+    from gdpathtracing_torch.render import regen
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    if change == "mid":
+        scene, cam = build_sphere_grid(n=4, sphere_detail=12), \
+            grid_camera(320, 180, n=4)
+    else:
+        scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+        cam = demo_camera(320, 180)
+    extra = {"demo_spp2_gauss": {"spp": 2, "jitter": Jitter.GAUSS},
+             "demo_nee": {"nee": True},
+             "demo_circle": {"jitter": Jitter.CIRCLE}}.get(change, {})
+    cfg = RenderConfig(traversal=Traversal.PALLAS, regen_wavefront=16384,
+                       **extra)
+    before = (lanes.regen_lane_key.launches, lanes.regen_lane_refill.launches)
+    regen.render_radiance_regen.iterations = 0
+    got = render_radiance(scene, cam, cfg, 2 ** 32 - 1)
+    torch.cuda.synchronize()
+    iters = regen.render_radiance_regen.iterations
+    after = (lanes.regen_lane_key.launches, lanes.regen_lane_refill.launches)
+    assert [a - b for a, b in zip(after, before)] == [iters, iters]
+    assert iters > 5
+    monkeypatch.setattr(regen, "lanes_entry", lambda *a: False)
+    want = render_radiance(scene, cam, cfg, 2 ** 32 - 1)
+    assert lanes.regen_lane_refill.launches == after[1]
+    for k in ("radiance", "depth", "normal", "steps", "segments"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.device.type == "cuda"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("where", ["demo", "grid", "mid_march",
+                                   "demo_fused_nee"])
+def test_regen_lanes_launch_counts(where):
+    """One 1080p Engine step of the benchmark's demo and grid launches
+    each lane kernel once a regen iteration (9 and 15 times); a march
+    frame of the mid grid and a fused-NEE frame of the demo keep the
+    torch glue and launch neither."""
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.ops import lanes
+    from gdpathtracing_torch.render import regen
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=5, spp=1,
+                       nee=False, rr_start=0)
+    if where == "grid":
+        scene, cam = build_sphere_grid(n=10, sphere_detail=16), \
+            grid_camera(1920, 1080, n=10)
+    elif where == "mid_march":
+        scene, cam = build_sphere_grid(n=4, sphere_detail=12), \
+            grid_camera(1920, 1080, n=4)
+        cfg = cfg.replace(regen_march=True)
+    else:
+        scene, cam = build_demo_scene(), demo_camera(1920, 1080)
+        if where == "demo_fused_nee":
+            cfg = cfg.replace(nee=True, regen_fuse_nee=True)
+    before = (lanes.regen_lane_key.launches, lanes.regen_lane_refill.launches,
+              regen.render_radiance_regen.iterations)
+    if where in ("demo", "grid"):
+        Engine(scene, cfg).step(cam)
+    else:
+        render_radiance(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    key, refill, iters = (a - b for a, b in zip(
+        (lanes.regen_lane_key.launches, lanes.regen_lane_refill.launches,
+         regen.render_radiance_regen.iterations), before))
+    want = {"demo": 9, "grid": 15}.get(where, 0)
+    assert iters > 0
+    assert key == refill == want
+    if want:
+        assert iters == want

@@ -1522,13 +1522,16 @@ def _diff_epilogue(scene: Scene, ray: Ray, hit0: HitInfo) -> HitInfo:
     (N, 12) gather and 4-term dots, through which autograd reaches the
     triangle tables (so vertices and instance transforms) and the ray (so
     the camera). ``rows`` is None, so shading gathers from the live
-    material and texture tables. MISS_T where ``hit0`` missed."""
-    rows12 = scene.isect_cols.index_select(0, hit0.eidx)
-    t, u, v, _ = _winner_uvt(rows12, ray)
-    t = torch.where(hit0.t < MISS_T, t, MISS_T)
-    return HitInfo(t=t, tri=hit0.tri, inst=hit0.inst,
-                   u=torch.clamp(u, 0.0, 1.0), v=torch.clamp(v, 0.0, 1.0),
-                   front=hit0.front, steps=hit0.steps, eidx=hit0.eidx)
+    material and texture tables. MISS_T where ``hit0`` missed. Runs in the
+    span ``trace_recompute``."""
+    with SPANS.trace_recompute:
+        rows12 = scene.isect_cols.index_select(0, hit0.eidx)
+        t, u, v, _ = _winner_uvt(rows12, ray)
+        t = torch.where(hit0.t < MISS_T, t, MISS_T)
+        return HitInfo(t=t, tri=hit0.tri, inst=hit0.inst,
+                       u=torch.clamp(u, 0.0, 1.0),
+                       v=torch.clamp(v, 0.0, 1.0), front=hit0.front,
+                       steps=hit0.steps, eidx=hit0.eidx)
 
 
 def trace_pallas_diff(scene: Scene, ray: Ray, active=None,

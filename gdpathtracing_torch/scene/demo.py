@@ -19,6 +19,7 @@ that need a small triangle count.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -133,11 +134,17 @@ def demo_camera(width: int, height: int, fov_deg: float = 79.5) -> Camera:
 
 
 def build_sphere_grid(n: int = 10, sphere_detail: int = 16,
-                      spacing: float = 2.5, device="cuda") -> Scene:
+                      spacing: float = 2.5, device="cuda",
+                      instance_albedo: bool = False) -> Scene:
     """Stress scene: an n×n grid of instanced spheres (one shared mesh →
     n² BLAS instances, n²·tris expanded triangles) over a floor, an
     emissive ceiling light, alternating diffuse/metal materials. Used by
-    bench.py --scene grid to measure scaling beyond the ~1.5k-tri demo."""
+    bench.py --scene grid to measure scaling beyond the ~1.5k-tri demo.
+
+    ``instance_albedo`` gives every sphere an albedo row of its own, the
+    inverse problem of recovering each object's colour: the k-th sphere
+    (row-major) keeps its material's roughness and metallic and scales
+    its albedo by 0.5 + 0.5·k/(n²−1)."""
     b = SceneBuilder()
     sphere = b.add_mesh(
         uv_sphere(radius=1.0, rings=sphere_detail, segments=2 * sphere_detail))
@@ -161,11 +168,16 @@ def build_sphere_grid(n: int = 10, sphere_detail: int = 16,
             Material(albedo=(0.9, 0.9, 0.9), roughness=0.05, metallic=1.0)]
     for i in range(n):
         for j in range(n):
+            mat = mats[(i + j) % len(mats)]
+            if instance_albedo:
+                f = 0.5 + 0.5 * (i * n + j) / max(n * n - 1, 1)
+                mat = dataclasses.replace(
+                    mat, albedo=tuple(c * f for c in mat.albedo))
             b.add_instance(
                 sphere,
                 _affine([1, 0, 0, 0, 1, 0, 0, 0, 1],
                         (i * spacing - half, 0.0, j * spacing - half)),
-                materials=[mats[(i + j) % len(mats)]])
+                materials=[mat])
     return b.build(device)
 
 

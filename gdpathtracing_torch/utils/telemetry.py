@@ -13,7 +13,9 @@ On one thread they never overlap: a leaf entered inside another pauses the
 outer one until it ends, so each leaf's seconds are its own. Together they
 cover the outer spans ``engine_step`` and ``render_radiance``. The set-up
 spans ``kernels_load`` and ``scene_build`` are leaves too, and so is
-``trace_epilogue`` (ops/intersect.py ``lite_epilogue``), which pauses the
+``trace_epilogue`` (ops/intersect.py ``lite_epilogue``) and so is
+``trace_recompute`` (ops/intersect.py ``_diff_epilogue``, the
+differentiable recompute of each winner's hit record): each pauses the
 ``path_trace`` it runs in.
 
 While the timeline is on (:class:`timeline`, :class:`Profile`), each span
@@ -43,7 +45,7 @@ import torch
 
 LEAF_SPANS = ("render_prepare", "path_trace", "path_shade", "path_lanes",
               "regen_sync", "post_passes", "kernels_load", "scene_build",
-              "trace_epilogue")
+              "trace_epilogue", "trace_recompute")
 OUTER_SPANS = ("engine_step", "render_radiance")
 TIMELINE_CAP = 1 << 20
 

@@ -53,11 +53,11 @@ NEE = {"nee": PALLAS.replace(nee=True),
        "fused_nee": PALLAS.replace(nee=True, regen_fuse_nee=True)}
 
 
-def _diff_render(scene):
+def _diff_render(scene, camera=None, config=PALLAS):
     albedo = scene.mat_albedo.clone().requires_grad_(True)
     rad = render_radiance(inverse.replace_albedo(scene, albedo),
-                          demo_camera(16, 12),
-                          PALLAS.replace(differentiable=True), 3).radiance
+                          camera or demo_camera(16, 12),
+                          config.replace(differentiable=True), 3).radiance
     return rad, albedo
 
 
@@ -70,14 +70,20 @@ def _leaves_by_thread(records):
 
 
 @pytest.mark.parametrize("case", ["engine_step", "engine_step_nee",
-                                  "engine_step_fused_nee", "render_radiance"])
-def test_leaf_spans_cover_the_loop_without_overlap(scene, case):
+                                  "engine_step_fused_nee", "render_radiance",
+                                  "render_radiance_grid"])
+def test_leaf_spans_cover_the_loop_without_overlap(scene, mid_grid, case):
     """An 8x8 Engine.step through regen (without NEE, with it, with it
     fused), and a differentiable 16x12 render_radiance through the
-    standard loop."""
+    standard loop, on the demo and on the mid grid (kernel 3 as finder,
+    ``lite_epilogue``, then the recompute)."""
     if case == "render_radiance":
         def run():
             _diff_render(scene)
+    elif case == "render_radiance_grid":
+        def run():
+            _diff_render(mid_grid, grid_camera(16, 12, n=4))
+        case = "render_radiance"
     else:
         config = NEE.get(case.removeprefix("engine_step_"), PALLAS)
 
@@ -176,6 +182,49 @@ def test_trace_epilogue_pauses_path_trace(mid_grid, loop):
         assert any(t == tid and a1 == b for _, t, a1, _ in trace)
 
 
+# The differentiable standard loop's finders: kernel 1 (trace_pallas_diff)
+# and kernel 4 (trace_occlude_pallas_diff, NEE on a flat scene) on the
+# demo, kernel 3 and lite_epilogue (trace_pallas_diff) on the mid grid.
+RECOMPUTE = {"demo": ("trace_pallas_diff", PALLAS),
+             "demo_nee": ("trace_occlude_pallas_diff",
+                          PALLAS.replace(nee=True)),
+             "grid": ("trace_pallas_diff", PALLAS)}
+
+
+@pytest.mark.parametrize("where", list(RECOMPUTE))
+def test_trace_recompute_pauses_path_trace(scene, mid_grid, monkeypatch,
+                                           where):
+    """A differentiable 16x12 render_radiance: ``trace_recompute`` counts
+    one recompute for each call of the differentiable finder, and its
+    segments lie between two of the ``path_trace`` it runs in."""
+    from gdpathtracing_torch.render import integrator
+
+    name, config = RECOMPUTE[where]
+    calls = []
+    real = getattr(integrator, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(integrator, name, counted)
+    sc, cam = (mid_grid, grid_camera(16, 12, n=4)) if where == "grid" \
+        else (scene, demo_camera(16, 12))
+    before = SPANS.trace_recompute.seconds, SPANS.trace_recompute.count
+    with telemetry.timeline() as records:
+        _diff_render(sc, cam, config)
+    assert calls
+    assert SPANS.trace_recompute.count - before[1] == len(calls)
+    assert SPANS.trace_recompute.seconds > before[0]
+    rec = [r for r in records if r[0] == "trace_recompute"]
+    trace = [r for r in records if r[0] == "path_trace"]
+    assert len(rec) == len(calls) and trace
+    for _, tid, a, b in rec:
+        assert not any(t == tid and a < b1 and a1 < b
+                       for _, t, a1, b1 in trace)
+        assert any(t == tid and b1 == a for _, t, _, b1 in trace)
+        assert any(t == tid and a1 == b for _, t, a1, _ in trace)
+
+
 @pytest.mark.parametrize("where", ["demo", "grid"])
 def test_torch_shade_counter_follows_regen_iterations(scene, mid_grid,
                                                       where):
@@ -198,12 +247,13 @@ def test_torch_shade_counter_follows_regen_iterations(scene, mid_grid,
 
 
 @pytest.mark.parametrize("metric", ["epilogue_ms.frame",
-                                    "torch_shade_iterations.frame"])
+                                    "torch_shade_iterations.frame",
+                                    "recompute_ms.step", "epilogue_ms.step"])
 def test_new_readers_read_none_without_their_source(monkeypatch, metric):
-    """The readers of the span ``trace_epilogue`` and of the counter
-    ``_shade_torch.iterations`` give no counter path and read None on a
-    program that lacks them, as the benchmark's runs of an older
-    program need."""
+    """The readers of the spans ``trace_epilogue`` and ``trace_recompute``
+    and of the counter ``_shade_torch.iterations`` give no counter path
+    and read None on a program that lacks them, as the benchmark's runs of
+    an older program need."""
     if str(REPO) not in sys.path:
         sys.path.insert(0, str(REPO))
     from benchmark import harness
@@ -212,7 +262,8 @@ def test_new_readers_read_none_without_their_source(monkeypatch, metric):
     path = REPO / "benchmark" / "metrics" / f"{metric}.py"
     assert harness.load_module(path).COUNTERS
     monkeypatch.setattr(telemetry, "SPANS", SimpleNamespace(**{
-        n: s for n, s in vars(SPANS).items() if n != "trace_epilogue"}))
+        n: s for n, s in vars(SPANS).items()
+        if n not in ("trace_epilogue", "trace_recompute")}))
     monkeypatch.delattr(regen._shade_torch, "iterations")
     mod = harness.load_module(path)
     assert mod.COUNTERS == []

@@ -29,9 +29,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      with rows) on the n=14 grid (188416 triangles, over the reference's
      8 MiB lite threshold): each on the middle 1080p tile's primary rays,
      then one bounce from their hits, with the thread-slots their
-     block-cooperative walk spends against one thread per ray's; and on
-     the grid tile, kernel 3 with the lite epilogue against kernel 6
-     (``_SC_LITE`` off);
+     block-cooperative walk spends against one thread per ray's; kernel
+     3 also with ``groups_kept``, the share of row 2's tests its group
+     gate still runs (32 a group swept, ``walk_two_level_plain``'s group
+     count), and the bound on the tests it runs; and on the grid tile,
+     kernel 3 with the lite epilogue against kernel 6 (``_SC_LITE``
+     off);
    - kernel 7 (one round of regen's frontier march) on the grid's middle
      tile, its lanes in the march's sort order and queued by the march's
      own candidate scan: primary rays from the spawn state, a second round
@@ -1210,7 +1213,8 @@ def main() -> None:
                 kname, kfn, pfn = ("closest_hit_sc_lite",
                                    ti.closest_hit_sc_lite,
                                    ti.closest_hit_sc_lite_plain)
-                args = geo + (gprep.scc,)
+                args = geo[:4] + (gprep.group_bounds,) + geo[4:] \
+                    + (gprep.scc,)
             else:
                 kname, kfn, pfn = ("closest_hit_rows_sc",
                                    ti.closest_hit_rows_sc,
@@ -1230,7 +1234,9 @@ def main() -> None:
             check(torch.equal(got[t_row].view(torch.int32),
                               want[t_row].view(torch.int32)),
                   f"{kname}, {label} {name}: t is not bitwise equal")
-            work = ti.walk_two_level_plain(*geo, gprep.scc)
+            work = ti.walk_two_level_plain(
+                *geo, gprep.scc,
+                group_bounds=gprep.group_bounds if lite else None)
             needed = float(work.walk.steps.sum())
             slabs = float(work.slab_tests.sum())
             # Thread-slots: the kernel's block-cooperative mapping (a warp
@@ -1247,10 +1253,24 @@ def main() -> None:
                 f"({needed / max(spent, 1.0):.3f} useful; a thread per "
                 f"ray: {spent_1:.4g}, {needed / max(spent_1, 1.0):.3f} "
                 f"useful)")
-            record(kname, err, k, p, *bound(
-                needed, slabs, two_level_bytes(gprep, n, 8 if lite else
-                                               ti.OUT_R, not lite)))
+            n_bytes = two_level_bytes(gprep, n, 8 if lite else ti.OUT_R,
+                                      not lite)
+            record(kname, err, k, p, *bound(needed, slabs, n_bytes))
             if lite:
+                # The group gate: the share of row 2's tests the kernel
+                # still runs (32 a group swept), and the bound on the tests
+                # it runs, with each swept chunk's 8 group slab tests (and
+                # its 8 boxes read once).
+                run = float(work.group_sweeps.sum()) * ti.GW
+                gslabs = ti.GROUPS * needed / ti.BT
+                gbnd, gwhat = bound(run, slabs + gslabs, n_bytes + 8 * 4
+                                    * gprep.group_bounds.shape[1])
+                log(f"  groups_kept {run / max(needed, 1.0):.4f}: "
+                    f"{run:.4g} of the {needed:.4g} tests of row 2 run, "
+                    f"with {gslabs:.4g} group slab tests; bound on the "
+                    f"tests run {gbnd:.4f} ms ({gwhat}), {gbnd / k:.3f} "
+                    f"of it (row 2's bound "
+                    f"{bound(needed, slabs, n_bytes)[0]:.4f} ms)")
                 # The lite epilogue against kernel 6's rows on this tile.
                 ti._SC_LITE = False
                 try:
@@ -1350,7 +1370,8 @@ def main() -> None:
                   "round")
     # The last round lists every superchunk: kernel 3's walk.
     full, o4t, d4t = want, rd.o4t, rd.d4t
-    lite = ti.closest_hit_sc_lite(o4t, d4t, *mgeo)
+    lgeo = mgeo[:2] + (grid_prep.group_bounds,) + mgeo[2:]
+    lite = ti.closest_hit_sc_lite(o4t, d4t, *lgeo)
     torch.cuda.synchronize()
     hit = lite[0] < ti._MISS
     check(torch.equal(full[[0, 2, 3]], lite[[0, 2, 3]])
@@ -1358,7 +1379,7 @@ def main() -> None:
           "kernel 7 with every superchunk queued differs from kernel 3")
     # The same walk: kernel 3 timed on the same rays (not recorded: kernel
     # 3's own tiles are the unsorted ones above).
-    k3 = cuda_ms(lambda: ti.closest_hit_sc_lite(o4t, d4t, *mgeo),
+    k3 = cuda_ms(lambda: ti.closest_hit_sc_lite(o4t, d4t, *lgeo),
                  KERNEL_ITERS, torch)
     log(f"  kernel 7 with every superchunk queued: kernel 3's t, eidx, "
         f"steps and entries on every ray; kernel 7 {k7:.4f} ms, kernel 3 "

@@ -126,12 +126,14 @@ struct Best {
 
 __device__ __forceinline__ Best no_hit() { return Best{kMiss, 0.f, 0.f, 0.f, 0}; }
 
-// Closest-hit sweep of the staged chunk whose first triangle is `base`.
-__device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
-                                              const Ray& r, int base,
-                                              Best& best) {
+// Closest-hit sweep of triangles lo .. hi - 1 of the staged chunk whose
+// first triangle is `base`.
+__device__ __forceinline__ void sweep_closest_span(const ChunkRows& s_m,
+                                                   const Ray& r, int base,
+                                                   int lo, int hi,
+                                                   Best& best) {
 #pragma unroll 4
-  for (int j = 0; j < kBT; ++j) {
+  for (int j = lo; j < hi; ++j) {
     const Uvt h = intersect(s_m, r, j);
     const bool valid = h.wd_ok && (h.t > 0.f) && (h.u >= 0.f) &&
                        (h.v >= 0.f) && (h.u + h.v <= 1.f);
@@ -141,6 +143,13 @@ __device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
       best = Best{h.t, h.u, h.v, h.wd, eidx};
     }
   }
+}
+
+// Closest-hit sweep of the staged chunk whose first triangle is `base`.
+__device__ __forceinline__ void sweep_closest(const ChunkRows& s_m,
+                                              const Ray& r, int base,
+                                              Best& best) {
+  sweep_closest_span(s_m, r, base, 0, kBT, best);
 }
 
 // What the two-level walk counts: triangles this ray swept, superchunks
@@ -156,6 +165,10 @@ struct WalkCounts {
 constexpr int kWarps = kBN / 32;       // warps per block
 constexpr int kPerLane = kBT / 32;     // triangles a lane tests for one ray
 constexpr unsigned kFull = 0xffffffffu;
+// Kernel 3's group gate: a chunk's triangles 32q .. 32q + 31 are group q,
+// step q of a warp sweep (lane l tests triangle l + 32q), with its own
+// inflated box (ops/intersect.py TracePrep.group_bounds, column 8c + q).
+constexpr int kGroups = kPerLane;      // groups per chunk
 
 // Asynchronous 4-byte copy from device to shared memory (cp.async; no
 // register holds the value, and any float pointer is aligned for it).
@@ -207,17 +220,22 @@ struct TwoLevelShared {
 // A candidate counts when it is valid and t < 1e9, ties on t go to the
 // lower index, and the merge takes t < best t or an equal t with a lower
 // eidx: the minimum of a total order, the winner sweep_closest finds in
-// any grouping, so t, eidx, u, v and w_d come out bit-equal.
+// any grouping, so t, eidx, u, v and w_d come out bit-equal. With
+// kGroupGate (kernel 3) the warp runs step q only where bit q of the
+// ray's `groups` is set (the same for every lane: no divergence).
+template <bool kGroupGate = false>
 __device__ __forceinline__ void sweep_closest_warp(TwoLevelShared& sh,
                                                    const ChunkRows& rows,
                                                    int ray, int base,
-                                                   int lane) {
+                                                   int lane,
+                                                   unsigned groups = 0u) {
   const float4 o = sh.o[ray], d = sh.d[ray];
   const Ray r{o.x, o.y, o.z, o.w, d.x, d.y, d.z, d.w, 0.f, 0.f, 0.f};
   float bt = kMiss, bu = 0.f, bv = 0.f, bwd = 0.f;
   int bj = kBT;
 #pragma unroll
   for (int q = 0; q < kPerLane; ++q) {
+    if (kGroupGate && !((groups >> q) & 1u)) continue;
     const int j = lane + 32 * q;
     const Uvt h = intersect(rows, r, j);
     const bool valid = h.wd_ok && (h.t > 0.f) && (h.u >= 0.f) &&
@@ -378,19 +396,33 @@ __device__ __forceinline__ const ChunkRows& coop_rows(
 //     (its needing rays are a subset of those), so a chunk no ray can need
 //     costs nothing but the vote, and a candidate the cut removes costs one
 //     read of its rows from L2.
+// With kGroupGate (kernel 3 alone), a ray whose chunk gate passes also
+// slab-tests the chunk's 8 group boxes (`group_bounds`, (8, 8 nc), column
+// 8c + q) in its own thread, with the same test and the same best t, and
+// keeps the mask of those that pass in `groups[tid]` (shared); the block
+// lists the rays with a non-zero mask, and a sweep runs only the masked
+// groups of its ray. The gate is exact: a triangle whose hit the sweep
+// would find lies in its group's inflated box, so the ray passes that
+// box's slab test with tmin <= the hit's t; a group whose tmin is above
+// the best t holds no triangle that wins or ties. `steps` still counts
+// 256 for each chunk whose gate the ray passes (the contract's row 2),
+// not the tests run; `chunk_sweeps` counts the chunks on which some ray
+// of the block sweeps a group.
 // Every thread of the block calls it with the same group and its own ray
 // `r`, whose o, d and best so far are in `sh` (two_level_start); the best
 // is merged there. `steps` counts the triangles the ray swept,
 // `chunk_sweeps` the chunks its block swept. A group whose vote finds no
 // candidate ends without a barrier after it: its only shared reads are
 // the vote words, which the next vote does not overwrite (CoopCursor).
-template <bool kStrictGate = false>
+template <bool kStrictGate = false, bool kGroupGate = false>
 __device__ __forceinline__ void coop_group_closest(
     TwoLevelShared& sh, const Ray& r, bool live, int c0, int gn,
     const float* __restrict__ chunk_bounds, int nc,
     const float* __restrict__ mu, const float* __restrict__ mv,
     const float* __restrict__ mw, size_t e, int tid, int lane, int warp,
-    CoopCursor& cur, WalkCounts& cnt) {
+    CoopCursor& cur, WalkCounts& cnt,
+    const float* __restrict__ group_bounds = nullptr,
+    unsigned char* groups = nullptr) {
   float tmin, tmax;
   unsigned bits = 0;
   if (live) {
@@ -413,19 +445,41 @@ __device__ __forceinline__ void coop_group_closest(
       may = (tmax >= tmin) && (tmax > 0.f) &&
             (kStrictGate ? tmin < sh.bt[tid] : tmin <= sh.bt[tid]);
     }
-    coop_ballot(sh.vote, cur, may, lane, warp);
-    __syncthreads();  // the ballots, and chunk c's rows
+    unsigned gm = 0u;  // kGroupGate: the groups whose gate passes
+    if constexpr (kGroupGate) {
+      if (may) {
+        for (int q = 0; q < kGroups; ++q) {
+          slab(r, group_bounds, kGroups * nc, kGroups * c + q, tmin, tmax);
+          if ((tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid])) {
+            gm |= 1u << q;
+          }
+        }
+        cnt.steps += (float)kBT;
+      }
+      groups[tid] = (unsigned char)gm;
+    }
+    const bool needs = kGroupGate ? gm != 0u : may;
+    coop_ballot(sh.vote, cur, needs, lane, warp);
+    __syncthreads();  // the ballots (and masks), and chunk c's rows
     int k, nw;
     const unsigned* need = coop_list(sh.vote, cur, k, nw);
     const ChunkRows& rows = coop_rows(sh.rows, cur, cand, c0, mu, mv, mw, e,
                                       tid);
     if (k == 0) continue;
     cnt.chunk_sweeps += 1.f;
-    if (may) cnt.steps += (float)kBT;
+    if (!kGroupGate && may) cnt.steps += (float)kBT;
     if (8 * k > 7 * 32 * nw) {
-      if (may) {
+      if (needs) {
         Best b{sh.bt[tid], sh.bu[tid], sh.bv[tid], sh.bwd[tid], sh.be[tid]};
-        sweep_closest(rows, r, c * kBT, b);
+        if constexpr (kGroupGate) {
+          for (int q = 0; q < kGroups; ++q) {
+            if ((gm >> q) & 1u) {
+              sweep_closest_span(rows, r, c * kBT, 32 * q, 32 * q + 32, b);
+            }
+          }
+        } else {
+          sweep_closest(rows, r, c * kBT, b);
+        }
         sh.bt[tid] = b.t;
         sh.bu[tid] = b.u;
         sh.bv[tid] = b.v;
@@ -434,11 +488,12 @@ __device__ __forceinline__ void coop_group_closest(
       }
     } else {
       for (int i = warp; i < k; i += kWarps) {
-        sweep_closest_warp(sh, rows, needing_ray(need, i, lane), c * kBT,
-                           lane);
+        const int ray = needing_ray(need, i, lane);
+        sweep_closest_warp<kGroupGate>(sh, rows, ray, c * kBT, lane,
+                                       kGroupGate ? groups[ray] : 0u);
       }
     }
-    __syncthreads();  // the merged bests; rows and ballots are free
+    __syncthreads();  // the merged bests; rows, ballots and masks are free
   }
 }
 
@@ -458,13 +513,18 @@ __device__ __forceinline__ void coop_group_closest(
 // `sc_entries` the superchunks its block entered, `chunk_sweeps` the chunks
 // it swept. A sweep is idempotent: visiting s again sweeps only the chunks
 // whose gate still passes, and changes no best.
+// kGroupGate (kernel 3 alone): the group gate of coop_group_closest, over
+// `group_bounds` with the masks in the shared `groups`.
+template <bool kGroupGate = false>
 __device__ __forceinline__ void walk_superchunk_coop(
     TwoLevelShared& sh, const Ray& r, int s,
     const float* __restrict__ sc_bounds, int nsc,
     const float* __restrict__ chunk_bounds, int scc,
     const float* __restrict__ mu, const float* __restrict__ mv,
     const float* __restrict__ mw, size_t e, int tid, int lane, int warp,
-    int nc, CoopCursor& cur, WalkCounts& cnt) {
+    int nc, CoopCursor& cur, WalkCounts& cnt,
+    const float* __restrict__ group_bounds = nullptr,
+    unsigned char* groups = nullptr) {
   float tmin, tmax;
   slab(r, sc_bounds, nsc, s, tmin, tmax);
   const bool sc_may = (tmax >= tmin) && (tmax > 0.f) && (tmin <= sh.bt[tid]);
@@ -472,9 +532,9 @@ __device__ __forceinline__ void walk_superchunk_coop(
   if (!__syncthreads_or(sc_may)) return;
   cnt.sc_entries += 1.f;
   for (int c0 = s * scc; c0 < (s + 1) * scc; c0 += 32) {
-    coop_group_closest(sh, r, sc_may, c0, min(32, (s + 1) * scc - c0),
-                       chunk_bounds, nc, mu, mv, mw, e, tid, lane, warp, cur,
-                       cnt);
+    coop_group_closest<false, kGroupGate>(
+        sh, r, sc_may, c0, min(32, (s + 1) * scc - c0), chunk_bounds, nc,
+        mu, mv, mw, e, tid, lane, warp, cur, cnt, group_bounds, groups);
   }
 }
 
@@ -492,19 +552,24 @@ __device__ __forceinline__ void two_level_start(TwoLevelShared& sh,
 
 // Two-level closest-hit walk of kernels 3 and 6: every superchunk in index
 // order (walk_superchunk_coop) from no hit. Every thread calls it with its
-// own ray `r`; the winner is read from `sh` after it returns.
+// own ray `r`; the winner is read from `sh` after it returns. Kernel 3
+// sets kGroupGate and passes its group boxes and a shared mask a ray.
+template <bool kGroupGate = false>
 __device__ __forceinline__ void walk_two_level(
     TwoLevelShared& sh, const Ray& r, const float* __restrict__ sc_bounds,
     int nsc, const float* __restrict__ chunk_bounds, int scc,
     const float* __restrict__ mu, const float* __restrict__ mv,
-    const float* __restrict__ mw, size_t e, int tid, WalkCounts& cnt) {
+    const float* __restrict__ mw, size_t e, int tid, WalkCounts& cnt,
+    const float* __restrict__ group_bounds = nullptr,
+    unsigned char* groups = nullptr) {
   const int lane = tid & 31, warp = tid >> 5;
   const int nc = nsc * scc;
   two_level_start(sh, r, tid, kMiss, 0);
   CoopCursor cur{0, 0};
   for (int s = 0; s < nsc; ++s) {
-    walk_superchunk_coop(sh, r, s, sc_bounds, nsc, chunk_bounds, scc, mu, mv,
-                         mw, e, tid, lane, warp, nc, cur, cnt);
+    walk_superchunk_coop<kGroupGate>(sh, r, s, sc_bounds, nsc, chunk_bounds,
+                                     scc, mu, mv, mw, e, tid, lane, warp, nc,
+                                     cur, cnt, group_bounds, groups);
   }
 }
 

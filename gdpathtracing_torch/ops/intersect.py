@@ -88,6 +88,8 @@ TABLE_W = 32
 MAT_W = 16
 SUB = 2      # sub-chunks per chunk: a shadow ray tests each 128-triangle
 SW = BT // SUB  # half's own box before sweeping it
+GW = 32      # triangles per group: kernel 3 sweeps a chunk's 32-triangle
+GROUPS = BT // GW  # groups whose own boxes a ray's gate passes
 MAX_FLAT_CHUNKS = 16  # larger scenes take the superchunk kernels
 SCC = 8      # chunks per superchunk (raised to keep nsc <= ~100)
 # Dispatch of superchunk scenes, mirrored from the reference so that the
@@ -156,27 +158,44 @@ def _inflate_bounds(cb: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo - eps, hi + eps, pad], dim=0)
 
 
-def _sub_bounds(scene: Scene) -> torch.Tensor:
-    """(8, SUB·nc) inflated AABBs of the 128-triangle halves of every chunk
-    (half s of chunk c is column c·SUB + s), from world-space vertices.
-    Pad and degenerate triangles (zero unit-space columns) do not widen a
-    box; an all-pad half gets a point box far away that no slab passes."""
+def _vertex_bounds(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, 3) lowest and highest world-space vertex coordinates of every
+    expanded triangle; +inf and -inf for pad and degenerate triangles
+    (zero unit-space columns), so that they widen no box."""
     tf = scene.inst_transform[scene.isect_inst.long()]    # (E, 3, 4)
     tp = scene.tri_pos[scene.isect_tri.long()]            # (E, 3, 3) object
     world = (tf[:, None, :, 0] * tp[:, :, 0:1] + tf[:, None, :, 1]
              * tp[:, :, 1:2] + tf[:, None, :, 2] * tp[:, :, 2:3]
              + tf[:, None, :, 3])                         # (E, 3, 3) world
     real = (torch.abs(scene.isect_mu).sum(dim=0) > 0.0)[:, None]
-    vlo = torch.where(real, world.amin(dim=1), torch.inf)  # (E, 3)
-    vhi = torch.where(real, world.amax(dim=1), -torch.inf)
-    ns = vlo.shape[0] // SW
-    lo = vlo.view(ns, SW, 3).amin(dim=1)
-    hi = vhi.view(ns, SW, 3).amax(dim=1)
+    return (torch.where(real, world.amin(dim=1), torch.inf),
+            torch.where(real, world.amax(dim=1), -torch.inf))
+
+
+def _span_bounds(lo: torch.Tensor, hi: torch.Tensor, width: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lowest and highest corners (n / width, 3) of each ``width``
+    consecutive rows of ``lo``/``hi`` (n, 3); ±inf where every row is."""
+    return (lo.view(-1, width, 3).amin(dim=1),
+            hi.view(-1, width, 3).amax(dim=1))
+
+
+def _span_boxes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(8, n) inflated boxes from corners ``lo``/``hi`` (n, 3); an empty
+    span (±inf corners) becomes a point box at 1e30 that no slab passes."""
     empty = ~torch.isfinite(lo[:, :1])
     lo = torch.where(empty, 1e30, lo)
     hi = torch.where(empty, 1e30, hi)
-    return _inflate_bounds(torch.cat([lo, hi, lo.new_zeros((ns, 2))],
-                                     dim=1).T)
+    pad = lo.new_zeros((lo.shape[0], 2))
+    return _inflate_bounds(torch.cat([lo, hi, pad], dim=1).T)
+
+
+def _sub_bounds(scene: Scene) -> torch.Tensor:
+    """(8, SUB·nc) inflated AABBs of the 128-triangle halves of every chunk
+    (half s of chunk c is column c·SUB + s), from world-space vertices.
+    Pad and degenerate triangles (zero unit-space columns) do not widen a
+    box; an all-pad half gets a point box far away that no slab passes."""
+    return _span_boxes(*_span_bounds(*_vertex_bounds(scene), SW))
 
 
 class TracePrep(NamedTuple):
@@ -197,6 +216,11 @@ class TracePrep(NamedTuple):
     #                             point boxes at 1e30 that no slab passes
     sc_bounds: torch.Tensor     # (8, nsc) inflated superchunk AABBs
     #                             (8, 0) on a flat scene
+    group_bounds: torch.Tensor  # (8, 8·nc_pad) inflated AABBs of the
+    #                             32-triangle groups of the padded chunks
+    #                             (group q of chunk c is column c·8 + q;
+    #                             kernel 3's operand); (8, 0) on a flat
+    #                             scene
     scc: int                    # chunks per superchunk, nc_pad = nsc·scc
     tri_inst: torch.Tensor      # (E, 2) i32 [tri | inst] of each triangle
 
@@ -231,17 +255,27 @@ def prepare_trace_inputs(scene: Scene) -> TracePrep:
     bounds = _inflate_bounds(cb).contiguous()
     tri_inst = torch.stack([scene.isect_tri, scene.isect_inst],
                            dim=1).to(torch.int32)
-    flat = dict(mu=mu, mv=mv, mw=mw, bounds=bounds,
-                sub_bounds=_sub_bounds(scene).contiguous(), lights=lights,
+    flat = dict(mu=mu, mv=mv, mw=mw, bounds=bounds, lights=lights,
                 tri_inst=tri_inst)
     if nc <= MAX_FLAT_CHUNKS:
+        none = bounds.new_zeros((8, 0))
         return TracePrep(tab=tab, superchunks=False, mu_pad=mu, mv_pad=mv,
-                         mw_pad=mw, chunk_bounds=bounds,
-                         sc_bounds=bounds.new_zeros((8, 0)), scc=scc,
-                         **flat)
+                         mw_pad=mw, chunk_bounds=bounds, sc_bounds=none,
+                         group_bounds=none, scc=scc,
+                         sub_bounds=_sub_bounds(scene).contiguous(), **flat)
 
     nc_pad = -(-nc // scc) * scc
     nsc = nc_pad // scc
+    # The world-space vertices are reduced once, to the 32-triangle groups;
+    # kernel 2's halves are the groups' (a min of mins is the same bits).
+    # Both sets are inflated in one pass, the pad chunks' groups as empty.
+    glo, ghi = _span_bounds(*_vertex_bounds(scene), GW)
+    hlo, hhi = _span_bounds(glo, ghi, SW // GW)
+    n_empty = GROUPS * (nc_pad - nc)
+    boxes = _span_boxes(
+        torch.cat([hlo, glo, glo.new_full((n_empty, 3), torch.inf)]),
+        torch.cat([hhi, ghi, ghi.new_full((n_empty, 3), -torch.inf)]))
+    ns = hlo.shape[0]
 
     def pad(x):
         return torch.nn.functional.pad(x, (0, (nc_pad - nc) * BT)
@@ -259,7 +293,8 @@ def prepare_trace_inputs(scene: Scene) -> TracePrep:
                      mv_pad=pad(mv), mw_pad=pad(mw),
                      chunk_bounds=_inflate_bounds(cb_pad).contiguous(),
                      sc_bounds=_inflate_bounds(sc).contiguous(), scc=scc,
-                     **flat)
+                     sub_bounds=boxes[:, :ns].contiguous(),
+                     group_bounds=boxes[:, ns:].contiguous(), **flat)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +339,7 @@ def _check_inputs(scc: int = 1, **args) -> tuple[int, int]:
     want = dict(o4t=(4, n), d4t=(4, n), so4t=(4, n), sd4t=(4, n),
                 tlim=(n,), stmax=(n,), tmax=(n,), eo=(3, e), bounds=(8, nc),
                 sub_bounds=(8, SUB * nc), sc_bounds=(8, nc // scc),
+                group_bounds=(8, GROUPS * nc),
                 mu=(4, e), mv=(4, e), mw=(4, e), tab=(TAB_R, e),
                 fstate=(FS_R, n), istate=(IS_R, n), seeds=(2, n),
                 init=(2, n), queue=(None,),
@@ -755,21 +791,25 @@ class TwoLevelWalk(NamedTuple):
     #                             chunks' of each one its own test passed
     slots: torch.Tensor         # (N,) thread-slots its block spent in
     #                             kernels 3 and 6 (:func:`two_level_slots`)
+    group_sweeps: torch.Tensor  # (N,) 32-triangle groups kernel 3 sweeps
+    #                             for the ray (0 without group boxes)
 
     @classmethod
     def start(cls, walk: _ClosestWalk) -> "TwoLevelWalk":
         z = torch.zeros_like(walk.best_t)
-        return cls(walk, z, z.clone(), z.clone(), z.clone())
+        return cls(walk, z, z.clone(), z.clone(), z.clone(), z.clone())
 
 
 def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
-                          mu, mv, mw, scc) -> None:
+                          mu, mv, mw, scc, group_bounds=None) -> None:
     """Plain version of csrc/trace_common.cuh ``walk_superchunk_coop``:
     superchunk ``s`` for the rays where ``sel`` (N,) is set (a union of
     whole 256-ray blocks; None: every ray), into ``acc`` in place. A ray
     sweeps a chunk of ``s`` when its own slab tests against the
     superchunk's and the chunk's inflated boxes both pass before its best
-    t."""
+    t. With ``group_bounds`` (8, 8·nc), ``acc.group_sweeps`` also counts
+    the groups of each such chunk whose own box the ray passes before its
+    best t: those kernel 3's group gate sweeps."""
     walk = acc.walk
     sc_may = walk.passes(sc_bounds[:, s])
     acc.slab_tests.add_(1.0 if sel is None else sel.to(torch.float32))
@@ -783,24 +823,33 @@ def walk_superchunk_plain(acc: TwoLevelWalk, s: int, sel, sc_bounds, bounds,
         may = sc_may & walk.passes(bounds[:, c])
         acc.chunk_sweeps.add_(_block_any(may))
         acc.slots.add_(two_level_slots(may).repeat_interleave(BN))
+        if group_bounds is not None:
+            for q in range(c * GROUPS, (c + 1) * GROUPS):
+                acc.group_sweeps.add_(may & walk.passes(group_bounds[:, q]))
         walk.sweep(c, may, mu, mv, mw)
 
 
-def walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
-                         ) -> TwoLevelWalk:
+def walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc,
+                         group_bounds=None) -> TwoLevelWalk:
     """Plain version of csrc/trace_common.cuh ``walk_two_level``: every
-    superchunk in index order (:func:`walk_superchunk_plain`)."""
+    superchunk in index order (:func:`walk_superchunk_plain`). With
+    ``group_bounds``, also each ray's groups swept under kernel 3's group
+    gate (``group_sweeps``, 32 ray-triangle tests each; ``steps`` keeps
+    the contract's count, 256 a chunk gate)."""
     acc = TwoLevelWalk.start(_ClosestWalk(o4t, d4t))
     for s in range(sc_bounds.shape[1]):
         walk_superchunk_plain(acc, s, None, sc_bounds, bounds, mu, mv, mw,
-                              scc)
+                              scc, group_bounds)
     return acc
 
 
-def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
-                              scc) -> torch.Tensor:
+def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, group_bounds, mu,
+                              mv, mw, scc) -> torch.Tensor:
     """Plain version of csrc/closest_hit_sc_lite.cu: (8, N) rows t, eidx,
-    triangles swept by the ray, superchunks its block entered, 4 zeros."""
+    triangles swept by the ray, superchunks its block entered, 4 zeros.
+    ``group_bounds`` is accepted and not read: the kernel's group gate
+    skips only triangles that cannot win or tie, so the index-order walk
+    over whole chunks finds the same rows."""
     walk, sc_entries = walk_two_level_plain(o4t, d4t, sc_bounds, bounds, mu,
                                             mv, mw, scc)[:2]
     out = torch.zeros((LITE_R, o4t.shape[1]), dtype=torch.float32,
@@ -811,25 +860,29 @@ def closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv, mw,
 
 
 @torch.no_grad()
-def closest_hit_sc_lite(o4t, d4t, sc_bounds, bounds, mu, mv, mw, scc
-                        ) -> torch.Tensor:
+def closest_hit_sc_lite(o4t, d4t, sc_bounds, bounds, group_bounds, mu, mv,
+                        mw, scc) -> torch.Tensor:
     """(8, N) two-level closest hit of rays ``o4t``/``d4t`` (4, N): rows
-    0 t (1e9 on a miss), 1 eidx, 2 triangles swept, 3 superchunks the
-    ray's block entered. ``bounds`` (8, nc) are the inflated chunk boxes
-    of ``mu``/``mv``/``mw`` (4, 256·nc), ``sc_bounds`` (8, nc/scc) those
-    of each ``scc`` consecutive chunks.
+    0 t (1e9 on a miss), 1 eidx, 2 triangles swept (256 for each chunk
+    whose gates the ray passes), 3 superchunks the ray's block entered.
+    ``bounds`` (8, nc) are the inflated chunk boxes of ``mu``/``mv``/``mw``
+    (4, 256·nc), ``sc_bounds`` (8, nc/scc) those of each ``scc``
+    consecutive chunks, ``group_bounds`` (8, 8·nc) those of each chunk's
+    32-triangle groups (``TracePrep.group_bounds``), which the kernel
+    gates each ray's sweep of a chunk on.
 
     CUDA tensors launch the kernel (counted in
     ``closest_hit_sc_lite.launches``); CPU tensors run the plain version.
     Anything else raises."""
     n, e = _check_inputs(scc, o4t=o4t, d4t=d4t, sc_bounds=sc_bounds,
-                         bounds=bounds, mu=mu, mv=mv, mw=mw)
+                         bounds=bounds, group_bounds=group_bounds, mu=mu,
+                         mv=mv, mw=mw)
     if o4t.device.type == "cpu":
-        return closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds, mu, mv,
-                                         mw, scc)
+        return closest_hit_sc_lite_plain(o4t, d4t, sc_bounds, bounds,
+                                         group_bounds, mu, mv, mw, scc)
     out = torch.empty((LITE_R, n), dtype=torch.float32, device=o4t.device)
-    _launch("closest_hit_sc_lite", (o4t, d4t, sc_bounds, bounds, mu, mv, mw,
-                                    out), n, e, scc)
+    _launch("closest_hit_sc_lite", (o4t, d4t, sc_bounds, bounds,
+                                    group_bounds, mu, mv, mw, out), n, e, scc)
     closest_hit_sc_lite.launches += 1
     return out
 
@@ -1405,8 +1458,8 @@ def sc_lite_winners(ray: Ray, active, prep: TracePrep) -> torch.Tensor:
     as they are."""
     o4t, d4t = pack_rays(ray, active)
     return closest_hit_sc_lite(o4t, d4t, prep.sc_bounds, prep.chunk_bounds,
-                               prep.mu_pad, prep.mv_pad, prep.mw_pad,
-                               prep.scc)[:, :ray.o.x.shape[0]]
+                               prep.group_bounds, prep.mu_pad, prep.mv_pad,
+                               prep.mw_pad, prep.scc)[:, :ray.o.x.shape[0]]
 
 
 def trace_pallas(scene: Scene, ray: Ray, active=None,

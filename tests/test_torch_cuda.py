@@ -161,8 +161,9 @@ def _sc_rays(n):
 
 @pytest.mark.parametrize("n", [256, 4096])
 def test_sc_lite_kernel_matches_plain(grid, n):
-    args = _sc_rays(n) + (grid.sc_bounds, grid.chunk_bounds, grid.mu_pad,
-                          grid.mv_pad, grid.mw_pad, grid.scc)
+    args = _sc_rays(n) + (grid.sc_bounds, grid.chunk_bounds,
+                          grid.group_bounds, grid.mu_pad, grid.mv_pad,
+                          grid.mw_pad, grid.scc)
     before = ti.closest_hit_sc_lite.launches
     got = ti.closest_hit_sc_lite(*args)
     torch.cuda.synchronize()
@@ -181,8 +182,10 @@ def test_rows_sc_kernel_matches_plain(grid, n):
     torch.cuda.synchronize()
     assert ti.closest_hit_rows_sc.launches == before + 1
     assert torch.equal(got, ti.closest_hit_rows_sc_plain(*args))
-    # The lite kernel's winners, steps and superchunk entries.
-    lite = ti.closest_hit_sc_lite(*args[:7], args[8])
+    # The lite kernel's winners, steps and superchunk entries (kernel 6
+    # takes no group boxes; kernel 3 does).
+    lite = ti.closest_hit_sc_lite(*args[:4], grid.group_bounds, *args[4:7],
+                                  args[8])
     assert torch.equal(lite[:4], got[[40, 44, 45, 46]])
 
 
@@ -198,10 +201,12 @@ def bench_grid():
 
 
 # (source eidx, destination eidx) of the triangles copied for exact ties on
-# the bench grid: within chunk 3, from chunk 3 into chunk 100 (another
-# superchunk), from chunk 300 into chunk 50 (before its source).
+# the bench grid: within chunk 3 (group 0 into group 6), from chunk 3 into
+# chunk 100 (another superchunk), from chunk 300 into chunk 50 (before its
+# source), within chunk 7 (group 7 into group 0, before its source).
 GRID_COPIES = ((3 * 256 + 17, 3 * 256 + 200), (3 * 256 + 40, 100 * 256 + 5),
-               (300 * 256 + 100, 50 * 256 + 250))
+               (300 * 256 + 100, 50 * 256 + 250),
+               (7 * 256 + 230, 7 * 256 + 12))
 
 
 def _aim_at(rows, eidx, dist, g):
@@ -225,9 +230,10 @@ def _well_formed(rows):
 
 
 def _two_level_set(prep, kind, n):
-    """Operands of kernels 3 and 6 (geometry, rays on the card, each ray's
-    aimed eidx or -1) for an adversarial ray set on ``prep`` (the bench
-    grid), from a numpy seed:
+    """Operands of kernels 3 and 6 (rays on the card, kernel 6's geometry,
+    the winner table, each ray's aimed eidx or -1, kernel 3's group boxes)
+    for an adversarial ray set on ``prep`` (the bench grid), from a numpy
+    seed:
     - one_per_block: one random ray in each 256-ray block, the rest parked
       (origin 1e9): k = 1 on every chunk a block stages;
     - same_chunk: the 256 rays of a block aimed at one triangle of a
@@ -236,8 +242,9 @@ def _two_level_set(prep, kind, n):
     - edges: rays at triangle 255 of a chunk and at triangle 0 of the next
       from 1e-2 off (the winner at either end of a chunk), a tenth parked;
     - ties: rays at the triangles of GRID_COPIES, copied into the
-      destination columns (boxes grown to hold them), random rays and a
-      tenth parked: two triangles at the same t, the lower eidx wins;
+      destination columns (chunk, superchunk and group boxes grown to hold
+      them), random rays and a tenth parked: two triangles at the same t,
+      the lower eidx wins;
     - random: random rays over the grid, a tenth parked."""
     g = np.random.default_rng({"one_per_block": 21, "same_chunk": 22,
                                "edges": 23, "ties": 24, "random": 25}[kind])
@@ -245,6 +252,7 @@ def _two_level_set(prep, kind, n):
                                             prep.mw_pad)]
     cb = prep.chunk_bounds.cpu().numpy().copy()
     sb = prep.sc_bounds.cpu().numpy().copy()
+    gb = prep.group_bounds.cpu().numpy().copy()
     ok = _well_formed(rows)
     aimed = np.full(n, -1)
     o = np.stack([g.uniform(-14, 14, n), g.uniform(-0.5, 3.0, n),
@@ -276,12 +284,12 @@ def _two_level_set(prep, kind, n):
             assert ok[src]
             for x in rows:
                 x[:, dst] = x[:, src]
-            for boxes, col in ((cb, dst // ti.BT),
-                               (sb, dst // ti.BT // prep.scc)):
-                boxes[0:3, col] = np.minimum(boxes[0:3, col],
-                                             cb[0:3, src // ti.BT])
-                boxes[3:6, col] = np.maximum(boxes[3:6, col],
-                                             cb[3:6, src // ti.BT])
+            for boxes, col, box in (
+                    (cb, dst // ti.BT, cb[:, src // ti.BT]),
+                    (sb, dst // ti.BT // prep.scc, cb[:, src // ti.BT]),
+                    (gb, dst // ti.GW, gb[:, src // ti.GW].copy())):
+                boxes[0:3, col] = np.minimum(boxes[0:3, col], box[0:3])
+                boxes[3:6, col] = np.maximum(boxes[3:6, col], box[3:6])
         pick = g.uniform(size=n) < 0.6
         aimed[pick] = np.array([min(s, t) for s, t in GRID_COPIES])[
             g.integers(0, len(GRID_COPIES), int(pick.sum()))]
@@ -301,7 +309,7 @@ def _two_level_set(prep, kind, n):
         tab = tab.clone()
         for src, dst in GRID_COPIES:
             tab[:, dst] = tab[:, src]
-    return rays, geo, tab, aimed
+    return rays, geo, tab, aimed, torch.from_numpy(gb).to(dev)
 
 
 @pytest.mark.parametrize("n", [256, 262144])
@@ -313,10 +321,10 @@ def test_two_level_kernels_adversarial(bench_grid, kernel, kind, n):
     versions bit for bit in every row, on the adversarial sets of
     _two_level_set; the aimed rays find the triangle they were aimed at
     (for ties: the lower eidx of the two)."""
-    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    rays, geo, tab, aimed, gb = _two_level_set(bench_grid, kind, n)
     if kernel == "lite":
         fn, plain = ti.closest_hit_sc_lite, ti.closest_hit_sc_lite_plain
-        args = rays + geo + (bench_grid.scc,)
+        args = rays + geo[:2] + (gb,) + geo[2:] + (bench_grid.scc,)
         t_row, e_row = 0, 1
     else:
         fn, plain = ti.closest_hit_rows_sc, ti.closest_hit_rows_sc_plain
@@ -337,6 +345,47 @@ def test_two_level_kernels_adversarial(bench_grid, kernel, kind, n):
     assert (got[t_row] < ti._MISS).any()
 
 
+@pytest.fixture(scope="module")
+def bench_grid_frame():
+    """The bench grid's rays where kernel 3's group gate culls most: the
+    1080p frame's middle 262144-ray tile of camera rays and one BRDF
+    bounce from their hits (ops/tiles.py, chip_smoke.py phase 2's tiles),
+    with the grid's trace inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from gdpathtracing_torch.ops import tiles as kt
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    scene = build_sphere_grid(n=10, sphere_detail=16, device="cuda")
+    prep = ti.prepare_trace_inputs(scene)
+    cfg = RenderConfig(traversal=Traversal.PALLAS)
+    primary, hit, s, seed = kt.middle_rays(
+        scene, grid_camera(kt.W, kt.H, n=10), prep, cfg, cfg.tile_rays,
+        kt.middle_tile(cfg))
+    bounce, active = kt.bounce_rays(s, hit, seed, cfg)
+    return prep, {"primary": ti.pack_rays(primary, None),
+                  "bounce 1": ti.pack_rays(bounce, active)}
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce 1"])
+def test_sc_lite_kernel_on_grid_frame_rays(bench_grid_frame, rays):
+    """Kernel 3 against its plain version bit for bit in all 8 rows on the
+    bench grid's camera and bounce-1 rays, where its group gate skips most
+    of the chunk sweeps' tests (the plain version ignores the group
+    boxes)."""
+    prep, tiles = bench_grid_frame
+    geo = (prep.sc_bounds, prep.chunk_bounds, prep.group_bounds,
+           prep.mu_pad, prep.mv_pad, prep.mw_pad, prep.scc)
+    got = ti.closest_hit_sc_lite(*tiles[rays], *geo)
+    torch.cuda.synchronize()
+    want = ti.closest_hit_sc_lite_plain(*tiles[rays], *geo)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((got[0] < ti._MISS).sum()) > got.shape[1] // 10
+    work = ti.walk_two_level_plain(*tiles[rays], *geo[:2], *geo[3:],
+                                   group_bounds=prep.group_bounds)
+    kept = float(work.group_sweeps.sum()) * ti.GW / float(got[2].sum())
+    assert 0.0 < kept < 0.5
+
+
 @pytest.mark.parametrize("n", [256, 262144])
 @pytest.mark.parametrize("kind", ["one_per_block", "same_chunk", "edges",
                                   "ties"])
@@ -346,7 +395,7 @@ def test_flat_rows_kernel_adversarial(bench_grid, kind, n):
     rows bit for bit against the plain version, the counters 45 (tests a
     ray needed) and 46 (chunks its block swept) included; the aimed rays
     find the triangle they were aimed at (for ties: the lower eidx)."""
-    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    rays, geo, tab, aimed, _ = _two_level_set(bench_grid, kind, n)
     args = rays + geo[1:] + (tab,)
     before = ti.closest_hit_rows.launches
     got = ti.closest_hit_rows(*args)
@@ -586,7 +635,7 @@ def test_rows_nee_kernel_adversarial(bench_grid, kind, shadow, n):
     _nee_shadow_set. All 48 rows bit for bit against the plain version,
     the counters 45-47 included, and the occlusion flags equal; the aimed
     bounce rays find their triangle."""
-    rays, geo, tab, aimed = _two_level_set(bench_grid, kind, n)
+    rays, geo, tab, aimed, _ = _two_level_set(bench_grid, kind, n)
     cb = geo[1].cpu().numpy()
     rows = [x.cpu().numpy() for x in geo[2:]]
     sub = _padded_halves(bench_grid, cb,
@@ -751,7 +800,7 @@ def test_march_step_kernel_adversarial(bench_grid, case, n):
     kind = {"tie": "ties"}.get(case, case)
     if case in ("repeat", "sentinels", "ql1", "ql16"):
         kind = "random"
-    (o4, d4), geo, _, aimed = _two_level_set(bench_grid, kind, n)
+    (o4, d4), geo, _, aimed, _ = _two_level_set(bench_grid, kind, n)
     dev, nb, scc = o4.device, n // ti.BN, bench_grid.scc
     nsc = geo[0].shape[1]
     init = _no_winner(n, dev)
@@ -976,7 +1025,8 @@ def test_march_step_kernel_matches_plain(grid, n, carried):
     init = torch.stack([torch.full((n,), 1e9, device="cuda"),
                         torch.full((n,), float(ti.BIG_E), device="cuda")])
     one = ti.march_step_sc(*args[:2], init, full, *args[4:])
-    lite = ti.closest_hit_sc_lite(*args[:2], *args[4:])
+    lite = ti.closest_hit_sc_lite(*args[:2], *args[4:6], grid.group_bounds,
+                                  *args[6:])
     assert torch.equal(one[[0, 2, 3]], lite[[0, 2, 3]])
 
 

@@ -232,7 +232,8 @@ def test_march_full_queue_equals_kernel_3(mid, rays):
                            tp.chunk_bounds, tp.mu_pad, tp.mv_pad, tp.mw_pad,
                            tp.scc)
     want = ti.closest_hit_sc_lite(o4, d4, tp.sc_bounds, tp.chunk_bounds,
-                                  tp.mu_pad, tp.mv_pad, tp.mw_pad, tp.scc)
+                                  tp.group_bounds, tp.mu_pad, tp.mv_pad,
+                                  tp.mw_pad, tp.scc)
     hit = want[0] < MISS_T
     assert torch.equal(got[[0, 2, 3]], want[[0, 2, 3]])
     assert torch.equal(got[1][hit], want[1][hit])

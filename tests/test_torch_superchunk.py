@@ -143,7 +143,8 @@ def test_closest_hit_sc_lite_plain_matches_jax(scenes, rays):
     before = ti.closest_hit_sc_lite.launches
     got = ti.closest_hit_sc_lite(
         torch.from_numpy(o4), torch.from_numpy(d4), tp.sc_bounds,
-        tp.chunk_bounds, tp.mu_pad, tp.mv_pad, tp.mw_pad, tp.scc).numpy()
+        tp.chunk_bounds, tp.group_bounds, tp.mu_pad, tp.mv_pad, tp.mw_pad,
+        tp.scc).numpy()
     assert ti.closest_hit_sc_lite.launches == before  # the plain version
     assert got.shape == want.shape == (ti.LITE_R, 512)
     hit = want[0] < MISS_T
@@ -179,7 +180,8 @@ def test_closest_hit_rows_sc_plain_matches_jax(scenes, rays):
     # The lite kernel finds the same winners, with the same steps.
     lite = ti.closest_hit_sc_lite_plain(
         torch.from_numpy(o4), torch.from_numpy(d4), tp.sc_bounds,
-        tp.chunk_bounds, tp.mu_pad, tp.mv_pad, tp.mw_pad, tp.scc).numpy()
+        tp.chunk_bounds, tp.group_bounds, tp.mu_pad, tp.mv_pad, tp.mw_pad,
+        tp.scc).numpy()
     np.testing.assert_array_equal(lite[[0, 1, 2, 3]], got[[40, 44, 45, 46]])
     assert (got[47] >= got[46]).all()  # chunks swept, superchunks entered
 
@@ -319,12 +321,13 @@ def test_rows_kernel_dispatch(scenes, monkeypatch):
         ti.trace_occlude_pallas(ts, ray, None, ray, lite.t, lite.hit, tp)
 
 
-@pytest.mark.parametrize("bad", ["scc", "sc_bounds", "ragged", "device"])
+@pytest.mark.parametrize("bad", ["scc", "sc_bounds", "ragged", "device",
+                                 "group_bounds"])
 def test_two_level_kernels_reject_bad_inputs(scenes, rays, bad):
     tp = scenes[3]
     o4, d4 = (torch.from_numpy(x) for x in rays)
-    args = [o4, d4, tp.sc_bounds, tp.chunk_bounds, tp.mu_pad, tp.mv_pad,
-            tp.mw_pad]
+    args = [o4, d4, tp.sc_bounds, tp.chunk_bounds, tp.group_bounds,
+            tp.mu_pad, tp.mv_pad, tp.mw_pad]
     scc = tp.scc
     if bad == "scc":
         scc = 3  # does not divide the 40 chunks
@@ -333,9 +336,13 @@ def test_two_level_kernels_reject_bad_inputs(scenes, rays, bad):
     elif bad == "ragged":
         args[0], args[1] = args[0][:, :200].contiguous(), \
             args[1][:, :200].contiguous()
+    elif bad == "group_bounds":  # a box a chunk, not a box a group
+        args[4] = tp.chunk_bounds
     else:
         args = [a.to("meta") for a in args]
     with pytest.raises((TypeError, ValueError)):
         ti.closest_hit_sc_lite(*args, scc)
-    with pytest.raises((TypeError, ValueError)):
-        ti.closest_hit_rows_sc(*args, tp.tab.to(args[0].device), scc)
+    if bad != "group_bounds":  # kernel 6 takes no group boxes
+        with pytest.raises((TypeError, ValueError)):
+            ti.closest_hit_rows_sc(*args[:4], *args[5:],
+                                   tp.tab.to(args[0].device), scc)

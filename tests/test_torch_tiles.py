@@ -104,7 +104,8 @@ def test_march_rounds_carry_and_full_queue(mid_rounds):
     assert int((first[0] < ti._MISS).sum()) > N // 10
     got = ti.march_step_sc_plain(full.o4t, full.d4t, full.init, full.queue,
                                  *geo)
-    lite = ti.closest_hit_sc_lite_plain(full.o4t, full.d4t, *geo)
+    lite = ti.closest_hit_sc_lite_plain(full.o4t, full.d4t, *geo[:2],
+                                        prep.group_bounds, *geo[2:])
     hit = lite[0] < ti._MISS
     assert torch.equal(got[[0, 2, 3]], lite[[0, 2, 3]])
     assert torch.equal(got[1][hit], lite[1][hit])

@@ -9,8 +9,9 @@ rule is a minimum over a total order: the lowest (t, eidx), a valid hit at
 t >= 1e9 never wins. Exact ties test the eidx half of that order. On the
 mid-size sphere grid (``build_sphere_grid(n=4, sphere_detail=12)``, 40
 padded chunks in 5 superchunks of 8), triangles are copied into other
-columns of their own chunk, of a chunk of another superchunk, and of a
-chunk before theirs; rays aimed at the copied triangles then hit two
+columns of their own chunk (into a later 32-triangle group, and into an
+earlier one), of a chunk of another superchunk, and of a chunk before
+theirs; rays aimed at the copied triangles then hit two
 triangles at the same t, and the port's plain versions must pick the same
 eidx as JAX's interpret-mode kernels: the lower one. The flat walk
 (csrc/trace_common.cuh ``walk_flat_coop``) takes the same 40 chunks in
@@ -39,11 +40,13 @@ torch.set_num_threads(1)
 # t: as tests/test_torch_superchunk.py (JAX sums the 4-term dots in
 # another order; a few ulps of |origin| x |row| as an absolute error).
 T_RTOL, T_ATOL = 1e-6, 5e-6
-# (source eidx, destination eidx) of each copied triangle: within chunk 3,
-# from chunk 3 into chunk 20 (another superchunk), and from chunk 30 into
-# chunk 9 (a copy before its source, in an earlier superchunk).
+# (source eidx, destination eidx) of each copied triangle: within chunk 3
+# (group 0 into group 6), from chunk 3 into chunk 20 (another superchunk),
+# from chunk 30 into chunk 9 (a copy before its source, in an earlier
+# superchunk), and within chunk 7 from group 7 into group 0 (a copy before
+# its source in one chunk).
 COPIES = ((3 * 256 + 17, 3 * 256 + 200), (3 * 256 + 40, 20 * 256 + 5),
-          (30 * 256 + 100, 9 * 256 + 250))
+          (30 * 256 + 100, 9 * 256 + 250), (7 * 256 + 230, 7 * 256 + 12))
 N_AIM = 128  # rays aimed at each copied triangle
 
 
@@ -57,18 +60,21 @@ def _union(boxes, dst, src):
 def dup_scene():
     """The mid grid's kernel operands (numpy) with the COPIES made: the
     triangle rows copied column for column, the destination chunk's and
-    superchunk's inflated boxes grown to hold the source chunk's box."""
+    superchunk's inflated boxes grown to hold the source chunk's box, and
+    the destination group's (kernel 3's group gate) the source group's."""
     tp = ti.prepare_trace_inputs(build_sphere_grid(
         n=4, sphere_detail=12, device="cpu"))
     m = [x.numpy().copy() for x in (tp.mu_pad, tp.mv_pad, tp.mw_pad)]
     cb, sb = tp.chunk_bounds.numpy().copy(), tp.sc_bounds.numpy().copy()
+    gb = tp.group_bounds.numpy().copy()
     for src, dst in COPIES:
         for x in m:
             x[:, dst] = x[:, src]
         c_src, c_dst = src // ti.BT, dst // ti.BT
         _union(cb, c_dst, cb[:, c_src])
         _union(sb, c_dst // tp.scc, cb[:, c_src])
-    return m, cb, sb, tp.scc
+        _union(gb, dst // ti.GW, gb[:, src // ti.GW])
+    return m, cb, sb, gb, tp.scc
 
 
 def _aim(m, eidx, n, g):
@@ -86,30 +92,31 @@ def _aim(m, eidx, n, g):
 
 
 def dup_rays(m):
-    """(4, N) o4, d4: N_AIM rays aimed at each copied triangle, 64 random
-    rays and 64 parked ones (origin 1e9), in a seeded random order."""
+    """(4, N) o4, d4: N_AIM rays aimed at each copied triangle, N_AIM
+    random rays and N_AIM parked ones (origin 1e9), in a seeded random
+    order."""
     g = np.random.default_rng(11)
     os_, ds = zip(*(_aim(m, src, N_AIM, g) for src, _ in COPIES))
-    o_r = np.stack([g.uniform(-6, 6, 64), g.uniform(-0.5, 7.5, 64),
-                    g.uniform(-6, 6, 64)])
-    d_r = g.normal(size=(3, 64))
+    o_r = np.stack([g.uniform(-6, 6, N_AIM), g.uniform(-0.5, 7.5, N_AIM),
+                    g.uniform(-6, 6, N_AIM)])
+    d_r = g.normal(size=(3, N_AIM))
     d_r /= np.linalg.norm(d_r, axis=0, keepdims=True)
-    o = np.concatenate([*os_, o_r, np.full((3, 64), 1e9)], axis=1)
-    d = np.concatenate([*ds, d_r, np.full((3, 64), 0.5773503)], axis=1)
+    o = np.concatenate([*os_, o_r, np.full((3, N_AIM), 1e9)], axis=1)
+    d = np.concatenate([*ds, d_r, np.full((3, N_AIM), 0.5773503)], axis=1)
     perm = g.permutation(o.shape[1])
     n = o.shape[1]
     o4 = np.concatenate([o[:, perm], np.ones((1, n))]).astype(np.float32)
     d4 = np.concatenate([d[:, perm], np.zeros((1, n))]).astype(np.float32)
     aimed = np.concatenate([np.full(N_AIM, i) for i in range(len(COPIES))]
-                           + [np.full(128, -1)])[perm]
+                           + [np.full(2 * N_AIM, -1)])[perm]
     return np.ascontiguousarray(o4), np.ascontiguousarray(d4), aimed
 
 
 @pytest.fixture(scope="module")
 def dup():
-    m, cb, sb, scc = dup_scene()
+    m, cb, sb, gb, scc = dup_scene()
     o4, d4, aimed = dup_rays(m)
-    return m, cb, sb, scc, o4, d4, aimed
+    return m, cb, sb, gb, scc, o4, d4, aimed
 
 
 def _jax_operands(m, cb, sb):
@@ -122,17 +129,18 @@ def _jax_operands(m, cb, sb):
             jnp.asarray(m3.reshape(4, 3 * nc * ti.BT)))
 
 
-def _port_operands(m, cb, sb):
-    return (torch.from_numpy(sb), torch.from_numpy(cb),
-            *map(torch.from_numpy, m))
+def _port_operands(m, cb, sb, gb=None):
+    """Kernel 6's geometry operands; with group boxes ``gb``, kernel 3's."""
+    boxes = (sb, cb) if gb is None else (sb, cb, gb)
+    return (*map(torch.from_numpy, boxes), *map(torch.from_numpy, m))
 
 
 def test_aimed_rays_tie(dup):
     """The construction: each aimed ray hits the copy and its source at
     the same t (the plain walk with the copy's column removed again finds
     the source, and the other way round)."""
-    m, cb, sb, scc, o4, d4, aimed = dup
-    geo = _port_operands(m, cb, sb)
+    m, cb, sb, gb, scc, o4, d4, aimed = dup
+    geo = _port_operands(m, cb, sb, gb)
     rays = (torch.from_numpy(o4), torch.from_numpy(d4))
     got = ti.closest_hit_sc_lite(*rays, *geo, scc).numpy()
     for i, (src, dst) in enumerate(COPIES):
@@ -144,19 +152,20 @@ def test_aimed_rays_tie(dup):
             m2 = [x.copy() for x in m]
             for x in m2:
                 x[:, drop] = 0.0  # a degenerate column never hits
-            one = ti.closest_hit_sc_lite(*rays, *_port_operands(m2, cb, sb),
-                                         scc).numpy()
+            one = ti.closest_hit_sc_lite(
+                *rays, *_port_operands(m2, cb, sb, gb), scc).numpy()
             assert (one[1][on] == keep).all()
             np.testing.assert_array_equal(one[0][on], got[0][on])
 
 
 def test_tie_winner_lite_matches_jax(dup):
-    m, cb, sb, scc, o4, d4, aimed = dup
+    m, cb, sb, gb, scc, o4, d4, aimed = dup
     want = np.asarray(jip._closest_hit_sc_lite(
         jnp.asarray(o4), jnp.asarray(d4), *_jax_operands(m, cb, sb),
         scc=scc, interpret=True))
     got = ti.closest_hit_sc_lite(torch.from_numpy(o4), torch.from_numpy(d4),
-                                 *_port_operands(m, cb, sb), scc).numpy()
+                                 *_port_operands(m, cb, sb, gb),
+                                 scc).numpy()
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_allclose(got[0], want[0], rtol=T_RTOL, atol=T_ATOL)
     for i, (src, dst) in enumerate(COPIES):
@@ -165,7 +174,7 @@ def test_tie_winner_lite_matches_jax(dup):
 
 
 def test_tie_winner_rows_matches_jax(dup):
-    m, cb, sb, scc, o4, d4, aimed = dup
+    m, cb, sb, _, scc, o4, d4, aimed = dup
     tab = np.random.default_rng(12).uniform(
         size=(ti.TAB_R, m[0].shape[1])).astype(np.float32)
     want = np.asarray(jip._closest_hit_rows_sc(
@@ -189,7 +198,7 @@ def flat_jax(dup):
     """A random winner table and JAX's flat rows kernel in interpret mode on
     the dup operands (its (8, nc) boxes: JAX inflates them once more, which
     only lets more chunks pass the gate and moves no winner)."""
-    m, cb, sb, _, o4, d4, _ = dup
+    m, cb, sb, _, _, o4, d4, _ = dup
     tab = np.random.default_rng(13).uniform(
         size=(ti.TAB_R, m[0].shape[1])).astype(np.float32)
     want = np.asarray(jip._closest_hit_rows(
@@ -199,7 +208,7 @@ def flat_jax(dup):
 
 
 def test_flat_tie_winner_rows_matches_jax(dup, flat_jax):
-    m, cb, _, _, o4, d4, aimed = dup
+    m, cb, _, _, _, o4, d4, aimed = dup
     tab, want = flat_jax
     got = ti.closest_hit_rows(torch.from_numpy(o4), torch.from_numpy(d4),
                               torch.from_numpy(cb), *map(torch.from_numpy, m),
@@ -218,7 +227,7 @@ def test_flat_tie_winner_fused_matches_jax(dup, flat_jax):
     """One bounce of kernel 11's plain version: triangle e has material e,
     emitting (e, 0, 0) at energy 1, so a hit's radiance is its eidx, and
     its depth its t."""
-    m, cb, _, _, o4, d4, aimed = dup
+    m, cb, _, _, _, o4, d4, aimed = dup
     _, want = flat_jax
     e, n = m[0].shape[1], o4.shape[1]
     table = np.zeros((e, ti.TABLE_W), np.float32)

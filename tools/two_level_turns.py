@@ -35,11 +35,14 @@ launches. The tiles:
   and on the n=10 grid, over boxes grown by soft shadows' edge_eps 0.02;
 - kernels 8 and 9: the demo's middle tile, primary and bounce-1 rays, and
   the mid grid's primary rays, over the raw chunk boxes.
-Per tile it also prints the tests the rays need, the thread-slots of one
-thread per ray and of the block-cooperative walks (``ops.intersect.
+Per tile it also prints the tests the rays need (for kernel 3 also
+``groups_kept``, the share of them its group gate runs), the thread-slots
+of one thread per ray and of the block-cooperative walks (``ops.intersect.
 two_level_slots``, ``any_hit_slots``; kernel 8's from
 ``closest_hit_classic_plain(counts=)``), and the bound of chip_smoke.py
-(kernels 10 and 11 without their shading operations).
+(kernels 10 and 11 without their shading operations). A kernel whose
+operands grew (``ADDED``) is launched without the new one in a build
+whose source predates it.
 
 ``--sass`` compares each kernel's SASS (``cuobjdump -sass``) and ptxas'
 usage lines between the builds, and prints, for kernels 5, 8 and 9, the
@@ -70,7 +73,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 ITERS = 20
 # Each C entry point's operands (pointers, ints, floats; then the stream).
-ENTRIES = {"closest_hit_rows": (8, 2, 0), "closest_hit_sc_lite": (8, 3, 0),
+ENTRIES = {"closest_hit_rows": (8, 2, 0), "closest_hit_sc_lite": (9, 3, 0),
            "closest_hit_rows_sc": (9, 3, 0), "march_step_sc": (10, 4, 0),
            "occlusion": (9, 2, 0), "closest_hit_rows_nee": (13, 2, 0),
            "mega_step": (11, 6, 8), "fused_paths": (11, 3, 7),
@@ -79,6 +82,10 @@ ENTRIES = {"closest_hit_rows": (8, 2, 0), "closest_hit_sc_lite": (8, 3, 0),
 # The source of an entry that is not csrc/<entry>.cu.
 SOURCES = {"closest_hit_classic": "closest_hit_classic",
            "closest_hit_loop": "closest_hit_classic"}
+# Operands an entry took only from some commit on: (name in the source,
+# index among the pointers). A build whose source lacks the name is
+# launched without that pointer (kernel 3 before its group boxes).
+ADDED = {"closest_hit_sc_lite": ("group_bounds", 4)}
 PEAK_FP32 = 67e12  # float32 outside the tensor cores, H100 SXM at 700 W
 OPS_PER_TEST, OPS_PER_SLAB = 45, 25  # as chip_smoke.py
 OPS_PER_SOFT_TEST, SOFT_EPS = 59, 0.02  # kernel 5, as chip_smoke.py
@@ -142,12 +149,18 @@ def build(label: str, csrc: Path, out_dir: Path, names,
     fns = {}
     for name in names:
         n_ptrs, n_ints, n_floats = ENTRIES[name]
+        drop = None
+        if name in ADDED and ADDED[name][0] not in (
+                csrc / f"{source(name)}.cu").read_text():
+            n_ptrs, drop = n_ptrs - 1, ADDED[name][1]
         fn = getattr(built[source(name)].lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
-        def launch(tensors, ints, floats, fn=fn, name=name):
+        def launch(tensors, ints, floats, fn=fn, name=name, drop=drop):
+            if drop is not None:
+                tensors = tensors[:drop] + tensors[drop + 1:]
             err = fn(*(t.data_ptr() for t in tensors), *ints, *floats,
                      torch.cuda.current_stream().cuda_stream)
             if err != 0:
@@ -393,18 +406,27 @@ def main() -> None:
         geo = (prep.sc_bounds, prep.chunk_bounds, prep.mu_pad, prep.mv_pad,
                prep.mw_pad)
         e = prep.mu_pad.shape[1]
+        lite = name == "closest_hit_sc_lite"
         for what, (o4t, d4t) in {"primary": ti.pack_rays(primary, None),
                                  "bounce 1": ti.pack_rays(bounce, active)
                                  }.items():
             n = o4t.shape[1]
-            if name == "closest_hit_sc_lite":
-                tens, rows = (o4t, d4t, *geo), ti.LITE_R
-                want = ti.closest_hit_sc_lite_plain(o4t, d4t, *geo, prep.scc)
+            if lite:
+                tens, rows = (o4t, d4t, *geo[:2], prep.group_bounds,
+                              *geo[2:]), ti.LITE_R
+                want = ti.closest_hit_sc_lite_plain(*tens, prep.scc)
             else:
                 tens, rows = (o4t, d4t, *geo, prep.tab), ti.OUT_R
                 want = ti.closest_hit_rows_sc_plain(o4t, d4t, *geo, prep.tab,
                                                     prep.scc)
-            work = ti.walk_two_level_plain(o4t, d4t, *geo, prep.scc)
+            work = ti.walk_two_level_plain(
+                o4t, d4t, *geo, prep.scc,
+                group_bounds=prep.group_bounds if lite else None)
+            if lite:
+                run = float(work.group_sweeps.sum()) * ti.GW
+                print(f"  kernel 3, n={n_grid} grid, {what}: groups_kept "
+                      f"{run / max(float(work.walk.steps.sum()), 1.0):.4f}"
+                      f" ({run:.4g} tests run)")
             tiles.append((name, f"n={n_grid} grid", what, tens,
                           [((rows, n), torch.float32)], (n, e, prep.scc), (),
                           [want], float(work.walk.steps.sum()),

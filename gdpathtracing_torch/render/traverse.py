@@ -262,7 +262,9 @@ def trace_bvh(scene: Scene, ray: Ray, active=None, max_stack: int = 64,
     two-level BVH (the module's contract), ``active`` (N,) bool or None.
 
     CUDA tensors launch the kernel (counted in ``trace_bvh.launches``); CPU
-    tensors run :func:`trace_bvh_plain`. Anything else raises."""
+    tensors run :func:`trace_bvh_plain`. Anything else raises. Either way
+    ``trace_bvh.lanes`` rises by N, the lanes handed over, live or not (a
+    host integer: nothing is read from the device)."""
     _check_args(max_stack, max_iters)
     dev = ray.o.x.device
     if scene.device != dev:
@@ -273,6 +275,7 @@ def trace_bvh(scene: Scene, ray: Ray, active=None, max_stack: int = 64,
                          f"{active.device}, the rays "
                          f"{tuple(ray.o.x.shape)} on {dev}")
     ray = ray.detach()
+    trace_bvh.lanes += ray.o.x.shape[0]
     if dev.type == "cpu":
         return trace_bvh_plain(scene, ray, active, max_stack, max_iters)
     if dev.type != "cuda":
@@ -283,3 +286,4 @@ def trace_bvh(scene: Scene, ray: Ray, active=None, max_stack: int = 64,
 
 
 trace_bvh.launches = 0
+trace_bvh.lanes = 0

@@ -25,8 +25,9 @@ most ``TIMELINE_CAP`` records. Nesting is tracked per thread: the backward
 pass may recompute a checkpointed bounce on autograd's device thread.
 
 ``COUNTERS`` lists the program's counters by the same kind of path: each
-kernel wrapper's ``.launches``, regen's ``.iterations`` and the regen
-iterations that shade in the torch body (``_shade_torch.iterations``).
+kernel wrapper's ``.launches``, regen's ``.iterations``, the regen
+iterations that shade in the torch body (``_shade_torch.iterations``) and
+the lanes handed to the BVH traversal (``trace_bvh.lanes``).
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ COUNTERS = tuple(
         ("ops.shade", "regen_shade_lite"), ("ops.lanes", "regen_lane_key"),
         ("ops.lanes", "regen_lane_refill"))) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
-    "gdpathtracing_torch.render.regen:_shade_torch.iterations")
+    "gdpathtracing_torch.render.regen:_shade_torch.iterations",
+    "gdpathtracing_torch.render.traverse:trace_bvh.lanes")
 
 
 def read(path: str):

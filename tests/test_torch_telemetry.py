@@ -360,7 +360,7 @@ def test_every_counter_path_resolves():
         f"gdpathtracing_torch."
         f"{'.'.join(f.relative_to(pkg).with_suffix('').parts)}:{m[1]}"
         for f in pkg.rglob("*.py")
-        for m in re.finditer(r"^(\w+\.(?:launches|iterations)) = 0$",
+        for m in re.finditer(r"^(\w+\.(?:launches|iterations|lanes)) = 0$",
                              f.read_text(), re.M)}
     assert len(defined) >= 14 and defined == set(telemetry.COUNTERS)
     assert "gdpathtracing_torch.ops.shade:regen_shade.launches" in defined

@@ -5,9 +5,10 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the fifteen CUDA kernels (the eleven TPU kernels', the BVH
-   traversal's, regen's shading and regen's two lane kernels) from the
-   thirteen sources in csrc/ with nvcc, in parallel,
+1. builds the sixteen CUDA kernels (the eleven TPU kernels', the BVH
+   traversal's, regen's shading, regen's two lane kernels and the primal
+   BVH loop's shading) from the fourteen sources in csrc/ with nvcc, in
+   parallel,
    and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
@@ -82,12 +83,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bench grid, against their plain versions (regen's torch glue), timed
      with CUDA events in turns with that glue (glue, kernels, kernels,
      glue), the sort between them alone, beside their bytes bound;
+   - the primal BVH loop's shading (csrc/path_shade.cu, no TPU kernel:
+     the reference's is plain XLA) on the carries of the 262144-lane tile
+     through the middle of a 1080p RenderConfig() demo frame, at bounce 0
+     and bounce 1, against its plain version (the standard loop's torch
+     body), both timed with CUDA events, beside its bytes bound;
 3. drives kernels 8 and 9 through their own entry points
    (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
    demo frame's camera rays, one launch a tile each, against kernel 1's
    winners; then renders 1920x1080 frames (1 spp, 5 bounces) through
    render_radiance for each main path, with the launch count of each of
-   the sixteen entry points (the fifteen kernels', regen's shading with
+   the seventeen entry points (the sixteen kernels', regen's shading with
    two) and the regen iteration count set to 0 just before each frame and
    read just after: on the demo scene the standard loop (regen=False), the default
    regen loop, regen with NEE and the standard loop with NEE; on the grid
@@ -118,7 +124,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    kernels once an iteration where regen sorts its lanes by the Morton key
    without the march, and never elsewhere; 40 of kernel 10
    and 8 of kernel 11 a frame, and none of kernels 1-7 there; 40 or 80 of
-   the BVH kernel), and prints ms/frame,
+   the BVH kernel, and 40 of the BVH loop's shading where
+   path_shade_entry takes the render), and prints ms/frame,
    Msegments/s and the regen iterations. Then it
    traces one more frame of the path with torch.profiler and prints the
    device kernels launched, the device's busy time (the union of their
@@ -1689,6 +1696,61 @@ def main() -> None:
             f"{s_ms:.4f} ms; regen_lane_refill {r_ms:.4f} ms, bound "
             f"{r_bytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
 
+    # The primal BVH loop's shading kernel (csrc/path_shade.cu, no TPU
+    # kernel) on the carries of the 262144-lane tile through the middle of
+    # a 1080p RenderConfig() demo frame: bounce 0 on the camera rays, then
+    # bounce 1 on what bounce 0 left; bit for bit against its plain version
+    # (the standard loop's torch body), both timed; bound: the bytes of
+    # the kernel's note (207 a lane; the scene rows a hit lane gathers stay
+    # in L2 and are not counted). Back to back, a call costs what its
+    # wrapper's checks and launch cost the host, so the kernel's own time
+    # is read from the profiler.
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.integrator import bvh_carry
+    from gdpathtracing_torch.render.types import Ray
+    from gdpathtracing_torch.utils.telemetry import Profile
+    bcfg = RenderConfig()
+    nb = bcfg.tile_rays
+    ray, seed = kt.camera_rays(cam, bcfg, nb, kt.middle_tile(bcfg), dev)
+    carry = bvh_carry(ray, seed, cam.far)
+    for bounce in (0, 1):
+        fs, active = carry[0], carry[3]
+        hit = trace_bvh(scene, Ray(Vec3(*fs[0:3]), Vec3(*fs[3:6])), active,
+                        bcfg.max_stack)
+        args = (scene, hit, *carry, bcfg, bounce)
+        got = shade.path_shade_bvh(*args)
+        want = shade.path_shade_bvh_plain(*args)
+        torch.cuda.synchronize()
+
+        def int_rows(out):
+            return torch.cat([out[1], out[2].to(torch.int64),
+                              out[3][None].to(torch.int64)])
+
+        differ, err = bit_mismatch((got[0], int_rows(got)),
+                                   (want[0], int_rows(want)), torch)
+        n_live, n_hit = int(active.sum()), int((hit.hit & active).sum())
+        log(f"path_shade_bvh vs plain, demo bounce {bounce} ({nb} lanes, "
+            f"{n_live} active, {n_hit} hit, {int(got[3].sum())} go on): "
+            f"{differ} lanes not bit-equal (max |diff| {err:.3g})")
+        check(differ == 0, f"path_shade_bvh, bounce {bounce}: differs from "
+              f"its plain version")
+        c = cuda_ms(lambda: shade.path_shade_bvh(*args), KERNEL_ITERS, torch)
+        with Profile("cuda") as prof:
+            for _ in range(KERNEL_ITERS):
+                shade.path_shade_bvh(*args)
+            torch.cuda.synchronize()
+        k = sum(v for name, v in prof.summary.op_s.items()
+                if "path_shade_bvh_kernel" in name) / KERNEL_ITERS * 1e3
+        check(k > 0.0, "the profiler saw no path_shade_bvh_kernel")
+        p = cuda_ms(lambda: shade.path_shade_bvh_plain(*args), PLAIN_ITERS,
+                    torch, warm=False)
+        bnd = 207 * nb / PEAK_BYTES * 1e3
+        log(f"  path_shade_bvh on {card}: kernel {k:.4f} ms on the device "
+            f"(profiler), a call back to back {c:.4f} ms, plain {p:.4f} ms, "
+            f"bound {bnd:.4f} ms (bytes), the kernel at {bnd / k:.3f} of the "
+            f"bound")
+        carry = got
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -1706,7 +1768,8 @@ def main() -> None:
                "regen_shade": shade.regen_shade,
                "regen_shade_lite": shade.regen_shade_lite,
                "regen_lane_key": lanes.regen_lane_key,
-               "regen_lane_refill": lanes.regen_lane_refill}
+               "regen_lane_refill": lanes.regen_lane_refill,
+               "path_shade_bvh": shade.path_shade_bvh}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
@@ -1927,6 +1990,8 @@ def main() -> None:
         elif pcfg.traversal == Traversal.BVH:  # one a tile and bounce, and
             #                                   one more for NEE's shadows
             want["trace_bvh"] = per_tile * pcfg.bounces * (2 if nee else 1)
+            if shade.path_shade_entry(pscene, pcfg) == "bvh":
+                want["path_shade_bvh"] = per_tile * pcfg.bounces
         elif regen:  # one closest hit (or march round) and, with NEE, one
             #          shadow query each
             marching = march_flag and trace == "closest_hit_sc_lite"

@@ -24,20 +24,30 @@ Each wrapper
 Regen picks the entry once a frame, the same on the CPU and the card
 (:func:`shade_entry`): no NEE, march, transmission, textures, environment
 map or Russian roulette, and at least one bounce.
+
+The primal standard loop's bounce on BVH hits has a kernel of its own
+(``csrc/path_shade.cu``): :func:`path_shade_bvh` shades the hits that
+render/traverse.py ``trace_bvh`` returns, by triangle and instance, and
+advances the loop's packed carry, one launch a tile and bounce where the
+PyTorch body made ~600 (:func:`path_shade_bvh_plain` on CPU tensors).
+render/integrator.py ``path_trace`` takes it where
+:func:`path_shade_entry` says so, the same on the CPU and the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gdpathtracing_torch.config import RenderConfig
-from gdpathtracing_torch.core.vec import Vec3
+from gdpathtracing_torch.config import RenderConfig, Traversal
+from gdpathtracing_torch.core.vec import Vec3, where as vwhere
 from gdpathtracing_torch.ops.intersect import (LITE_R, OUT_R, TracePrep,
                                                _hit_from_rows, _launch,
                                                _sc_lite_fits, lite_epilogue)
 from gdpathtracing_torch.ops.megakernel import sky_constants
-from gdpathtracing_torch.render.shading import material_table
-from gdpathtracing_torch.render.types import Ray
+from gdpathtracing_torch.render.shading import (get_shading_data,
+                                                material_table)
+from gdpathtracing_torch.render.sky import sample_sky
+from gdpathtracing_torch.render.types import HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
 
 NF, NI = 17, 6  # render/regen.py's float and int64 lane rows (no march)
@@ -203,3 +213,149 @@ def _outputs(active):
             torch.empty(n, dtype=torch.bool, device=dev),
             torch.empty(n, dtype=torch.bool, device=dev),
             torch.empty(2, dtype=torch.int32, device=dev))
+
+
+# ---- the primal standard loop's bounce on BVH hits ------------------------
+
+_F32, _I32 = torch.float32, torch.int32
+# The scene tables path_shade_bvh gathers from, in the order of its C entry
+# point, with their dtype and shape (T triangles, I instances, S material
+# slots an instance, M materials).
+_BVH_TABLES = {"tri_normal": (_F32, ("T", 3, 3)), "tri_slot": (_I32, ("T",)),
+               "inst_materials": (_I32, ("I", "S")),
+               "inst_transform": (_F32, ("I", 3, 4)),
+               "mat_albedo": (_F32, ("M", 3)),
+               "mat_emission": (_F32, ("M", 3)),
+               "mat_emission_energy": (_F32, ("M",)),
+               "mat_metallic": (_F32, ("M",)),
+               "mat_roughness": (_F32, ("M",))}
+
+
+def path_shade_entry(scene: Scene, config: RenderConfig) -> str | None:
+    """The standard loop's shading path for a render: ``"bvh"``
+    (:func:`path_shade_bvh`, one launch a bounce) for a primal BVH render
+    with no NEE, no soft primary and no ray sort, on a scene and config
+    the kernel takes (no transmission, textures, environment map or
+    Russian roulette, and at least one bounce), else None (the loop's
+    torch body). It has no device term: the CPU takes the card's branch
+    and runs the plain version."""
+    if (config.traversal != Traversal.BVH or config.differentiable
+            or (config.nee and scene.n_lights > 0)
+            or config.soft_primary > 0.0 or config.sort_rays
+            or not _kernel_takes(scene, config)):
+        return None
+    return "bvh"
+
+
+def path_shade_bvh_plain(scene: Scene, hit: HitInfo, fs, seeds, counts,
+                         active, config: RenderConfig, bounce: int):
+    """:func:`path_shade_bvh` in PyTorch: the standard loop's body for
+    this case (render/integrator.py), on the rows of the carry."""
+    from gdpathtracing_torch.render.integrator import continue_path
+
+    ray_o, ray_d = Vec3(*fs[0:3]), Vec3(*fs[3:6])
+    throughput, radiance = Vec3(*fs[6:9]), Vec3(*fs[9:12])
+    depth, normal = fs[13], Vec3(*fs[14:17])
+    steps, segments = counts
+    r = Ray(ray_o, ray_d)
+    is_hit = hit.hit & active
+    steps = steps + torch.where(active, hit.steps, 0)
+    segments = segments + active.to(torch.int32)
+    s = get_shading_data(scene, hit, r, fast=False)
+    sky = sample_sky(ray_d, config, scene)
+    emission = vwhere(is_hit, s.emission, sky)
+    radiance = vwhere(active, radiance + throughput * emission, radiance)
+    if bounce == 0:  # first-hit AOVs
+        depth = torch.where(is_hit, (s.position - ray_o).length(), depth)
+        normal = vwhere(is_hit, s.normal, normal)
+    new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+        s, hit, r, throughput, is_hit, (seeds[0], seeds[1]), config,
+        scene.has_transmission, bounce)
+    fs = torch.stack([*vwhere(survive, new_o, ray_o),
+                      *vwhere(survive, new_dir, ray_d),
+                      *vwhere(survive, new_tp, throughput), *radiance,
+                      torch.where(survive, pdf, -1.0), depth, *normal])
+    return fs, torch.stack(seed), torch.stack([steps, segments]), survive
+
+
+def path_shade_bvh(scene: Scene, hit: HitInfo, fs: torch.Tensor,
+                   seeds: torch.Tensor, counts: torch.Tensor,
+                   active: torch.Tensor, config: RenderConfig, bounce: int):
+    """Shade bounce ``bounce`` of the primal standard loop on the hit
+    ``trace_bvh`` found for the carry's rays and advance the carry: ``fs``
+    (NF, n) f32 (regen's rows: origin, direction, throughput, radiance,
+    prev pdf, depth, first-hit normal), ``seeds`` (2, n) int64 (the PCG2D
+    words), ``counts`` (2, n) int32 (steps, segments) and ``active`` (n,)
+    bool, each contiguous. Returns the new (fs, seeds, counts, active),
+    fresh tensors of the same shapes.
+
+    CUDA tensors launch the kernel (counted in ``path_shade_bvh.launches``);
+    CPU tensors run :func:`path_shade_bvh_plain`. Raises where
+    :func:`path_shade_entry` declines the scene and config, and on
+    anything else the kernel cannot read."""
+    _check_bvh(scene, config, hit, fs, seeds, counts, active, bounce)
+    if active.device.type == "cpu":
+        return path_shade_bvh_plain(scene, hit, fs, seeds, counts, active,
+                                    config, bounce)
+    n, dev = active.shape[0], active.device
+    sizes = dict(T=scene.tri_normal.shape[0], I=scene.inst_transform.shape[0],
+                 S=scene.inst_materials.shape[1], M=scene.mat_albedo.shape[0])
+    tables = []
+    for name, (dtype, shape) in _BVH_TABLES.items():
+        x = getattr(scene, name).detach()
+        want = tuple(sizes.get(k, k) for k in shape)
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != want:
+            raise ValueError(f"scene.{name} is {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}; the kernel takes {dtype} {want} "
+                             f"on {dev}")
+        tables.append(x.contiguous())
+    out = (torch.empty_like(fs), torch.empty_like(seeds),
+           torch.empty_like(counts), torch.empty_like(active))
+    _launch("path_shade_bvh",
+            (hit.t, hit.u, hit.v, hit.tri, hit.inst, hit.front, hit.steps,
+             *tables, fs, seeds, counts, active, *out),
+            n, *sizes.values(), bounce,
+            floats=(config.ray_eps, *sky_constants(config)),
+            source="path_shade")
+    path_shade_bvh.launches += 1
+    return out
+
+
+path_shade_bvh.launches = 0
+
+
+def _check_bvh(scene: Scene, config: RenderConfig, hit: HitInfo, fs, seeds,
+               counts, active, bounce: int) -> None:
+    """Raise unless :func:`path_shade_entry` takes ``scene`` and
+    ``config``, ``bounce`` is one of its bounces, and the hit and the carry
+    are contiguous tensors of the shapes and dtypes :func:`path_shade_bvh`
+    names, on the CPU or the card."""
+    if path_shade_entry(scene, config) != "bvh":
+        raise ValueError("path_shade_bvh takes a primal BVH render with no "
+                         "NEE, soft primary, ray sort, transmission, "
+                         "textures, environment map or Russian roulette, "
+                         "and at least one bounce")
+    if not isinstance(bounce, int) or not 0 <= bounce < config.bounces:
+        raise ValueError(f"bounce={bounce!r} must be an int in "
+                         f"[0, {config.bounces})")
+    n, dev = active.shape[0], active.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if n == 0:
+        raise ValueError("path_shade_bvh takes at least one lane")
+    if hit.rows is not None:
+        raise ValueError("the hit must be trace_bvh's (no winner rows)")
+    for name, x, shape, dtype in (
+            ("active", active, (n,), torch.bool),
+            ("hit.t", hit.t, (n,), _F32), ("hit.u", hit.u, (n,), _F32),
+            ("hit.v", hit.v, (n,), _F32), ("hit.tri", hit.tri, (n,), _I32),
+            ("hit.inst", hit.inst, (n,), _I32),
+            ("hit.front", hit.front, (n,), torch.bool),
+            ("hit.steps", hit.steps, (n,), _I32),
+            ("fs", fs, (NF, n), _F32), ("seeds", seeds, (2, n), torch.int64),
+            ("counts", counts, (2, n), _I32)):
+        if tuple(x.shape) != shape or x.dtype != dtype \
+                or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {dev}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")

@@ -44,6 +44,12 @@ plain torch, differentiated as they run), sampling decisions are detached
 bounce may run under ``torch.utils.checkpoint`` (``bwd_checkpoint``).
 ``soft_shadows`` and ``soft_primary`` add the reference's differentiable
 silhouette relaxations.
+
+A primal BVH render that ops/shade.py ``path_shade_entry`` takes (no NEE,
+soft primary, ray sort, transmission, textures, environment map or Russian
+roulette) runs a loop of its own: the carry packed in a few stacks, and
+each bounce ``trace_bvh`` and then one ``path_shade_bvh`` (csrc/path_shade.cu
+on the card, the torch body's statements on the CPU).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                trace_pallas,
                                                trace_pallas_diff)
 from gdpathtracing_torch.ops.megakernel import mega_supported, path_trace_mega
+from gdpathtracing_torch.ops.shade import NF, path_shade_bvh, path_shade_entry
 from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.intersect import (occlusion_soft,
                                                   trace_brute, trace_unit)
@@ -351,6 +358,43 @@ def checkpoint_bounces(config: RenderConfig, n: int) -> bool:
         > config.bwd_resid_budget
 
 
+def bvh_carry(ray: Ray, seed, far: float):
+    """The packed carry of the primal BVH loop before its first bounce:
+    (fs, seeds, counts, active) as ops/shade.py ``path_shade_bvh`` takes
+    them, with the values the torch body starts from (throughput 1,
+    radiance 0, prev pdf -1, depth ``far``, normal 0, no steps or
+    segments, every lane active)."""
+    n, dev = ray.o.x.shape[0], ray.o.x.device
+    fs = torch.empty((NF, n), dtype=torch.float32, device=dev)
+    fs[0:6] = torch.stack([*ray.o, *ray.d])
+    fs[6:9] = 1.0
+    fs[9:12] = 0.0
+    fs[12] = -1.0
+    fs[13] = far
+    fs[14:17] = 0.0
+    return (fs, torch.stack(seed),
+            torch.zeros((2, n), dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev))
+
+
+def _path_trace_bvh(scene: Scene, ray: Ray, seed, config: RenderConfig,
+                    far: float) -> PathTraceResult:
+    """The primal BVH loop: each bounce ``trace_bvh`` on the carry's rays,
+    then ``path_shade_bvh``; the result's fields are rows of the carry."""
+    with SPANS.path_lanes:
+        fs, seeds, counts, active = bvh_carry(ray, seed, far)
+    for i in range(config.bounces):
+        with SPANS.path_trace:
+            hit = trace_bvh(scene, Ray(Vec3(*fs[0:3]), Vec3(*fs[3:6])),
+                            active, max_stack=config.max_stack)
+        with SPANS.path_shade:
+            fs, seeds, counts, active = path_shade_bvh(
+                scene, hit, fs, seeds, counts, active, config, i)
+    return PathTraceResult(radiance=Vec3(*fs[9:12]), depth=fs[13],
+                           steps=counts[0], segments=counts[1],
+                           normal=Vec3(*fs[14:17]))
+
+
 def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
                prep: TracePrep | None = None,
                far: float = 1000.0) -> PathTraceResult:
@@ -375,7 +419,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     ``Traversal.FUSED`` and ``Traversal.MEGA`` go to their path kernels
     (ops/fused.py ``path_trace_fused``, ops/megakernel.py
     ``path_trace_mega``) within the reference's gates, as the reference
-    dispatches them."""
+    dispatches them. A primal BVH render that ops/shade.py
+    ``path_shade_entry`` takes runs :func:`_path_trace_bvh`."""
     check_supported(scene, config)
     if config.traversal == Traversal.FUSED:
         with SPANS.path_trace:
@@ -383,6 +428,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     if config.traversal == Traversal.MEGA:
         with SPANS.path_trace:
             return path_trace_mega(scene, ray, seed, config, prep, far=far)
+    if path_shade_entry(scene, config) == "bvh":
+        return _path_trace_bvh(scene, ray, seed, config, far)
     pallas = config.traversal == Traversal.PALLAS
     bvh = config.traversal == Traversal.BVH
     if prep is None and pallas:

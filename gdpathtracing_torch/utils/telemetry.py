@@ -63,7 +63,8 @@ COUNTERS = tuple(
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
         ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"),
         ("ops.shade", "regen_shade_lite"), ("ops.lanes", "regen_lane_key"),
-        ("ops.lanes", "regen_lane_refill"))) + (
+        ("ops.lanes", "regen_lane_refill"), ("ops.shade", "path_shade_bvh"))
+) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
     "gdpathtracing_torch.render.regen:_shade_torch.iterations",
     "gdpathtracing_torch.render.traverse:trace_bvh.lanes")

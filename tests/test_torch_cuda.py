@@ -2384,3 +2384,152 @@ def test_regen_lanes_launch_counts(where):
     assert key == refill == want
     if want:
         assert iters == want
+
+
+# ---- the primal BVH loop's shading kernel (csrc/path_shade.cu) ------------
+
+def _bvh_carry_inputs(scene, n, bounces, seed):
+    """One bounce's hit and carry on the card: rays from inside the demo
+    room, 15% of them outside it heading away (misses) and 10% outside it
+    heading for its middle (back faces of the walls), traced by
+    ``trace_bvh``; random throughput, radiance, prev pdf, depth, first-hit
+    normal, PCG2D words, steps and segments; 15% of the lanes inactive."""
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.traverse import trace_bvh
+    from gdpathtracing_torch.render.types import Ray
+    g = np.random.default_rng(seed)
+    cb = scene.isect_chunk_bounds.cpu().numpy()
+    lo, hi = cb[0:3].min(axis=1), cb[3:6].max(axis=1)
+    mid = 0.5 * (lo + hi)
+    o = g.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (n, 3)).T
+    d = g.normal(size=(3, n))
+    u = g.uniform(size=n)
+    away, inward = u < 0.15, (u >= 0.15) & (u < 0.25)
+    o[:, away] = (hi + 1.0)[:, None]
+    d[:, away] = np.abs(d[:, away])
+    far_o = mid[:, None] + 2.0 * (hi - lo)[:, None] * np.sign(
+        g.normal(size=(3, int(inward.sum()))))
+    o[:, inward] = far_o
+    d[:, inward] = mid[:, None] - far_o + g.normal(
+        scale=0.2, size=far_o.shape)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    o, d = f32(o), f32(d)
+    active = torch.from_numpy(g.uniform(size=n) < 0.85).cuda()
+    hit = trace_bvh(scene, Ray(Vec3(*o), Vec3(*d)), active)
+    fs = torch.cat([o, d, f32(g.uniform(0.0, 1.5, (3, n))),
+                    f32(g.uniform(0.0, 2.0, (3, n))),
+                    f32(g.uniform(-1.0, 3.0, (1, n))),
+                    f32(g.uniform(0.0, 1000.0, (1, n))),
+                    f32(g.normal(size=(3, n)))])
+    seeds = torch.from_numpy(g.integers(0, 1 << 32, (2, n))).cuda()
+    counts = torch.from_numpy(np.stack([
+        g.integers(0, 1 << 20, n), g.integers(0, bounces, n)]).astype(
+            np.int32)).cuda()
+    return hit, fs, seeds, counts, active
+
+
+@pytest.mark.parametrize("case", ["bounce 0", "bounce 3", "small"])
+def test_path_shade_bvh_kernel_matches_plain(case):
+    """``path_shade_bvh`` against its plain version (the standard loop's
+    torch body) on the card, on one bounce's carry with inactive lanes,
+    misses, back faces and emissive and mirror hits: 262144 lanes (a 1080p
+    tile) at bounce 0 under ``RenderConfig()``, at bounce 3 under another
+    sky and ray_eps, and 1000 lanes (a ragged last block). Every carry
+    row bit for bit, one launch."""
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    cfg, bounce, n = RenderConfig(), 0, 262144
+    if case == "bounce 3":
+        cfg, bounce = RenderConfig(ray_eps=3e-3, sky_horizon=(0.3, 0.5, 0.7),
+                                   sky_zenith=(0.1, 0.2, 1.3)), 3
+    elif case == "small":
+        bounce, n = 1, 1000
+    hit, fs, seeds, counts, active = _bvh_carry_inputs(scene, n, cfg.bounces,
+                                                       7)
+    won = hit.hit & active
+    mats = scene.inst_materials[hit.inst.long(), torch.clamp(
+        scene.tri_slot[hit.tri.long()].long(),
+        max=scene.inst_materials.shape[1] - 1)].long()
+    kinds = [active & ~won, won & ~hit.front, won & hit.front, ~active]
+    if case != "small":
+        kinds += [won & (scene.mat_emission_energy[mats] > 0.0),
+                  won & (scene.mat_metallic[mats] > 0.5)]
+    for kind in kinds:
+        assert kind.any()
+    before = shade.path_shade_bvh.launches
+    got = shade.path_shade_bvh(scene, hit, fs, seeds, counts, active, cfg,
+                               bounce)
+    torch.cuda.synchronize()
+    assert shade.path_shade_bvh.launches == before + 1
+    want = shade.path_shade_bvh_plain(scene, hit, fs, seeds, counts, active,
+                                      cfg, bounce)
+    for r in range(fs.shape[0]):
+        assert torch.equal(got[0][r].view(torch.int32),
+                           want[0][r].view(torch.int32)), f"fs row {r}"
+    for k, name in ((1, "seeds"), (2, "counts"), (3, "active")):
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), name
+    alive = int(got[3].sum())
+    assert 0 < alive < int(won.sum())
+
+
+@pytest.mark.parametrize("res", ["1080p", "64x48"])
+def test_path_shade_bvh_frame_matches_torch(res, monkeypatch):
+    """A ``RenderConfig()`` demo frame (1080p: 8 tiles of 262144 rays; and
+    64x48) shades in the kernel, one launch a tile and bounce, and equals
+    bit for bit the frame through the standard loop's torch body."""
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import integrator
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene()
+    w, h = (1920, 1080) if res == "1080p" else (64, 48)
+    cam, cfg = demo_camera(w, h), RenderConfig()
+    tiles = -(-w * h // cfg.tile_rays)
+    before = shade.path_shade_bvh.launches
+    got = render_radiance(scene, cam, cfg, 5)
+    torch.cuda.synchronize()
+    assert shade.path_shade_bvh.launches - before == tiles * cfg.bounces
+    monkeypatch.setattr(integrator, "path_shade_entry", lambda *a: None)
+    want = render_radiance(scene, cam, cfg, 5)
+    torch.cuda.synchronize()
+    assert shade.path_shade_bvh.launches - before == tiles * cfg.bounces
+    for k in ("radiance", "depth", "normal", "steps", "segments"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+def test_path_shade_bvh_launch_counts():
+    """One 1080p Engine step under ``RenderConfig()`` (the benchmark's
+    demo.bvh) launches the kernel 40 times (8 tiles x 5 bounces); a BVH
+    frame with NEE, a regen frame and an inverse step launch it never."""
+    from gdpathtracing_torch import Engine
+    from gdpathtracing_torch.diff import inverse
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene()
+    before = shade.path_shade_bvh.launches
+    Engine(scene, RenderConfig()).step(demo_camera(1920, 1080))
+    torch.cuda.synchronize()
+    assert shade.path_shade_bvh.launches - before == 40
+    small = demo_camera(64, 48)
+    pallas = RenderConfig(traversal=Traversal.PALLAS)
+    before = shade.path_shade_bvh.launches
+    render_radiance(scene, small, RenderConfig(nee=True), 0)
+    target = render_radiance(scene, small, pallas, 0).radiance
+    step = inverse.value_and_grad_step(
+        inverse.replace_albedo, pallas.replace(differentiable=True))
+    loss, grads = step(scene.mat_albedo * 0.5, scene, small, target, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and grads.shape == scene.mat_albedo.shape
+    assert shade.path_shade_bvh.launches == before

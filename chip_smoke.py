@@ -132,8 +132,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    intervals), the share of it in each traversal kernel, the largest other
    kernels, the device's idle share of the median frame, and each leaf
    span's host time with the device's idle time inside it (the telemetry
-   module's profiler view); each path also prints its peak device
-   memory. Then Engine.step: 4 steps
+   module's profiler view), placed on the trace's clock by the launch
+   stamps (utils/telemetry.py ``clock_knots``, which the benchmark's
+   ``*_idle_ms`` metrics use), with the clock's offset from the
+   profiler's own start; on the demo's BVH frame and the grid's regen
+   frame (and the demo's backward step, 3b) the run fails where the
+   stamps place nothing, where a stamped kernel starts before its launch
+   on the placed clock, or where the clock placed by every other knot
+   puts a knot left out more than LAG_BOUND_US from its kernel;
+   each path also prints its peak device memory. Then Engine.step: 4 steps
    with PROGRESSIVE accumulation under a still camera and 4 with
    TEMPORAL reprojection under an orbiting one, each with the spatial
    denoiser, over the PALLAS regen frame: ms per step, the post passes'
@@ -296,6 +303,19 @@ def bound(tests: float, slabs: float, n_bytes: float,
                                        else "bytes")
 
 
+# The profiled steps whose spans the launch stamps must place: a frame of
+# the benchmark's demo.bvh and grid.interactive cells and a step of its
+# demo.inverse cell. On the placed clock no stamped kernel starts before
+# its launch (ROUND_US: the trace gives its times in whole ns of a
+# us-based float), and the clock placed by every other knot puts each of
+# the rest within LAG_BOUND_US of its kernel (the launches' lags on the
+# card are 10-60 us).
+CLOCK_CHECKED = ("demo, BVH (RenderConfig())", "grid, regen",
+                 "demo, backward")
+LAG_BOUND_US = 100.0
+ROUND_US = 1.0
+
+
 def profile_step(name: str, step, torch, steady_ms: float,
                  kernel_symbols: dict) -> None:
     """Run ``step`` once under the telemetry module's profiler view
@@ -304,9 +324,19 @@ def profile_step(name: str, step, torch, steady_ms: float,
     launched, the device's busy time (the union of their intervals), the
     share of it in each traversal kernel, the largest other kernels, the
     device's idle share of the profiled and of the median step, and each
-    leaf span's host time with the device's idle time inside it. A busy
-    time longer than the step fails the run."""
-    from gdpathtracing_torch.utils.telemetry import LEAF_SPANS, Profile
+    leaf span's host time with the device's idle time inside it, the
+    spans placed on the trace's clock by the launch stamps; then how the
+    placed clock lies against the launches and against the profiler's own
+    start. A busy time longer than the step fails the run; so do, on the
+    steps of ``CLOCK_CHECKED``, stamps that place nothing, a stamped
+    kernel that starts before its launch on the placed clock, and a knot
+    that the clock of every other knot places more than ``LAG_BOUND_US``
+    from its kernel. The offset from the profiler's start is printed, not
+    held to a bound: the trace's clock has been seen to run apart from
+    the host's by milliseconds within a step on the card."""
+    from gdpathtracing_torch.utils.telemetry import (LEAF_SPANS, Profile,
+                                                     idle_launches,
+                                                     launch_pairs, to_trace)
 
     with Profile("cuda") as prof:
         t0 = time.perf_counter()
@@ -343,6 +373,42 @@ def profile_step(name: str, step, torch, steady_ms: float,
         for n in LEAF_SPANS if n in sm.spans)
         + f"; {sm.leaf_idle_share:.3f} of the idle time inside the outer "
         f"spans is inside leaf spans")
+    stamps, ks = prof.session.stamps, prof.knots
+    checked = name in CLOCK_CHECKED
+    if ks is None:
+        log(f"    spans placed by the trace's start: none of {len(stamps)} "
+            f"launch stamps pairs with a kernel started on an idle card")
+        check(not checked, f"{name}: {len(stamps)} launch stamps placed "
+              f"no span on the trace's clock")
+        return
+    # Each stamped kernel's start less its launch on the placed clock: 0
+    # at a knot, its queueing or its slow launch elsewhere.
+    clock = to_trace(ks)
+    lag = [(e - clock(s)) / 1e3 for s, e in launch_pairs(prof.events,
+                                                           stamps)]
+    idle = idle_launches(prof.events, stamps)
+    log(f"    placed by {len(ks)} knots of {len(idle)} launches on an idle "
+        f"card ({len(stamps)} stamps): kernel start less launch "
+        f"{min(lag):.3f} to {max(lag):.3f} us")
+    # The clock of the even knots against the odd ones: how far a span
+    # between two knots can lie from where the trace has it.
+    held = to_trace(ks[::2])
+    miss = [(s - o - held(s)) / 1e3 for s, o in ks[1::2]]
+    if miss:
+        log(f"    the odd knots on the even knots' clock: {min(miss):.3f} "
+            f"to {max(miss):.3f} us from their kernels")
+    # The profiler's start puts a knot's kernel its lag after its launch,
+    # plus the trace clock's drift from the host's since the start.
+    off = [-o / 1e3 for _, o in ks]
+    log(f"    against the profiler's start: the first knot's kernel "
+        f"{off[0]:.3f} us after its launch; along the step {min(off):.3f} "
+        f"to {max(off):.3f} us")
+    if checked:
+        check(min(lag) >= -ROUND_US, f"{name}: a stamped kernel starts "
+              f"{-min(lag):.3f} us before its launch on the placed clock")
+        check(all(abs(m) <= LAG_BOUND_US for m in miss), f"{name}: the "
+              f"even knots' clock puts an odd knot's kernel up to "
+              f"{max(map(abs, miss)):.3f} us away, above {LAG_BOUND_US} us")
 
 
 def bit_mismatch(got, want, torch):

@@ -199,8 +199,8 @@ def fused_paths(o4t, d4t, seeds, bounds, mu, mv, mw, table, mats,
     _launch("fused_paths", (o4t, d4t, seeds, bounds, mu, mv, mw, table, mats,
                             out, segs),
             n, e, int(config.bounces),
-            floats=(config.ray_eps, *sky_constants(config)))
-    fused_paths.launches += 1
+            floats=(config.ray_eps, *sky_constants(config)),
+            wrapper=fused_paths)
     return out, segs
 
 

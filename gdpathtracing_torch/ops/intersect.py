@@ -67,7 +67,7 @@ from gdpathtracing_torch.render.lights import LightTable, build_light_table
 from gdpathtracing_torch.render.shading import material_table
 from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
-from gdpathtracing_torch.utils.telemetry import SPANS
+from gdpathtracing_torch.utils.telemetry import SPANS, launched
 
 BN = 256     # rays per kernel block
 WARPS = BN // 32  # warps per kernel block
@@ -373,18 +373,22 @@ def _c_function(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
     return fn
 
 
-def _launch(name: str, tensors: tuple, *ints: int, floats: tuple = (),
-            source: str | None = None) -> None:
+def _launch(name: str, tensors: tuple, *ints: int, wrapper,
+            floats: tuple = (), source: str | None = None) -> None:
     """Launch kernel ``name`` (of ``csrc/<source>.cu``, by default
     ``<name>.cu``) on the current stream (no synchronisation) with the
     ``tensors``' pointers, the ``ints`` and the ``floats`` (each passed as
     the float32 nearest to it, as PyTorch takes a Python float into a
-    float32 op); raise if the launch was refused."""
+    float32 op), counted in ``wrapper.launches`` and stamped as
+    ``<name>_kernel`` (utils/telemetry.py ``launched``); raise if the
+    launch was refused."""
     dev = tensors[0].device
     fn = _c_function(name, len(tensors), len(ints), len(floats), source)
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in tensors), *ints, *floats,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        args = (*(t.data_ptr() for t in tensors), *ints, *floats,
+                torch.cuda.current_stream(dev).cuda_stream)
+        launched(wrapper, f"{name}_kernel")
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -567,8 +571,7 @@ def closest_hit_rows(o4t, d4t, bounds, mu, mv, mw, tab) -> torch.Tensor:
         return closest_hit_rows_plain(o4t, d4t, bounds, mu, mv, mw, tab)
     out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
     _launch("closest_hit_rows", (o4t, d4t, bounds, mu, mv, mw, tab, out),
-            n, e)
-    closest_hit_rows.launches += 1
+            n, e, wrapper=closest_hit_rows)
     return out
 
 
@@ -685,8 +688,7 @@ def occluded(o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw) -> torch.Tensor:
                               mw).occ
     occ = torch.empty(n, dtype=torch.int32, device=o4t.device)
     _launch("occlusion", (o4t, d4t, tlim, bounds, sub_bounds, mu, mv, mw,
-                          occ), n, e)
-    occluded.launches += 1
+                          occ), n, e, wrapper=occluded)
     return occ
 
 
@@ -752,8 +754,7 @@ def closest_hit_rows_nee(o4t, d4t, so4t, sd4t, stmax, bounds, sub_bounds,
     occ = torch.empty(n, dtype=torch.int32, device=o4t.device)
     _launch("closest_hit_rows_nee", (o4t, d4t, so4t, sd4t, stmax, bounds,
                                      sub_bounds, mu, mv, mw, tab, out, occ),
-            n, e)
-    closest_hit_rows_nee.launches += 1
+            n, e, wrapper=closest_hit_rows_nee)
     return out, occ
 
 
@@ -882,8 +883,8 @@ def closest_hit_sc_lite(o4t, d4t, sc_bounds, bounds, group_bounds, mu, mv,
                                          group_bounds, mu, mv, mw, scc)
     out = torch.empty((LITE_R, n), dtype=torch.float32, device=o4t.device)
     _launch("closest_hit_sc_lite", (o4t, d4t, sc_bounds, bounds,
-                                    group_bounds, mu, mv, mw, out), n, e, scc)
-    closest_hit_sc_lite.launches += 1
+                                    group_bounds, mu, mv, mw, out), n, e, scc,
+            wrapper=closest_hit_sc_lite)
     return out
 
 
@@ -916,8 +917,8 @@ def closest_hit_rows_sc(o4t, d4t, sc_bounds, bounds, mu, mv, mw, tab, scc
                                          mw, tab, scc)
     out = torch.empty((OUT_R, n), dtype=torch.float32, device=o4t.device)
     _launch("closest_hit_rows_sc", (o4t, d4t, sc_bounds, bounds, mu, mv, mw,
-                                    tab, out), n, e, scc)
-    closest_hit_rows_sc.launches += 1
+                                    tab, out), n, e, scc,
+            wrapper=closest_hit_rows_sc)
     return out
 
 
@@ -1000,8 +1001,7 @@ def march_step_sc(o4t, d4t, init, queue, sc_bounds, bounds, mu, mv, mw, scc
     out = torch.empty((LITE_R, n), dtype=torch.float32, device=o4t.device)
     _launch("march_step_sc", (o4t, d4t, init, queue, sc_bounds, bounds, mu,
                               mv, mw, out), n, e, scc,
-            queue.shape[0] // (n // BN))
-    march_step_sc.launches += 1
+            queue.shape[0] // (n // BN), wrapper=march_step_sc)
     return out
 
 
@@ -1229,8 +1229,7 @@ def soft_occluded(o4t, d4t, tmax, bounds, mu, mv, mw, eo):
     margin = torch.empty(n, dtype=torch.float32, device=o4t.device)
     eidx = torch.empty(n, dtype=torch.int32, device=o4t.device)
     _launch("soft_occlusion", (o4t, d4t, tmax, bounds, mu, mv, mw, eo,
-                               margin, eidx), n, e)
-    soft_occluded.launches += 1
+                               margin, eidx), n, e, wrapper=soft_occluded)
     return margin, eidx
 
 
@@ -1318,8 +1317,7 @@ def _classic(wrapper, plain, o4t, d4t, bounds, mu, mv, mw):
     t = torch.empty(n, dtype=torch.float32, device=o4t.device)
     idx = torch.empty(n, dtype=torch.int32, device=o4t.device)
     _launch(wrapper.__name__, (o4t, d4t, bounds, mu, mv, mw, t, idx), n, e,
-            source="closest_hit_classic")
-    wrapper.launches += 1
+            source="closest_hit_classic", wrapper=wrapper)
     return t, idx
 
 

@@ -125,8 +125,7 @@ def regen_lane_key(fs: torch.Tensor, alive: torch.Tensor,
         return regen_lane_key_plain(fs, alive, dead_now, cell_lo, cell_span)
     key = torch.empty(n, dtype=torch.int32, device=dev)
     _launch("regen_lane_key", (fs, alive, dead_now, cell_lo, cell_span, key),
-            n, fs.stride(0), source="regen_lanes")
-    regen_lane_key.launches += 1
+            n, fs.stride(0), source="regen_lanes", wrapper=regen_lane_key)
     return key
 
 
@@ -222,8 +221,8 @@ def regen_lane_refill(perm: torch.Tensor, fs: torch.Tensor,
             next_path, n_paths, sp.camera.width, sp.camera.height,
             frame - (1 << 32) if frame >= 1 << 31 else frame,
             _JITTER.index(sp.config.jitter),
-            floats=(sp.camera.aspect, sp.camera.far), source="regen_lanes")
-    regen_lane_refill.launches += 1
+            floats=(sp.camera.aspect, sp.camera.far), source="regen_lanes",
+            wrapper=regen_lane_refill)
     return out
 
 

@@ -299,8 +299,8 @@ def mega_step(fstate, istate, bounds, sub_bounds, mu, mv, mw, tab, lt,
     _launch("mega_step", (fstate, istate, bounds, sub_bounds, mu, mv, mw, tab,
                           lt, fs_out, is_out),
             n, e, lt.shape[0], int(bounce), int(nee), int(config.rr_start),
-            floats=(config.ray_eps, config.rr_min_p, *sky_constants(config)))
-    mega_step.launches += 1
+            floats=(config.ray_eps, config.rr_min_p, *sky_constants(config)),
+            wrapper=mega_step)
     return fs_out, is_out
 
 

@@ -102,8 +102,8 @@ def regen_shade(scene: Scene, rows: torch.Tensor, fs: torch.Tensor,
     _launch("regen_shade", (rows, fs, ints, active, *out),
             active.shape[0], rows.stride(0), fs.stride(0), ints.stride(0),
             int(config.bounces),
-            floats=(config.ray_eps, *sky_constants(config)))
-    regen_shade.launches += 1
+            floats=(config.ray_eps, *sky_constants(config)),
+            wrapper=regen_shade)
     return out
 
 
@@ -169,8 +169,7 @@ def regen_shade_lite(scene: Scene, prep: TracePrep, lite: torch.Tensor,
             active.shape[0], lite.stride(0), fs.stride(0), ints.stride(0),
             int(config.bounces),
             floats=(config.ray_eps, *sky_constants(config)),
-            source="regen_shade")
-    regen_shade_lite.launches += 1
+            source="regen_shade", wrapper=regen_shade_lite)
     return out
 
 
@@ -316,8 +315,7 @@ def path_shade_bvh(scene: Scene, hit: HitInfo, fs: torch.Tensor,
              *tables, fs, seeds, counts, active, *out),
             n, *sizes.values(), bounce,
             floats=(config.ray_eps, *sky_constants(config)),
-            source="path_shade")
-    path_shade_bvh.launches += 1
+            source="path_shade", wrapper=path_shade_bvh)
     return out
 
 

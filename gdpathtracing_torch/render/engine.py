@@ -54,12 +54,12 @@ class Engine:
 
     def profile(self, logdir: str) -> Profile:
         """A torch.profiler context for the frame loop (device activity on
-        the card, host activity on the CPU) that turns the spans' timeline
-        on and, when it ends, writes one trace to ``logdir`` holding the
-        device operations and the program's spans (category
-        ``program_span``) on one clock, and sets its ``summary``: each
-        span's host seconds and the device's idle seconds inside it
-        (utils/telemetry.py ``ProfileSummary``)::
+        the card, host activity on the CPU) that the spans' timeline joins
+        as it starts (utils/telemetry.py ``Profile``) and, when it ends,
+        writes one trace to ``logdir`` holding the device operations and
+        the program's spans (category ``program_span``) on one clock, and
+        sets its ``summary``: each span's host seconds and the device's
+        idle seconds inside it (``ProfileSummary``)::
 
             with engine.profile("trace/") as prof:
                 engine.step(camera)

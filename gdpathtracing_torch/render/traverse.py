@@ -45,6 +45,7 @@ from gdpathtracing_torch.render.intersect import (intersect_aabb,
                                                   moller_trumbore)
 from gdpathtracing_torch.render.types import MISS_T, HitInfo, Ray
 from gdpathtracing_torch.scene.scene import Scene
+from gdpathtracing_torch.utils.telemetry import launched
 
 NODE_BITS = 21
 NODE_MASK = (1 << NODE_BITS) - 1
@@ -242,11 +243,13 @@ def _launch_kernel(scene: Scene, ray: Ray, active, max_stack: int,
     out_i = torch.empty((4, n), dtype=torch.int32, device=dev)
     fn = _c_function("trace_bvh", 2 + len(_TABLES) + 3, 7)
     with torch.cuda.device(dev):
-        err = fn(rays.data_ptr(), act.data_ptr(),
-                 *(x.data_ptr() for x in tables), scratch.data_ptr(),
-                 out_f.data_ptr(), out_i.data_ptr(), n,
-                 *sizes.values(), max_stack, max_iters,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        args = (rays.data_ptr(), act.data_ptr(),
+                *(x.data_ptr() for x in tables), scratch.data_ptr(),
+                out_f.data_ptr(), out_i.data_ptr(), n,
+                *sizes.values(), max_stack, max_iters,
+                torch.cuda.current_stream(dev).cuda_stream)
+        launched(trace_bvh, "trace_bvh_kernel")
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"trace_bvh kernel launch failed: cudaError {err}")
     t = out_f[0] if active is None else torch.where(active, out_f[0], MISS_T)
@@ -280,9 +283,7 @@ def trace_bvh(scene: Scene, ray: Ray, active=None, max_stack: int = 64,
         return trace_bvh_plain(scene, ray, active, max_stack, max_iters)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    hit = _launch_kernel(scene, ray, active, max_stack, max_iters)
-    trace_bvh.launches += 1
-    return hit
+    return _launch_kernel(scene, ray, active, max_stack, max_iters)
 
 
 trace_bvh.launches = 0

@@ -9,7 +9,11 @@ On the card (``--device cuda``, the default; it stops if there is none): the dem
 ``Engine.step`` frames and as inverse-rendering steps (image MSE,
 ``torch.autograd.grad``, Adam on the albedo table). It prints
 
-- the host cost of one span with the timeline off and on;
+- the host cost of one span with the timeline off and on, of the outer
+  span and of one launch's count and stamp with the timeline off and
+  joined to a profiler session, and the span records and
+  launch stamps of a traced demo.bvh frame (``RenderConfig()``) with the
+  host time the timeline adds to it;
 - the median frame with the timeline off and on, and under
   ``Engine.profile`` (the profiler's collection and the trace's writing
   counted apart);
@@ -35,6 +39,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -51,11 +56,15 @@ from gdpathtracing_torch.utils.telemetry import (LEAF_SPANS,  # noqa: E402
                                                  SPANS, Profile)
 
 
-def span_cost_ns(n: int = 200_000, repeats: int = 7) -> dict:
+def span_cost_ns(n: int = 200_000, repeats: int = 7, cuda: bool = True
+                 ) -> dict:
     """Host ns of one ``with`` span (enter and exit, the loop's own cost
     taken off): the least and the median of ``repeats`` loops of ``n``,
     a leaf and an outer span with the timeline off, a leaf with it on;
-    the three kinds in turns."""
+    then an outer span and one launch's count and stamp
+    (``telemetry.launched``, less a bare ``.launches += 1``), each with
+    the timeline off and joined to a profiler session; the kinds in
+    turns."""
     def loop(span) -> float:
         t0 = time.perf_counter_ns()
         for _ in range(n):
@@ -69,15 +78,50 @@ def span_cost_ns(n: int = 200_000, repeats: int = 7) -> dict:
             pass
         return (time.perf_counter_ns() - t0) / n
 
-    runs = {"leaf_off": [], "outer_off": [], "leaf_on": []}
+    counted = SimpleNamespace(launches=0)
+
+    def launch() -> float:
+        launched = telemetry.launched
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            launched(counted, "trace_bvh_kernel")
+        t1 = time.perf_counter_ns()
+        for _ in range(n):
+            counted.launches += 1
+        return (2 * t1 - t0 - time.perf_counter_ns()) / n
+
+    act = torch.profiler.ProfilerActivity
+    runs = {k: [] for k in ("leaf_off", "outer_off", "leaf_on", "outer_on",
+                            "launch_off", "launch_on")}
     for _ in range(repeats):
         b = bare()
         runs["leaf_off"].append(loop(SPANS.path_lanes) - b)
         runs["outer_off"].append(loop(SPANS.engine_step) - b)
+        runs["launch_off"].append(launch())
         with telemetry.timeline():
             runs["leaf_on"].append(loop(SPANS.path_lanes) - b)
+        with torch.profiler.profile(
+                activities=[act.CUDA if cuda else act.CPU]):
+            runs["outer_on"].append(loop(SPANS.engine_step) - b)
+            runs["launch_on"].append(launch())
     return {k: {"min": min(v), "median": statistics.median(v)}
             for k, v in runs.items()}
+
+
+def traced_bvh_frame(scene, cam, sync) -> dict:
+    """Span records and launch stamps of one demo.bvh frame (``Engine.step``
+    under ``RenderConfig()``) whose timeline joined a profiler session."""
+    eng = Engine(scene, RenderConfig())
+    eng.step(cam)
+    sync()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[
+            act.CUDA if scene.device.type == "cuda" else act.CPU]):
+        eng.step(cam)
+        sync()
+    ses = telemetry.session()
+    return {"records": len(ses.records), "stamps": len(ses.stamps),
+            "dropped": ses.dropped}
 
 
 def timed(step, sync, n: int) -> list[float]:
@@ -173,11 +217,24 @@ def main() -> None:
             text=True).stdout.strip()
         load_libraries()
     print(f"on {card}, torch {torch.__version__}")
-    res = {"device": args.device, "card": card, "span_cost": span_cost_ns()}
+    res = {"device": args.device, "card": card,
+           "span_cost": span_cost_ns(cuda=cuda)}
     print(f"[{card}] span cost (ns, loop taken off):", res["span_cost"])
 
     scene = build_demo_scene(device=dev)
     cam = demo_camera(args.width, args.height)
+    bvh = res["bvh_frame"] = traced_bvh_frame(scene, cam, sync)
+    cost = res["span_cost"]
+    # A traced frame's records: two outer spans and leaf segments, each
+    # paying the difference of the timeline on to off.
+    bvh["added_us"] = 1e-3 * (
+        bvh["records"] * (cost["leaf_on"]["median"]
+                          - cost["leaf_off"]["median"])
+        + bvh["stamps"] * (cost["launch_on"]["median"]
+                           - cost["launch_off"]["median"]))
+    print(f"[{card}] traced demo.bvh frame: {bvh['records']} span records, "
+          f"{bvh['stamps']} launch stamps, {bvh['dropped']} dropped; the "
+          f"timeline adds ~{bvh['added_us']:.1f} us of host time to it")
     cfg = RenderConfig(traversal=Traversal.PALLAS, bounces=5, spp=1)
     eng = Engine(scene, cfg)
     eng.reset(cam)

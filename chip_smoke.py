@@ -5,10 +5,10 @@
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
-1. builds the sixteen CUDA kernels (the eleven TPU kernels', the BVH
-   traversal's, regen's shading, regen's two lane kernels and the primal
-   BVH loop's shading) from the fourteen sources in csrc/ with nvcc, in
-   parallel,
+1. builds the eighteen CUDA kernels (the eleven TPU kernels', the BVH
+   traversal's, regen's shading, regen's two lane kernels, the primal
+   BVH loop's shading and the differentiable loop's shading and its
+   backward) from the fourteen sources in csrc/ with nvcc, in parallel,
    and prints ptxas' registers, shared memory and spills;
 2. holds each kernel against its plain PyTorch version at the main paths'
    shapes, bit for bit, and times both with CUDA events:
@@ -88,12 +88,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      through the middle of a 1080p RenderConfig() demo frame, at bounce 0
      and bounce 1, against its plain version (the standard loop's torch
      body), both timed with CUDA events, beside its bytes bound;
+   - the differentiable loop's shading and its backward (the same
+     source's path_shade_diff and path_shade_diff_bwd) on that tile's
+     carries at bounces 0 and 1 with the demo's albedo wanting a
+     gradient, against their plain versions (the carry bit for bit, the
+     saved rows within 1e-6, the albedo rows within 1e-4), timed beside
+     their bytes bounds;
 3. drives kernels 8 and 9 through their own entry points
    (trace_pallas_classic, closest_hit_loop) over every tile of a 1080p
    demo frame's camera rays, one launch a tile each, against kernel 1's
    winners; then renders 1920x1080 frames (1 spp, 5 bounces) through
    render_radiance for each main path, with the launch count of each of
-   the seventeen entry points (the sixteen kernels', regen's shading with
+   the nineteen entry points (the eighteen kernels', regen's shading with
    two) and the regen iteration count set to 0 just before each frame and
    read just after: on the demo scene the standard loop (regen=False), the default
    regen loop, regen with NEE and the standard loop with NEE; on the grid
@@ -931,7 +937,9 @@ def last_modules(torch, card, kernels, launches, kernel_symbols, scene, cam,
     tiles = -(-per_rank // grad_cfg.tile_rays)
     want = {"closest_hit_rows": 2 * tiles * grad_cfg.bounces,
             "closest_hit_rows_nee": tiles * grad_cfg.bounces,
-            "occluded": tiles}
+            "occluded": tiles,
+            "path_shade_diff": tiles * grad_cfg.bounces,
+            "path_shade_diff_bwd": tiles * grad_cfg.bounces}
     check(nonzero(got) == want, f"sharded: launches {nonzero(got)}, "
           f"expected {want}")
     for c, aovs in zip(sframes, sharded):
@@ -1817,6 +1825,120 @@ def main() -> None:
             f"bound")
         carry = got
 
+    # The differentiable loop's shading and its backward (csrc/path_shade.cu,
+    # no TPU kernel) on the same middle tile, the demo's albedo wanting a
+    # gradient: bounce 0 on the camera rays, then bounce 1 on what bounce 0
+    # left, each hit found and recomputed by trace_pallas_diff. The forward
+    # with what it saves, bit for bit against its plain version (the loop's
+    # torch body) on the carry, its saved rows within 1e-6; the backward on
+    # a random gradient of the new radiance and throughput, the
+    # throughput's gradient bit for bit and the albedo rows within 1e-4 of
+    # the plain version's (atomic sums in another order). Bounds: the bytes
+    # of the kernels' note, 243 a lane at bounce 0 and 211 after it (the
+    # gathered rows stay in L2), 76 for the backward.
+    from gdpathtracing_torch.ops.intersect import trace_pallas_diff
+    dscene = replace_albedo(scene, scene.mat_albedo.clone().requires_grad_())
+    dcfg0 = cfg.replace(differentiable=True)
+    dtables = shade.diff_tables(dscene)
+    ray, seed = kt.camera_rays(cam, dcfg0, nb, kt.middle_tile(dcfg0), dev)
+    zero = torch.zeros(nb, dtype=torch.float32, device=dev)
+    dcarry = dict(ray=ray, throughput=Vec3(zero + 1.0, zero + 1.0,
+                                           zero + 1.0),
+                  radiance=Vec3(zero, zero, zero),
+                  active=torch.ones(nb, dtype=torch.bool, device=dev),
+                  seed=seed, depth=zero + cam.far,
+                  steps=torch.zeros(nb, dtype=torch.int32, device=dev),
+                  segments=torch.zeros(nb, dtype=torch.int32, device=dev),
+                  normal=Vec3(zero, zero, zero))
+    for bounce in (0, 1):
+        dcarry["hit"] = trace_pallas_diff(dscene, dcarry["ray"],
+                                          dcarry["active"], prep)
+
+        def fwd(fn, bounce=bounce):
+            return fn(dscene, dtables, config=dcfg0, bounce=bounce,
+                      save=True, **dcarry)
+
+        got = fwd(shade.path_shade_diff)
+        want = fwd(lambda *a, **kw: shade.path_shade_diff_plain(
+            *a[:1], *a[2:], **kw))
+        torch.cuda.synchronize()
+
+        def rows(out):
+            (o, d, tp, rad, alive, sd, dep, st, sg, pdf, nrm), _ = out
+            return (torch.stack([*o, *d, *tp, *rad, dep, pdf, *nrm]),
+                    torch.stack([*sd, st.long(), sg.long(), alive.long()]))
+
+        differ, err = bit_mismatch(rows(got), rows(want), torch)
+        n_live = int(dcarry["active"].sum())
+        n_hit = int((dcarry["hit"].hit & dcarry["active"]).sum())
+        s_err = float(((got[1][0] - want[1][0]).abs()
+                       / want[1][0].abs().clamp(min=1e-30)).max())
+        alive = got[0].active
+        mat_ok = bool((got[1][1] == want[1][1])[alive].all())
+        log(f"path_shade_diff vs plain, demo bounce {bounce} ({nb} lanes, "
+            f"{n_live} active, {n_hit} hit, {int(alive.sum())} go on): "
+            f"{differ} lanes not bit-equal (max |diff| {err:.3g}); saved "
+            f"rows within {s_err:.3g} (relative), material rows "
+            f"{'equal' if mat_ok else 'differ'} on live lanes")
+        check(differ == 0, f"path_shade_diff, bounce {bounce}: differs from "
+              f"its plain version")
+        check(s_err <= 1e-6 and mat_ok, f"path_shade_diff, bounce {bounce}: "
+              f"saved rows differ from the plain version's by {s_err:.3g}")
+        c = cuda_ms(lambda: fwd(shade.path_shade_diff), KERNEL_ITERS, torch)
+        with Profile("cuda") as prof:
+            for _ in range(KERNEL_ITERS):
+                fwd(shade.path_shade_diff)
+            torch.cuda.synchronize()
+        k = sum(v for name, v in prof.summary.op_s.items()
+                if "path_shade_diff_kernel" in name) / KERNEL_ITERS * 1e3
+        check(k > 0.0, "the profiler saw no path_shade_diff_kernel")
+        p = cuda_ms(lambda: fwd(lambda *a, **kw: shade.path_shade_diff_plain(
+            *a[:1], *a[2:], **kw)), PLAIN_ITERS, torch, warm=False)
+        bnd = (243 if bounce == 0 else 211) * nb / PEAK_BYTES * 1e3
+        log(f"  path_shade_diff on {card}: kernel {k:.4f} ms on the device "
+            f"(profiler), a call back to back {c:.4f} ms, plain {p:.4f} ms, "
+            f"bound {bnd:.4f} ms (bytes), the kernel at {bnd / k:.3f} of the "
+            f"bound")
+
+        gen = torch.Generator(device=dev).manual_seed(28 + bounce)
+        g6 = torch.randn((6, nb), generator=gen, device=dev)
+        n_mats = dscene.mat_albedo.shape[0]
+        bargs = (*got[1], tuple(g6[:3]), tuple(g6[3:]), n_mats)
+        gb = shade.path_shade_diff_bwd(*bargs)
+        wb = shade.path_shade_diff_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        tp_same = torch.equal(gb[0].view(torch.int32), wb[0].view(torch.int32))
+        rn = wb[1].norm(dim=1)
+        row_err = float(((gb[1] - wb[1]).norm(dim=1)
+                         / rn.clamp(min=1e-30))[rn > 0].max())
+        log(f"path_shade_diff_bwd vs plain, demo bounce {bounce} ({n_mats} "
+            f"albedo rows): throughput gradient "
+            f"{'bit-equal' if tp_same else 'differs'}, albedo rows within "
+            f"{row_err:.3g} (relative)")
+        check(tp_same and row_err <= 1e-4, f"path_shade_diff_bwd, bounce "
+              f"{bounce}: differs from its plain version")
+        c = cuda_ms(lambda: shade.path_shade_diff_bwd(*bargs), KERNEL_ITERS,
+                    torch)
+        with Profile("cuda") as prof:
+            for _ in range(KERNEL_ITERS):
+                shade.path_shade_diff_bwd(*bargs)
+            torch.cuda.synchronize()
+        k = sum(v for name, v in prof.summary.op_s.items()
+                if "path_shade_diff_bwd_kernel" in name) / KERNEL_ITERS * 1e3
+        check(k > 0.0, "the profiler saw no path_shade_diff_bwd_kernel")
+        p = cuda_ms(lambda: shade.path_shade_diff_bwd_plain(*bargs),
+                    PLAIN_ITERS, torch)
+        bnd = 76 * nb / PEAK_BYTES * 1e3
+        log(f"  path_shade_diff_bwd on {card}: kernel {k:.4f} ms on the "
+            f"device (profiler), a call back to back {c:.4f} ms, plain "
+            f"{p:.4f} ms, bound {bnd:.4f} ms (bytes), the kernel at "
+            f"{bnd / k:.3f} of the bound")
+        out = got[0]
+        dcarry.update(ray=Ray(out.ray_o, out.ray_d),
+                      **{k: getattr(out, k) for k in (
+                          "throughput", "radiance", "active", "seed",
+                          "depth", "steps", "segments", "normal")})
+
     # -- 3. the main paths at 1080p -----------------------------------------
     phase("3. the primal paths at 1080p")
     kernels = {"closest_hit_rows": ti.closest_hit_rows,
@@ -1835,7 +1957,9 @@ def main() -> None:
                "regen_shade_lite": shade.regen_shade_lite,
                "regen_lane_key": lanes.regen_lane_key,
                "regen_lane_refill": lanes.regen_lane_refill,
-               "path_shade_bvh": shade.path_shade_bvh}
+               "path_shade_bvh": shade.path_shade_bvh,
+               "path_shade_diff": shade.path_shade_diff,
+               "path_shade_diff_bwd": shade.path_shade_diff_bwd}
     launches = dict.fromkeys(kernels, 0)
     n_tiles = -(-(W * H) // cfg.tile_rays)
     # (scene label, scene, camera, its closest-hit kernel, [(path name,
@@ -2175,11 +2299,17 @@ def main() -> None:
     # pass recomputes every bounce, finder launch included (80).
     dcfg = cfg.replace(differentiable=True)
     per = n_tiles * dcfg.bounces
+    # The albedo alone wanting a gradient, each bounce shades in
+    # path_shade_diff and its backward in path_shade_diff_bwd (recomputed
+    # with the finder under checkpoints).
     diff_paths = [
         ("demo, backward", scene, cam, "albedo", dcfg,
-         {"closest_hit_rows": per}),
+         {"closest_hit_rows": per, "path_shade_diff": per,
+          "path_shade_diff_bwd": per}),
         ("demo, backward, bwd_checkpoint=True", scene, cam, "albedo",
-         dcfg.replace(bwd_checkpoint=True), {"closest_hit_rows": 2 * per}),
+         dcfg.replace(bwd_checkpoint=True),
+         {"closest_hit_rows": 2 * per, "path_shade_diff": 2 * per,
+          "path_shade_diff_bwd": per}),
         ("demo, backward + NEE", scene, cam, "albedo",
          dcfg.replace(nee=True),
          {"closest_hit_rows_nee": per, "occluded": n_tiles}),
@@ -2187,7 +2317,8 @@ def main() -> None:
          "transforms", dcfg.replace(nee=True, soft_shadows=SOFT_EPS),
          {"closest_hit_rows": per, "soft_occluded": per}),
         ("grid, backward", grid, grid_cam, "albedo", dcfg,
-         {"closest_hit_sc_lite": per})]
+         {"closest_hit_sc_lite": per, "path_shade_diff": per,
+          "path_shade_diff_bwd": per})]
     lane_bounces = n_tiles * cfg.tile_rays * dcfg.bounces
 
     def diff_step(pscene, pcam, param, pcfg, frame):

@@ -56,8 +56,9 @@ def nvcc_path() -> str:
 # One library per source; closest_hit_classic.cu exports two entry points
 # (kernels 8 and 9); trace_bvh.cu is the BVH traversal (render/traverse.py),
 # regen_shade.cu regen's shading (ops/shade.py), regen_lanes.cu its lane
-# bookkeeping (ops/lanes.py), path_shade.cu the primal BVH loop's shading
-# (ops/shade.py).
+# bookkeeping (ops/lanes.py), path_shade.cu the standard loop's shading
+# (ops/shade.py: the primal BVH loop's, and the differentiable loop's with
+# its backward).
 KERNELS = ("closest_hit_rows", "occlusion", "closest_hit_rows_nee",
            "closest_hit_sc_lite", "closest_hit_rows_sc", "soft_occlusion",
            "mega_step", "fused_paths", "march_step_sc", "closest_hit_classic",

@@ -56,9 +56,12 @@ def fresnel_schlick(f0: Vec3, f90: Vec3, cos_theta) -> Vec3:
     return f0 + (f90 - f0) * fac5
 
 
-def eval_brdf(s: ShadingInfo, light_dir: Vec3) -> Vec3:
-    """Full BRDF value (brdfs.glsl:10-38): Burley diffuse with double
-    Schlick retro term + height-correlated Smith GGX specular."""
+def brdf_terms(s: ShadingInfo, light_dir: Vec3):
+    """The albedo-free factors of :func:`eval_brdf` (brdfs.glsl:10-38):
+    (valid, the diffuse retro-reflection factor fd, the specular D·G, the
+    Schlick factor (1 − h·v)^5 of the specular Fresnel). The value is
+    (diffuse_albedo · fd + fs · D·G) / π where valid, with fs = f0 + (1 −
+    f0) · fac5."""
     ndotl = s.normal.dot(light_dir)
     ndotv = s.lambert_out
     valid = _minimum(ndotl, ndotv) >= 0.0
@@ -70,7 +73,6 @@ def eval_brdf(s: ShadingInfo, light_dir: Vec3) -> Vec3:
     one = Vec3.full(1.0)
     fd = fresnel_schlick(one, Vec3(f90, f90, f90), ndotv).x * \
         fresnel_schlick(one, Vec3(f90, f90, f90), ndotl).x
-    brdf = s.diffuse_albedo * fd
 
     hdotn = half.dot(s.normal)
     a2 = s.roughness * s.roughness
@@ -83,8 +85,16 @@ def eval_brdf(s: ShadingInfo, light_dir: Vec3) -> Vec3:
         (ndotl - a2 * ndotl) * ndotl + a2, 0.0))
     geometry = 0.5 / _maximum(masking + shadowing, _EPS)
 
-    fs = fresnel_schlick(s.fresnel_0, one, _maximum(0.0, hdotv))
-    brdf = brdf + fs * (distribution * geometry)
+    fac = torch.clamp(1.0 - _maximum(0.0, hdotv), 0.0, 1.0)
+    return valid, fd, distribution * geometry, (fac * fac) * (fac * fac) * fac
+
+
+def eval_brdf(s: ShadingInfo, light_dir: Vec3) -> Vec3:
+    """Full BRDF value (brdfs.glsl:10-38): Burley diffuse with double
+    Schlick retro term + height-correlated Smith GGX specular."""
+    valid, fd, dg, fac5 = brdf_terms(s, light_dir)
+    fs = s.fresnel_0 + (Vec3.full(1.0) - s.fresnel_0) * fac5
+    brdf = s.diffuse_albedo * fd + fs * dg
     brdf = brdf * (1.0 / PI)
     return Vec3(torch.where(valid, brdf.x, 0.0),
                 torch.where(valid, brdf.y, 0.0),

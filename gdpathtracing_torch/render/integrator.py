@@ -49,7 +49,12 @@ A primal BVH render that ops/shade.py ``path_shade_entry`` takes (no NEE,
 soft primary, ray sort, transmission, textures, environment map or Russian
 roulette) runs a loop of its own: the carry packed in a few stacks, and
 each bounce ``trace_bvh`` and then one ``path_shade_bvh`` (csrc/path_shade.cu
-on the card, the torch body's statements on the CPU).
+on the card, the torch body's statements on the CPU). A differentiable
+PALLAS render that it takes (no NEE, soft primary, ``grad_attached``,
+transmission, textures, environment map or Russian roulette, and no
+gradient wanted but the albedo's) shades each bounce with one
+``diff_bounce`` in place of the body's torch statements: csrc/path_shade.cu's
+forward kernel, and its backward kernel, as one autograd node.
 """
 
 from __future__ import annotations
@@ -71,7 +76,9 @@ from gdpathtracing_torch.ops.intersect import (TracePrep, occluded_pallas,
                                                trace_pallas,
                                                trace_pallas_diff)
 from gdpathtracing_torch.ops.megakernel import mega_supported, path_trace_mega
-from gdpathtracing_torch.ops.shade import NF, path_shade_bvh, path_shade_entry
+from gdpathtracing_torch.ops.shade import (NF, Bounce, diff_bounce,
+                                           diff_tables, path_shade_bvh,
+                                           path_shade_entry)
 from gdpathtracing_torch.render import brdf, lights
 from gdpathtracing_torch.render.intersect import (occlusion_soft,
                                                   trace_brute, trace_unit)
@@ -346,6 +353,55 @@ class _Carry(NamedTuple):
     pend: DirectLight         # the pending shadow query (fused NEE)
 
 
+def shade_hit(scene: Scene, hit: HitInfo, r: Ray, active, steps, segments,
+              config: RenderConfig):
+    """The start of a bounce's shading: (the lanes that hit, the steps and
+    segments counted, the hit's shading, the sky along ``r``). PALLAS and
+    UNIT hits are shaded from their expanded-triangle index, others by
+    triangle and instance."""
+    is_hit = hit.hit & active
+    steps = steps + torch.where(active, hit.steps, 0)
+    segments = segments + active.to(torch.int32)
+    s = get_shading_data(scene, hit, r, fast=config.traversal in (
+        Traversal.PALLAS, Traversal.UNIT))
+    return is_hit, steps, segments, s, sample_sky(r.d, config, scene)
+
+
+def next_bounce(s: ShadingInfo, hit: HitInfo, r: Ray, throughput: Vec3,
+                radiance: Vec3, is_hit, seed, depth, steps, segments,
+                normal: Vec3, config: RenderConfig, has_transmission: bool,
+                i: int) -> Bounce:
+    """The end of bounce ``i``'s shading: the first-hit AOVs at bounce 0,
+    then :func:`continue_path`; each lane whose path ends keeps its ray
+    and throughput."""
+    if i == 0:  # first-hit AOVs
+        depth = torch.where(is_hit, (s.position - r.o).length(), depth)
+        normal = vwhere(is_hit, s.normal, normal)
+    new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
+        s, hit, r, throughput, is_hit, seed, config, has_transmission, i)
+    return Bounce(vwhere(survive, new_o, r.o), vwhere(survive, new_dir, r.d),
+                  vwhere(survive, new_tp, throughput), radiance, survive,
+                  seed, depth, steps, segments,
+                  torch.where(survive, pdf, -1.0), normal)
+
+
+def shade_bounce(scene: Scene, hit: HitInfo, r: Ray, throughput: Vec3,
+                 radiance: Vec3, active, seed, depth, steps, segments,
+                 normal: Vec3, config: RenderConfig, i: int):
+    """Bounce ``i``'s shading with no NEE and no soft primary: the loop
+    body's statements for that case, the plain versions of ops/shade.py's
+    shading kernels. Returns (the new carry, the shading, the lanes that
+    hit, the emission or sky each lane adds where active)."""
+    is_hit, steps, segments, s, sky = shade_hit(scene, hit, r, active, steps,
+                                                segments, config)
+    emission = vwhere(is_hit, s.emission, sky)
+    radiance = vwhere(active, radiance + throughput * emission, radiance)
+    out = next_bounce(s, hit, r, throughput, radiance, is_hit, seed, depth,
+                      steps, segments, normal, config,
+                      scene.has_transmission, i)
+    return out, s, is_hit, emission
+
+
 def checkpoint_bounces(config: RenderConfig, n: int) -> bool:
     """Whether a differentiable render recomputes each bounce in the
     backward pass instead of keeping its intermediates: ``bwd_checkpoint``,
@@ -428,7 +484,8 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     if config.traversal == Traversal.MEGA:
         with SPANS.path_trace:
             return path_trace_mega(scene, ray, seed, config, prep, far=far)
-    if path_shade_entry(scene, config) == "bvh":
+    entry = path_shade_entry(scene, config, ray)
+    if entry == "bvh":
         return _path_trace_bvh(scene, ray, seed, config, far)
     pallas = config.traversal == Traversal.PALLAS
     bvh = config.traversal == Traversal.BVH
@@ -481,6 +538,9 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
     reorder = bool(sort_rays) or compact
     if sort_rays:
         cell_lo, cell_span = morton_frame(scene.detach())
+    if entry == "diff":
+        with SPANS.path_shade:
+            tables = diff_tables(scene)
 
     def body(i: int, c: _Carry) -> _Carry:
         ray_o, ray_d, throughput, radiance = (c.ray_o, c.ray_d, c.throughput,
@@ -539,13 +599,12 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
             else:
                 hit = trace(scene, r, active, prep)
         with SPANS.path_shade:
-            is_hit = hit.hit & active
-            steps = steps + torch.where(active, hit.steps, 0)
-            segments = segments + active.to(torch.int32)
-
-            s = get_shading_data(scene, hit, r, fast=config.traversal in (
-                Traversal.PALLAS, Traversal.UNIT))
-            sky = sample_sky(ray_d, config, scene)
+            if entry == "diff":
+                return _Carry(*diff_bounce(
+                    scene, tables, hit, r, throughput, radiance, active, seed,
+                    depth, steps, segments, normal, config, i), src, pend)
+            is_hit, steps, segments, s, sky = shade_hit(
+                scene, hit, r, active, steps, segments, config)
             if config.soft_primary > 0.0 and i == 0:
                 # The primary silhouette relaxed (SoftRas-style): the winner's
                 # margin over its open (silhouette) edges gives a coverage
@@ -596,19 +655,10 @@ def path_trace(scene: Scene, ray: Ray, seed, config: RenderConfig,
                     radiance = vwhere(active, radiance + dl.direct
                                       * (~occ).to(torch.float32), radiance)
 
-            if i == 0:  # first-hit AOVs
-                dist = (s.position - ray_o).length()
-                depth = torch.where(is_hit, dist, depth)
-                normal = vwhere(is_hit, s.normal, normal)
-
-            new_o, new_dir, new_tp, survive, pdf, seed = continue_path(
-                s, hit, r, throughput, is_hit, seed, config,
-                scene.has_transmission, i)
-            return _Carry(vwhere(survive, new_o, ray_o),
-                          vwhere(survive, new_dir, ray_d),
-                          vwhere(survive, new_tp, throughput),
-                          radiance, survive, seed, depth, steps, segments,
-                          torch.where(survive, pdf, -1.0), normal, src, pend)
+            return _Carry(*next_bounce(
+                s, hit, r, throughput, radiance, is_hit, seed, depth, steps,
+                segments, normal, config, scene.has_transmission, i), src,
+                pend)
 
     with SPANS.path_lanes:
         zero_n = torch.zeros(n, dtype=torch.float32, device=dev)

@@ -74,7 +74,8 @@ COUNTERS = tuple(
         ("ops.megakernel", "mega_step"), ("ops.fused", "fused_paths"),
         ("render.traverse", "trace_bvh"), ("ops.shade", "regen_shade"),
         ("ops.shade", "regen_shade_lite"), ("ops.lanes", "regen_lane_key"),
-        ("ops.lanes", "regen_lane_refill"), ("ops.shade", "path_shade_bvh"))
+        ("ops.lanes", "regen_lane_refill"), ("ops.shade", "path_shade_bvh"),
+        ("ops.shade", "path_shade_diff"), ("ops.shade", "path_shade_diff_bwd"))
 ) + (
     "gdpathtracing_torch.render.regen:render_radiance_regen.iterations",
     "gdpathtracing_torch.render.regen:_shade_torch.iterations",
@@ -444,7 +445,15 @@ def clock_knots(events, stamps) -> list[tuple[int, int]] | None:
     those on its right both beat by more than ``LAG_SPREAD_NS``. A clock
     that runs apart moves the bounds on one side with it, so the knots
     follow it at any rate; a slow launch drops below both sides and is
-    left out. The first and the last launch, with one side, are knots."""
+    left out. The first and the last launch, with one side, are knots.
+
+    Every pair bounds the offset from below, a queued one too: a kernel
+    queued behind work that ends just after its launch starts sooner after
+    it than a launch on an idle card does. Such a pair, whose bound lies
+    above the idle launches' clock at its stamp, is a knot as well, so no
+    kernel starts before its launch on the placed clock. (Knots above a
+    clock only raise it between their neighbours, so one pass takes
+    them all.)"""
     cand = idle_launches(events, stamps)
     if not cand:
         return None
@@ -456,7 +465,10 @@ def clock_knots(events, stamps) -> list[tuple[int, int]] | None:
         if not (left and right) \
                 or x >= min(max(left), max(right)) - LAG_SPREAD_NS:
             out.append((s, x))
-    return out
+    clock = to_trace(out)
+    above = {s: s - e for s, e in launch_pairs(events, stamps)
+             if e < clock(s)}
+    return sorted((dict(out) | above).items())
 
 
 def to_trace(knots):

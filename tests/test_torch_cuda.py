@@ -2533,3 +2533,217 @@ def test_path_shade_bvh_launch_counts():
     torch.cuda.synchronize()
     assert torch.isfinite(loss) and grads.shape == scene.mat_albedo.shape
     assert shade.path_shade_bvh.launches == before
+
+
+# ---- the differentiable loop's shading and its backward ------------------
+# ---- (csrc/path_shade.cu path_shade_diff, path_shade_diff_bwd) -----------
+
+def _diff_carry_inputs(scene, n, seed):
+    """One bounce's hit and carry of the differentiable loop on the card:
+    the rays of ``_bvh_carry_inputs`` (misses, back faces, 15% inactive),
+    found and recomputed by ``trace_pallas_diff``; random throughput,
+    radiance, depth, first-hit normal, PCG2D words, steps and segments."""
+    from gdpathtracing_torch.core.vec import Vec3
+    from gdpathtracing_torch.render.types import Ray
+    hit_bvh, fs, seeds, counts, active = _bvh_carry_inputs(scene, n, 5, seed)
+    ray = Ray(Vec3(*fs[0:3]), Vec3(*fs[3:6]))
+    return dict(hit=ti.trace_pallas_diff(scene, ray, active), ray=ray,
+                throughput=Vec3(*fs[6:9].clone()),
+                radiance=Vec3(*fs[9:12].clone()), active=active,
+                seed=(seeds[0].clone(), seeds[1].clone()),
+                depth=fs[13].clone(), steps=counts[0].clone(),
+                segments=counts[1].clone(), normal=Vec3(*fs[14:17].clone()))
+
+
+@pytest.mark.parametrize("case", ["bounce 0", "bounce 2", "small"])
+def test_path_shade_diff_kernel_matches_plain(case):
+    """``path_shade_diff`` against its plain version (the differentiable
+    loop's torch body) on the card, with what it saves for the backward:
+    262144 lanes (a 1080p tile) at bounce 0, at bounce 2 under another sky
+    and ray_eps, and 1000 lanes at bounce 1 (a ragged last block), with
+    inactive lanes, misses, back faces and emissive and metallic hits.
+    Every carry tensor bit for bit, the saved rows within 1e-6, the
+    material rows equal where the path goes on, one launch; without
+    ``save`` the same carry."""
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, differentiable=True)
+    bounce, n = 0, 262144
+    if case == "bounce 2":
+        cfg, bounce = cfg.replace(ray_eps=3e-3, sky_horizon=(0.3, 0.5, 0.7),
+                                  sky_zenith=(0.1, 0.2, 1.3)), 2
+    elif case == "small":
+        bounce, n = 1, 1000
+    c = _diff_carry_inputs(scene, n, 11)
+    hit, active = c["hit"], c["active"]
+    won = hit.hit & active
+    mats = scene.isect_shade[hit.eidx.long(), 15].long()
+    kinds = [active & ~won, won & ~hit.front, won & hit.front, ~active]
+    if case != "small":
+        kinds += [won & (scene.mat_emission_energy[mats] > 0.0),
+                  won & (scene.mat_metallic[mats] > 0.5)]
+    for kind in kinds:
+        assert kind.any()
+    tables = shade.diff_tables(scene)
+    before = shade.path_shade_diff.launches
+    got, saved = shade.path_shade_diff(scene, tables, config=cfg,
+                                       bounce=bounce, save=True, **c)
+    torch.cuda.synchronize()
+    assert shade.path_shade_diff.launches == before + 1
+    want, wsaved = shade.path_shade_diff_plain(scene, config=cfg,
+                                               bounce=bounce, save=True, **c)
+    nosave, none = shade.path_shade_diff(scene, tables, config=cfg,
+                                         bounce=bounce, save=False, **c)
+    assert none is None
+
+    def flat(o):
+        return [*o.ray_o, *o.ray_d, *o.throughput, *o.radiance, o.active,
+                *o.seed, o.depth, o.steps, o.segments, o.prev_pdf, *o.normal]
+
+    for k, (a, b, d) in enumerate(zip(flat(got), flat(want), flat(nosave))):
+        assert a.dtype == b.dtype and a.device.type == "cuda", k
+        if a.dtype == torch.float32:
+            a, b, d = (x.view(torch.int32) for x in (a, b, d))
+        assert torch.equal(a, b) and torch.equal(a, d), k
+    torch.testing.assert_close(saved[0], wsaved[0], rtol=1e-6, atol=0)
+    alive = got.active
+    assert torch.equal(saved[1][alive], wsaved[1][alive])
+    assert 0 < int(alive.sum()) < int(won.sum())
+
+
+@pytest.mark.parametrize("n_mats", [7, 103, 1024])
+def test_path_shade_diff_bwd_kernel_matches_plain(n_mats):
+    """``path_shade_diff_bwd`` against its plain version on 262144 lanes
+    (a 1080p tile) of random saved rows and gradients, 7, 103 (the
+    benchmark's grid) and 1024 albedo rows: 60% of the lanes on one row
+    (a floor), the rest spread (warps of one row and of mixed rows), 20%
+    of the lanes adding nothing (ended paths). The throughput's gradient
+    bit for bit; each albedo row within 1e-4 of the plain version's, as
+    the relative norm of the difference (the floor's row sums ~10^5
+    lanes in another order, with atomics); rows no lane adds to are 0."""
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n = 262144
+    g = np.random.default_rng(n_mats)
+    saved = g.uniform(-1.0, 1.0, (9, n)).astype(np.float32)
+    ended = g.uniform(size=n) < 0.2
+    saved[6:9, ended] = 0.0
+    mat = np.where(g.uniform(size=n) < 0.6, 0,
+                   g.integers(0, max(n_mats // 2, 1), n)).astype(np.int32)
+    mat[: n // 4] = np.repeat(g.integers(0, n_mats, n // 128), 32)[: n // 4]
+    saved_t = torch.from_numpy(saved).cuda()
+    mat_t = torch.from_numpy(mat).cuda()
+    grads = torch.from_numpy(g.normal(size=(6, n)).astype(np.float32)).cuda()
+    args = (saved_t, mat_t, tuple(grads[:3]), tuple(grads[3:]), n_mats)
+    before = shade.path_shade_diff_bwd.launches
+    g_tp, g_alb = shade.path_shade_diff_bwd(*args)
+    torch.cuda.synchronize()
+    assert shade.path_shade_diff_bwd.launches == before + 1
+    w_tp, w_alb = shade.path_shade_diff_bwd_plain(*args)
+    assert torch.equal(g_tp.view(torch.int32), w_tp.view(torch.int32))
+    used = np.zeros(n_mats, bool)
+    used[np.unique(mat[~ended])] = True
+    used = torch.from_numpy(used).cuda()
+    assert bool((g_alb[~used] == 0).all())
+    rn = w_alb.norm(dim=1)[used]
+    err = (g_alb - w_alb).norm(dim=1)[used] / rn
+    assert float(err.max()) <= 1e-4
+
+
+@pytest.mark.parametrize("scene_name", ["demo", "grid"])
+def test_path_shade_diff_step_matches_torch(scene_name, monkeypatch):
+    """An albedo-only inverse step (image MSE against a grey target, its
+    gradient) through the kernels equals the same step through the loop's
+    torch body: the demo at 1080p (8 tiles x 5 bounces: 40 forward and 40
+    backward launches), and the benchmark's grid with an albedo row per
+    sphere (103 rows, sorted lanes) at 480x270. Every AOV and the loss bit
+    for bit; each albedo row's gradient within 1e-4 (relative norm of the
+    difference: the kernel's atomic sums in another order)."""
+    from gdpathtracing_torch.diff import replace_albedo
+    from gdpathtracing_torch.ops import shade
+    from gdpathtracing_torch.render import integrator
+    from gdpathtracing_torch.scene.demo import build_sphere_grid, grid_camera
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    if scene_name == "demo":
+        scene, cam = build_demo_scene(), demo_camera(1920, 1080)
+    else:
+        scene = build_sphere_grid(n=10, sphere_detail=16,
+                                  instance_albedo=True)
+        cam = grid_camera(480, 270, n=10)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, differentiable=True)
+    tiles = -(-cam.width * cam.height // cfg.tile_rays)
+
+    def step():
+        a = scene.mat_albedo.clone().requires_grad_(True)
+        aovs = render_radiance(replace_albedo(scene, a), cam, cfg, 3)
+        loss = ((aovs.radiance - 0.3) ** 2).mean()
+        (grad,) = torch.autograd.grad(loss, a)
+        torch.cuda.synchronize()
+        return aovs, loss.detach(), grad
+
+    before = (shade.path_shade_diff.launches,
+              shade.path_shade_diff_bwd.launches)
+    got = step()
+    assert (shade.path_shade_diff.launches - before[0],
+            shade.path_shade_diff_bwd.launches - before[1]) == \
+        (tiles * cfg.bounces, tiles * cfg.bounces)
+    monkeypatch.setattr(integrator, "path_shade_entry", lambda *a: None)
+    want = step()
+    for k in ("radiance", "depth", "normal", "steps", "segments"):
+        a, b = getattr(got[0], k).detach(), getattr(want[0], k).detach()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    assert torch.equal(got[1], want[1])
+    rn = want[2].norm(dim=1)
+    keep = rn > 0
+    assert bool((got[2][~keep] == 0).all()) and int(keep.sum()) >= 5
+    err = (got[2] - want[2]).norm(dim=1)[keep] / rn[keep]
+    assert float(err.max()) <= 1e-4
+
+
+def test_path_shade_diff_launch_counts():
+    """A 1080p albedo step under bwd_checkpoint launches the forward twice
+    a tile and bounce (the recompute) and the backward once; a primal
+    PALLAS frame, a regen frame, a BVH frame and a differentiable step
+    with NEE or wanting the emission's gradient launch neither."""
+    from gdpathtracing_torch.diff import replace_albedo, replace_emission
+    from gdpathtracing_torch.ops import shade
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    scene = build_demo_scene()
+    cam = demo_camera(1920, 1080)
+    cfg = RenderConfig(traversal=Traversal.PALLAS, differentiable=True)
+
+    def counts():
+        torch.cuda.synchronize()
+        return (shade.path_shade_diff.launches,
+                shade.path_shade_diff_bwd.launches)
+
+    def grad_step(c, param="albedo"):
+        p = (scene.mat_albedo if param == "albedo"
+             else scene.mat_emission).clone().requires_grad_(True)
+        s = replace_albedo(scene, p) if param == "albedo" \
+            else replace_emission(scene, p)
+        r = render_radiance(s, cam, c, 1).radiance
+        (g,) = torch.autograd.grad(r.mean(), p)
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+    before = counts()
+    grad_step(cfg.replace(bwd_checkpoint=True))
+    after = counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (80, 40)
+    small = demo_camera(64, 48)
+    before = counts()
+    render_radiance(scene, small, cfg.replace(differentiable=False,
+                                              regen=False), 0)
+    render_radiance(scene, small, RenderConfig(traversal=Traversal.PALLAS),
+                    0)
+    render_radiance(scene, small, RenderConfig(), 0)
+    grad_step(cfg.replace(nee=True))
+    grad_step(cfg, "emission")
+    assert counts() == before

@@ -620,6 +620,35 @@ def test_clock_knots_take_the_offset_from_idle_launches():
     assert telemetry.clock_knots(events, stamps[:1]) is None
 
 
+def test_clock_knots_take_a_queued_kernel_that_starts_sooner():
+    """A kernel queued behind work that ends 2 us after its launch starts
+    sooner after it than the launches on an idle card around it (lags 30
+    and 40 us): its bound lies above their clock, so it is a knot too and
+    no stamped kernel starts before its launch on the placed clock. One
+    queued longer (50 us after its launch) is no knot."""
+    us = 1_000
+    events = [("mega_step_kernel", MS, 1100 * us),
+              ("fused_paths_kernel", 2 * MS, 2500 * us),
+              # queued: launched at 2.498 ms, 2 us before fused_paths ends
+              ("occlusion_kernel", 2500 * us, 2600 * us),
+              # queued: launched at 2.55 ms, starts 50 us after it
+              ("soft_occlusion_kernel", 2600 * us, 2700 * us),
+              ("mega_step_kernel", 4 * MS, 4100 * us)]
+    stamps = [("mega_step_kernel", T0 + MS - 30 * us),
+              ("fused_paths_kernel", T0 + 2 * MS - 35 * us),
+              ("occlusion_kernel", T0 + 2498 * us),
+              ("soft_occlusion_kernel", T0 + 2550 * us),
+              ("mega_step_kernel", T0 + 4 * MS - 40 * us)]
+    ks = telemetry.clock_knots(events, stamps)
+    assert ks == [(T0 + MS - 30 * us, T0 - 30 * us),
+                  (T0 + 2 * MS - 35 * us, T0 - 35 * us),
+                  (T0 + 2498 * us, T0 - 2 * us),
+                  (T0 + 4 * MS - 40 * us, T0 - 40 * us)]
+    clock = telemetry.to_trace(ks)
+    lag = [e - clock(s) for s, e in telemetry.launch_pairs(events, stamps)]
+    assert min(lag) == 0 and max(lag) > 40 * us
+
+
 def test_clock_knots_follow_a_trace_clock_that_runs_apart():
     """A trace clock 5% faster than the host's puts frame 2's kernel 1 ms
     later than a single offset taken at frame 0 says; a knot at each
